@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `multiplanarunet_tpu_torch/csrc/` are compiled with
+`nvcc` for `sm_90a` into one shared library with a plain C interface, at
+first use, and loaded with ctypes. The library lands in `build/kernels/`
+at the checkout root (listed in .gitignore), named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one
+loads the existing library.
+
+Nothing here falls back: a missing `nvcc` or a failed compile raises
+`KernelBuildError`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+SOURCES = ("shear_pass.cu",)
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+def find_nvcc():
+    """Path of `nvcc`: $CUDA_HOME/bin (default /usr/local/cuda), then PATH."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError(
+            f"nvcc not found (looked in {cand} and on PATH): the port's CUDA "
+            f"kernels are built from multiplanarunet_tpu_torch/csrc at first "
+            f"use and need the CUDA toolkit")
+    return found
+
+
+def _source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(build_dir=BUILD_DIR):
+    """Compile the kernels unless a library of the same sources exists.
+    Returns (path, seconds spent compiling, compiler log)."""
+    build_dir = Path(build_dir)
+    lib_path = build_dir / f"libmp_kernels_{_source_hash()}.so"
+    if lib_path.is_file():
+        return lib_path, 0.0, ""
+    nvcc = find_nvcc()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    # Compile to a private name and rename into place: concurrent builds
+    # never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path, seconds, proc.stdout + proc.stderr
+
+
+class _Kernels:
+    """The loaded library, its build time and the compiler's report."""
+
+    def __init__(self, path, build_seconds, log):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self.lib = ctypes.CDLL(str(path))
+        fn = self.lib.mp_shear_pass
+        i64, f32, ptr = ctypes.c_int64, ctypes.c_float, ctypes.c_void_p
+        fn.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int,
+                       i64, i64, i64, i64,   # sizes
+                       i64, i64, i64, i64,   # strides
+                       ctypes.c_int, ctypes.c_int, i64,
+                       f32, f32, f32, f32, f32, f32,
+                       ptr]                  # stream
+        fn.restype = ctypes.c_int
+        self.shear_pass = fn
+
+
+@functools.cache
+def kernels():
+    """Build (at first use) and load the kernel library."""
+    return _Kernels(*build())
