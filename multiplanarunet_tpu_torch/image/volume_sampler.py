@@ -2,9 +2,13 @@
 
 Port of the device-staging half of
 `multiplanarunet_tpu/image/volume_sampler.py:VolumeSampler`: the centered
-voxel-axis geometry (origin, spacing, alignment rotation) and the scaled,
-bucket-padded volume as a cached tensor on a given device. The host
-interpolation path and uint8 staging are not ported yet.
+voxel-axis geometry (origin, spacing, alignment rotation), the scaled
+volume (cached on the host), and the bucket-padded volume as a cached
+tensor on a device, either plain (X, Y, Z, C) for the shear resampler or
+corner-packed (X, Y, Z, 8, C) for the gather resampler. With
+quantize=True the host ships per-channel affine uint8 codes (half the
+bytes of bf16) and the card dequantises them to bf16. The host
+interpolation path (training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from multiplanarunet_tpu_torch.ops import geometry
+from multiplanarunet_tpu_torch.ops.interp import pack_corners
 
 
 class VolumeSampler:
@@ -37,15 +42,20 @@ class VolumeSampler:
         self.bg_value = list(bg_value)
         self.origin, self.spacing, self.rot_mat = \
             geometry.voxel_axes_origin_spacing(image.shape, self.affine)
-        self._staged = None
-        self._staged_key = None
+        self._scaled_cache = None
+        self._codes = None    # (bucket, (codes, step, vmin))
+        self._staged = None   # ((form, device, bucket, dtype, quantize), t)
 
+    # ------------------------------------------------------------- host side
     @property
     def scaled_volume(self):
-        """Raw volume with the per-channel scaler applied (float32)."""
-        vol = self.image if self.scaler is None else \
-            self.scaler.transform(self.image)
-        return np.ascontiguousarray(vol, dtype=np.float32)
+        """Raw volume with the per-channel scaler applied (float32,
+        cached)."""
+        if self._scaled_cache is None:
+            vol = self.image if self.scaler is None else \
+                self.scaler.transform(self.image)
+            self._scaled_cache = np.ascontiguousarray(vol, dtype=np.float32)
+        return self._scaled_cache
 
     @property
     def scaled_bg_value(self):
@@ -68,16 +78,83 @@ class VolumeSampler:
         return tuple(max(bucket, -(-int(n) // bucket) * bucket)
                      for n in self.image.shape[:3])
 
-    def device_volume_unpacked(self, device, bucket=32, dtype=torch.bfloat16):
+    def quantized_codes(self, bucket=32):
+        """Per-channel affine uint8 quantization of the scaled volume,
+        padded to the bucket with each channel's code for 0.0 (the zero
+        pad of the float staging). Returns (codes uint8 (X, Y, Z, C),
+        step (C,) f32, vmin (C,) f32), cached; dequantization is
+        codes * step + vmin, max abs error step/2 = range/510."""
+        key = int(bucket or 0)
+        if self._codes is None or self._codes[0] != key:
+            vol = self.scaled_volume
+            vmin = vol.min(axis=(0, 1, 2)).astype(np.float32)
+            vmax = vol.max(axis=(0, 1, 2)).astype(np.float32)
+            step = np.maximum((vmax - vmin) / np.float32(255.0),
+                              np.float32(1e-12))
+            q = np.clip(np.rint((vol - vmin) / step), 0, 255).astype(np.uint8)
+            target = self.padded_shape(bucket)
+            if tuple(target) != vol.shape[:3]:
+                q0 = np.clip(np.rint((np.float32(0.0) - vmin) / step), 0,
+                             255).astype(np.uint8)
+                full = np.empty(tuple(target) + (vol.shape[3],), np.uint8)
+                full[...] = q0
+                full[:q.shape[0], :q.shape[1], :q.shape[2]] = q
+                q = full
+            self._codes = (key, (q, step, vmin))
+        return self._codes[1]
+
+    def prepare_host(self, quantize=False, bucket=32):
+        """Do the host half of staging ahead of time (scaling, and the
+        uint8 codes when quantize), so a later device_volume_* call only
+        copies."""
+        if quantize:
+            self.quantized_codes(bucket)
+        else:
+            self.scaled_volume  # noqa: B018 (fills the cache)
+
+    # ----------------------------------------------------------- device side
+    def _dense(self, device, bucket, dtype, quantize):
+        """The scaled, bucket-padded (X, Y, Z, C) volume on `device`."""
+        if quantize:
+            q, step, vmin = self.quantized_codes(bucket)
+            codes = torch.from_numpy(q).to(device)
+            step = torch.from_numpy(step).to(device)
+            vmin = torch.from_numpy(vmin).to(device)
+            return (codes.float() * step + vmin).to(dtype)
+        vol = torch.from_numpy(self.scaled_volume).to(device=device,
+                                                      dtype=dtype)
+        pads = []
+        for n, p in zip(vol.shape[:3], self.padded_shape(bucket)):
+            pads = [0, p - n] + pads  # F.pad lists the last axis first
+        return torch.nn.functional.pad(vol, [0, 0] + pads)
+
+    def _cached(self, form, device, bucket, dtype, quantize):
+        key = (form, torch.device(device), int(bucket or 0), dtype,
+               bool(quantize))
+        if self._staged is None or self._staged[0] != key:
+            # one staged form at a time per image
+            self._staged = None
+            vol = self._dense(device, bucket, dtype, quantize)
+            self._staged = (key, pack_corners(vol) if form == "packed"
+                            else vol)
+        return self._staged[1]
+
+    def device_volume_unpacked(self, device, bucket=32, dtype=torch.bfloat16,
+                               quantize=False):
         """The scaled (X, Y, Z, C) volume zero-padded to the bucket, as a
-        tensor of `dtype` on `device` (cached until the key changes)."""
-        key = (torch.device(device), int(bucket or 0), dtype)
-        if self._staged_key != key:
-            vol = torch.from_numpy(self.scaled_volume).to(device=device,
-                                                          dtype=dtype)
-            pads = []
-            for n, p in zip(vol.shape[:3], self.padded_shape(bucket)):
-                pads = [0, p - n] + pads  # F.pad lists the last axis first
-            self._staged = torch.nn.functional.pad(vol, [0, 0] + pads)
-            self._staged_key = key
-        return self._staged
+        tensor of `dtype` on `device` (cached until the key changes), for
+        the shear resampler."""
+        return self._cached("unpacked", device, bucket, dtype, quantize)
+
+    def device_volume_packed(self, device, bucket=32, dtype=torch.bfloat16,
+                             quantize=False):
+        """The corner-packed (X, Y, Z, 8, C) form of the same volume
+        (`ops.interp.pack_corners`, expanded on the device), for the
+        gather resampler. Cached like the unpacked form."""
+        return self._cached("packed", device, bucket, dtype, quantize)
+
+    def unload_device(self):
+        """Drop every staged tensor and the host caches."""
+        self._staged = None
+        self._codes = None
+        self._scaled_cache = None

@@ -1,5 +1,5 @@
-"""Scanner-space geometry for the predictor: view sampling, plane bases,
-centered voxel axes.
+"""Scanner-space geometry for the predictor and the image layer: view
+sampling, plane bases, centered voxel axes, physical image extents.
 
 Numpy copies of the functions of `multiplanarunet_tpu/ops/geometry.py`
 that the inference path needs. The JAX package's module is numpy too, but
@@ -47,6 +47,10 @@ def get_pix_dim(image):
 def get_real_image_size(image):
     shape = np.asarray(image.shape)[:3]
     return shape * get_pix_dim(image)
+
+
+def get_maximum_real_dim(image):
+    return float(np.max(get_real_image_size(image)))
 
 
 def get_bounding_sphere_real_radius(image):

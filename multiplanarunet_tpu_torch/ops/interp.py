@@ -1,0 +1,319 @@
+"""Uniform-grid interpolation by gathers, in torch: the exact resampler of
+the predictor's gather path.
+
+Port of the gather half of `multiplanarunet_tpu/ops/interp.py`. Sample
+axes are uniform (centered voxel axes spaced by pixdim; plane axes are a
+linspace), so a point's cell index is a multiply-add. Boundary semantics
+are the JAX package's: a point is out of bounds iff it lies outside
+[0, n-1] in index units on any axis (n the *valid* extent, which may be
+smaller than a bucket-padded array); in-bounds cells clamp to [0, n-2];
+nearest picks the lower voxel when frac <= 0.5. Out-of-bounds points take
+a per-channel fill vector.
+
+Flat indices are int64: at 512^3 a corner-packed volume holds
+512^3 * 8 * C elements, past 2^31.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Points per gather call in the chunked samplers: bounds the temporaries
+# (coordinates, int64 indices, gathered rows) whatever the volume size
+_CHUNK_POINTS = 1 << 24
+
+
+def _f32(x):
+    return float(np.float32(x))
+
+
+def _as_f32(x, device):
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _index_parts(points, origin, spacing, shape3):
+    """(i0 int64 (..., 3), frac float32 (..., 3), oob bool (...,)) of
+    real-space points on the grid (origin, spacing) of valid extent
+    shape3."""
+    t = (points - origin) / spacing
+    n = torch.as_tensor(np.asarray(shape3, np.float32), device=points.device)
+    oob = ((t < 0.0) | (t > (n - 1.0))).any(dim=-1)
+    i0 = torch.minimum(torch.clamp(torch.floor(t), min=0.0), n - 2.0)
+    frac = t - i0
+    return i0.to(torch.int64), frac, oob
+
+
+def _flat_gather(vol_flat, ix, iy, iz, D1, D2):
+    """Rows (..., C) of a flattened (D0*D1*D2, C) volume."""
+    flat = (ix * D1 + iy) * D2 + iz
+    rows = vol_flat.index_select(0, flat.reshape(-1))
+    return rows.reshape(flat.shape + (vol_flat.shape[-1],))
+
+
+def _fill_vector(fill, C, dtype, device):
+    if fill is None:
+        return torch.zeros((C,), dtype=dtype, device=device)
+    fill = torch.as_tensor(np.asarray(fill, np.float32), device=device)
+    return torch.broadcast_to(fill, (C,)).to(dtype)
+
+
+def grid_gather(values, origin, spacing, points, method="linear", fill=None,
+                valid_shape=None):
+    """Interpolate values (D0, D1, D2, C) on a uniform grid at real-space
+    points (..., 3) float32. method: 'linear', 'nearest' or 'knn' (the
+    nearest voxel and its six axis neighbours vote, normalised to a unit
+    channel sum). fill: scalar or (C,) out-of-bounds value (0 if None),
+    in values' dtype. valid_shape: the true extent when values is padded
+    beyond it. Returns (..., C): float32 for linear over a lower-precision
+    input (the JAX promotion), values' dtype otherwise."""
+    if values.dim() != 4:
+        raise ValueError(f"values must be rank-4 (D0,D1,D2,C), got "
+                         f"{tuple(values.shape)}")
+    D0, D1, D2, C = values.shape
+    dev = values.device
+    origin = _as_f32(origin, dev)
+    spacing = _as_f32(spacing, dev)
+    fillv = _fill_vector(fill, C, values.dtype, dev)
+    bounds = (D0, D1, D2) if valid_shape is None else tuple(
+        int(s) for s in valid_shape)
+    i0, frac, oob = _index_parts(points, origin, spacing, bounds)
+    vol_flat = values.reshape(-1, C)
+
+    if method == "nearest":
+        idx = torch.where(frac <= 0.5, i0, i0 + 1)
+        out = _flat_gather(vol_flat, idx[..., 0], idx[..., 1], idx[..., 2],
+                           D1, D2)
+    elif method == "linear":
+        fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+        ix, iy, iz = i0[..., 0], i0[..., 1], i0[..., 2]
+        out = None
+        for dx in (0, 1):
+            wx = fx if dx else (1.0 - fx)
+            for dy in (0, 1):
+                wy = fy if dy else (1.0 - fy)
+                for dz in (0, 1):
+                    wz = fz if dz else (1.0 - fz)
+                    corner = _flat_gather(vol_flat, ix + dx, iy + dy,
+                                          iz + dz, D1, D2)
+                    contrib = corner * (wx * wy * wz)[..., None]
+                    out = contrib if out is None else out + contrib
+    elif method in ("knn", "kNN"):
+        idx = torch.where(frac <= 0.5, i0, i0 + 1)
+        hi = torch.as_tensor(bounds, dtype=torch.int64, device=dev) - 1
+        out = None
+        for d in ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0),
+                  (0, 1, 0), (0, 0, -1), (0, 0, 1)):
+            j = idx + torch.as_tensor(d, dtype=torch.int64, device=dev)
+            j = torch.minimum(torch.clamp(j, min=0), hi)
+            v = _flat_gather(vol_flat, j[..., 0], j[..., 1], j[..., 2],
+                             D1, D2)
+            out = v if out is None else out + v
+        out = out / out.sum(dim=-1, keepdim=True)
+    else:
+        raise ValueError(f"Unknown method '{method}'")
+    return torch.where(oob[..., None], fillv.to(out.dtype), out)
+
+
+# --------------------------------------------------------------------- planes
+def plane_points(basis, offset, span, dim, device="cpu"):
+    """(d, d, 3) float32 real-space positions of one oblique plane:
+    point(i, j) = u * g[i] + v * g[j] + n_hat * offset with
+    g = linspace(-span//2, span//2, dim); basis is the (u, v, n_hat)
+    column matrix of `ops.geometry.plane_basis`."""
+    hd = _f32(np.floor_divide(np.float32(span), np.float32(2.0)))
+    g = torch.linspace(-hd, hd, int(dim), dtype=torch.float32, device=device)
+    b = _as_f32(basis, device)
+    u, v, n = b[:, 0], b[:, 1], b[:, 2]
+    return (g[:, None, None] * u[None, None, :]
+            + g[None, :, None] * v[None, None, :]
+            + _f32(offset) * n[None, None, :])
+
+
+# --------------------------------------------------------- packed-corner path
+_CORNERS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+
+
+def pack_corners(volume):
+    """(X, Y, Z, C) -> (X, Y, Z, 8, C): entry [x, y, z, k] holds
+    volume[x+dx, y+dy, z+dz] for the k-th corner offset, edge-padded at
+    the high end (those rows are never read: cells clamp to n-2)."""
+    p = volume
+    for axis in range(3):
+        p = torch.cat([p, p.narrow(axis, p.shape[axis] - 1, 1)], dim=axis)
+    X, Y, Z, _ = volume.shape
+    return torch.stack([p[dx:dx + X, dy:dy + Y, dz:dz + Z]
+                        for dx, dy, dz in _CORNERS], dim=3)
+
+
+def grid_gather_packed(packed, origin, spacing, points, fill=None,
+                       valid_shape=None):
+    """Trilinear interpolation from a corner-packed (X, Y, Z, 8, C) volume
+    with one row gather per point; blends in float32. Returns (..., C)
+    float32 (fill rounded to packed's dtype first, as in the JAX
+    package)."""
+    X, Y, Z, _, C = packed.shape
+    dev = packed.device
+    origin = _as_f32(origin, dev)
+    spacing = _as_f32(spacing, dev)
+    fillv = _fill_vector(fill, C, packed.dtype, dev).float()
+    bounds = (X, Y, Z) if valid_shape is None else tuple(
+        int(s) for s in valid_shape)
+    i0, frac, oob = _index_parts(points, origin, spacing, bounds)
+    flat = (i0[..., 0] * Y + i0[..., 1]) * Z + i0[..., 2]
+    rows = packed.reshape(-1, 8, C).index_select(0, flat.reshape(-1))
+    rows = rows.reshape(flat.shape + (8, C)).float()
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+    wx = torch.stack([1.0 - fx, fx], -1)
+    wy = torch.stack([1.0 - fy, fy], -1)
+    wz = torch.stack([1.0 - fz, fz], -1)
+    w = (wx[..., :, None, None] * wy[..., None, :, None]
+         * wz[..., None, None, :]).reshape(frac.shape[:-1] + (8,))
+    out = (rows * w[..., None]).sum(dim=-2)
+    return torch.where(oob[..., None], fillv, out)
+
+
+def sample_plane_stack_packed(packed, origin, spacing, rot, basis, offsets,
+                              span, dim, fill, valid_shape=None):
+    """(d, d, P, C) float32 stack of parallel planes along one view from a
+    corner-packed volume: plane p sits at offsets[p] along n_hat, and the
+    points are rotated by `rot` (the scanner -> grid alignment, identity
+    when the affine is axis-aligned) before sampling. Sampled in chunks of
+    planes, so the temporaries stay bounded at any volume size."""
+    dev = packed.device
+    base = plane_points(basis, 0.0, span, dim, device=dev)
+    n = _as_f32(basis, dev)[:, 2]
+    rot_t = (torch.eye(3, device=dev) if rot is None
+             else _as_f32(rot, dev)).T
+    offs = _as_f32(offsets, dev)
+    d = int(dim)
+    per_chunk = max(1, _CHUNK_POINTS // (d * d))
+    parts = []
+    for p0 in range(0, offs.shape[0], per_chunk):
+        o = offs[p0:p0 + per_chunk]
+        pts = base[:, :, None, :] + o[None, None, :, None] * n
+        pts = pts @ rot_t
+        parts.append(grid_gather_packed(packed, origin, spacing, pts,
+                                        fill=fill, valid_shape=valid_shape))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+# ------------------------------------------------------ prediction remapping
+def _view_slab_mapper(pred, plane_start, plane_step, offset_start,
+                      offset_step, M, t, out_shape, valid_planes, method,
+                      x_slab):
+    """(x_slab, n_slabs, one_slab): one_slab(i) maps X-slab i of the voxel
+    grid from the (d, d, P_pad, C) prediction stack, generating the voxel
+    -> plane coordinates M @ (i, j, k) + t in float32 in the JAX package's
+    order. Past 256^3 voxels the grid is cut into slabs so the coordinate
+    grid never exists whole."""
+    X, Y, Z = (int(s) for s in out_shape)
+    C = pred.shape[-1]
+    dev = pred.device
+    fill = np.zeros((C,), np.float32)
+    fill[0] = 1.0
+    origin = (plane_start, plane_start, offset_start)
+    spacing = (plane_step, plane_step, offset_step)
+    valid = (pred.shape[0], pred.shape[1], int(valid_planes))
+    M = np.asarray(M, np.float32)
+    t = np.asarray(t, np.float32)
+    if x_slab is None:
+        x_slab = X if X * Y * Z <= 256 ** 3 else max(32, X // 16)
+    if X % x_slab:
+        x_slab = max(d for d in range(1, x_slab + 1) if X % d == 0)
+    n_slabs = X // x_slab
+    jj = torch.arange(Y, dtype=torch.float32, device=dev)[None, :, None]
+    kk = torch.arange(Z, dtype=torch.float32, device=dev)[None, None, :]
+
+    def one_slab(i):
+        ii = (float(i * x_slab)
+              + torch.arange(x_slab, dtype=torch.float32, device=dev)
+              )[:, None, None]
+        pts = torch.stack(
+            [(ii * _f32(M[a, 0]) + jj * _f32(M[a, 1])
+              + kk * _f32(M[a, 2]) + _f32(t[a])) for a in range(3)],
+            dim=-1)
+        return grid_gather(pred, origin, spacing, pts, method=method,
+                           fill=fill, valid_shape=valid)
+
+    return x_slab, n_slabs, one_slab
+
+
+def map_view_pred_affine(pred, plane_start, plane_step, offset_start,
+                         offset_step, M, t, out_shape, valid_planes,
+                         method="nearest", x_slab=None):
+    """Map a (d, d, P_pad, C) per-view prediction stack onto the (X, Y, Z)
+    voxel grid: voxel index v reads the stack at plane coordinates
+    M @ v + t (padded tail planes past valid_planes are out of bounds,
+    out-of-bounds voxels get the one-hot background). Returns
+    (X, Y, Z, C) in pred's dtype for nearest."""
+    X, Y, Z = (int(s) for s in out_shape)
+    x_slab, n_slabs, one_slab = _view_slab_mapper(
+        pred, plane_start, plane_step, offset_start, offset_step, M, t,
+        (X, Y, Z), valid_planes, method, x_slab)
+    if n_slabs == 1:
+        return one_slab(0)
+    return torch.cat([one_slab(i) for i in range(n_slabs)], dim=0)
+
+
+def accum_view_pred_affine(pred, plane_start, plane_step, offset_start,
+                           offset_step, M, t, accum, w, valid_planes,
+                           want_argmax=False, method="nearest",
+                           x_slab=None):
+    """`map_view_pred_affine` fused with the fusion accumulation: updates
+    the float32 accum (X, Y, Z, C) in place, slab by slab
+    (accum[x0:x1] += w * mapped), so only one slab's mapped volume is ever
+    live. Returns the per-voxel argmax of the mapped volume as uint8
+    (X, Y, Z) when want_argmax, else None."""
+    X, Y, Z = accum.shape[:3]
+    x_slab, n_slabs, one_slab = _view_slab_mapper(
+        pred, plane_start, plane_step, offset_start, offset_step, M, t,
+        (X, Y, Z), valid_planes, method, x_slab)
+    w = torch.as_tensor(w, dtype=torch.float32, device=accum.device)
+    side = (torch.empty((X, Y, Z), dtype=torch.uint8, device=accum.device)
+            if want_argmax else None)
+    for i in range(n_slabs):
+        mapped = one_slab(i).float()
+        x0 = i * x_slab
+        accum[x0:x0 + x_slab] += w * mapped
+        if side is not None:
+            side[x0:x0 + x_slab] = mapped.argmax(dim=-1).to(torch.uint8)
+    return side
+
+
+# ---------------------------------------------------------------- numpy twin
+def grid_gather_np(values, origin, spacing, points, method="linear",
+                   fill=None):
+    """Reference numpy implementation of `grid_gather` (linear and
+    nearest), for tests and host-side use."""
+    values = np.asarray(values)
+    D0, D1, D2, C = values.shape
+    points = np.asarray(points, np.float32)
+    t = (points - np.asarray(origin)) / np.asarray(spacing)
+    n = np.array([D0, D1, D2], np.float32)
+    oob = np.any((t < 0) | (t > (n - 1)), axis=-1)
+    i0 = np.clip(np.floor(t), 0, n - 2).astype(np.int64)
+    frac = (t - i0).astype(np.float32)
+    flat = values.reshape(-1, C)
+
+    def g(ix, iy, iz):
+        return flat[(ix * D1 + iy) * D2 + iz]
+
+    if method == "nearest":
+        idx = np.where(frac <= 0.5, i0, i0 + 1)
+        out = g(idx[..., 0], idx[..., 1], idx[..., 2])
+    else:
+        out = np.zeros(points.shape[:-1] + (C,), np.float32)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    w = ((frac[..., 0] if dx else 1 - frac[..., 0])
+                         * (frac[..., 1] if dy else 1 - frac[..., 1])
+                         * (frac[..., 2] if dz else 1 - frac[..., 2]))
+                    out += g(i0[..., 0] + dx, i0[..., 1] + dy,
+                             i0[..., 2] + dz) * w[..., None]
+    if fill is None:
+        fillv = np.zeros((C,), np.float32)
+    else:
+        fillv = np.broadcast_to(np.asarray(fill, np.float32), (C,))
+    return np.where(oob[..., None], fillv, out)

@@ -1,21 +1,28 @@
 """Fused multi-view inference, in torch.
 
-Port of the shear path of
-`multiplanarunet_tpu/utils/fusion/fuse_and_predict.py:MultiViewPredictor`.
-For each view, on the device:
+Port of `multiplanarunet_tpu/utils/fusion/fuse_and_predict.py:
+MultiViewPredictor` (single device). For each view, on the device:
 
-    plane-stack resample (6 Catmull-Rom shear passes, bf16)
-        -> U-Net over plane chunks (bf16 probabilities)
-        -> remap onto the padded voxel grid (6 linear passes, f32 out)
-        -> accum += W[v] * mapped  (float32 fusion accumulator)
+    plane-stack resample  ->  U-Net over plane chunks (bf16 probabilities)
+        ->  remap onto the padded voxel grid
+        ->  accum += W[v] * mapped  (float32 fusion accumulator)
 
 then bias + argmax (uint8 class map) or the fused probabilities. Because
 the fusion model is linear in the per-view probabilities, accumulating
 ``W[v] * mapped`` per view is the fusion.
 
-Not ported yet: the exact-gather resampler and the channel-grouped remap.
-A view whose affine does not factor, or whose plans exceed the memory
-guard, raises `ShearUnsupportedError` instead of falling back.
+Two resamplers:
+
+  * ``shear``: shear-decomposed affine resampling (`ops.shear`), 6
+    Catmull-Rom passes for the stack and 6 linear passes for the remap,
+    each a launch of the CUDA shear-pass kernel on the card. A remap that
+    would not fit the memory guard runs over channel groups in bf16, or
+    else through the slab-scanned gather remap (mixed mode).
+  * ``gather``: the exact corner-packed trilinear stack and nearest remap
+    of `ops.interp`, one loop over views.
+
+``auto`` (default) takes shear when every view's plane stack factors
+within the guard and falls back to gather for the whole image otherwise.
 """
 
 from __future__ import annotations
@@ -26,6 +33,10 @@ import numpy as np
 import torch
 
 from multiplanarunet_tpu_torch.ops import geometry
+from multiplanarunet_tpu_torch.ops.interp import (
+    accum_view_pred_affine,
+    sample_plane_stack_packed,
+)
 from multiplanarunet_tpu_torch.ops.shear import shear_resample
 from multiplanarunet_tpu_torch.ops.shear_plan import (
     plan_plane_stack,
@@ -34,14 +45,25 @@ from multiplanarunet_tpu_torch.ops.shear_plan import (
 )
 
 
-class ShearUnsupportedError(NotImplementedError):
-    """A view needs a resampler the port does not have yet."""
-
-
 def _device_memory_bytes(device):
     if device.type == "cuda":
         return float(torch.cuda.get_device_properties(device).total_memory)
     return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+
+
+def class_map_counts(cls, labels, n_classes):
+    """(3, n_classes) int64 confusion counts (tp, rel = |labels == c|,
+    sel = |cls == c|) of a class map against labels of the same shape,
+    computed where the tensors lie; feed `evaluate.metrics.
+    dice_from_counts`."""
+    tp, rel, sel = [], [], []
+    for c in range(n_classes):
+        s1 = labels == c
+        s2 = cls == c
+        tp.append((s1 & s2).sum())
+        rel.append(s1.sum())
+        sel.append(s2.sum())
+    return torch.stack([torch.stack(tp), torch.stack(rel), torch.stack(sel)])
 
 
 class MultiViewPredictor:
@@ -56,16 +78,20 @@ class MultiViewPredictor:
     # Memory guards as fractions of the device's memory. The JAX package's
     # constants (3.2e9 per bf16 stage, 11e9 remap peak) were sized for a
     # 16 GB chip; these keep the same proportions of whatever card runs.
+    # The instance attributes stage_bytes_max / remap_peak_bytes_max hold
+    # the resulting byte budgets.
     STAGE_FRACTION = 0.2
     REMAP_PEAK_FRACTION = 0.6875
 
     def __init__(self, model, sample_dim, real_space_span, n_classes, device,
-                 chunk=None):
+                 chunk=None, logger=None, resampler="auto",
+                 stage_dtype="bf16"):
         self.model = model
         self.dim = int(sample_dim)
         self.span = float(real_space_span)
         self.n_classes = int(n_classes)
         self.device = torch.device(device)
+        self.logger = logger
         depth = getattr(model, "depth", None)
         if depth and self.dim % (2 ** depth):
             raise ValueError(
@@ -73,6 +99,16 @@ class MultiViewPredictor:
                 f"{2 ** depth}: the U-Net would crop its output below the "
                 f"input size and the prediction remap would fail. Use a dim "
                 f"divisible by {2 ** depth}.")
+        if resampler not in ("auto", "shear", "gather"):
+            raise ValueError(f"resampler must be 'auto', 'shear' or "
+                             f"'gather'; got {resampler!r}")
+        self.resampler = resampler
+        if stage_dtype not in ("bf16", "u8"):
+            raise ValueError(f"stage_dtype must be 'bf16' or 'u8'; got "
+                             f"{stage_dtype!r}")
+        # 'u8' stages volumes as per-channel affine uint8 codes (half the
+        # bf16 host->device bytes), dequantised to bf16 on the device
+        self.stage_dtype = stage_dtype
         # Plane batch per U-Net step. With chunk=None the batch adapts to
         # each stack's plane count so no padded planes run through the
         # U-Net (P_pad = steps * 2ceil(P / 2steps)), as in the JAX package.
@@ -81,7 +117,14 @@ class MultiViewPredictor:
         mem = _device_memory_bytes(self.device)
         self.stage_bytes_max = self.STAGE_FRACTION * mem
         self.remap_peak_bytes_max = self.REMAP_PEAK_FRACTION * mem
+        # Per view of the last predict_image: 'shear', 'grouped:<g>',
+        # 'gather-remap' (mixed mode) or 'gather'
+        self.remap_modes = []
         self._events = []
+
+    def _log(self, msg):
+        if self.logger:
+            self.logger(msg)
 
     # ----------------------------------------------------------- planning
     def _chunk_for(self, P_pad):
@@ -154,10 +197,42 @@ class MultiViewPredictor:
         b = np.asarray(fusion_params["fusion"]["b"], np.float32).reshape(-1)
         return W, b
 
+    def _remap_group(self, r_plan, vol_shape, P_pad):
+        """How one view's remap runs within the memory guards: (mode,
+        group) with mode 'shear' (all classes, f32 out), 'grouped' (bf16
+        passes over `group` classes at a time) or 'gather-remap'.
+
+        Peak of the all-classes remap: the f32 accumulator and the bf16
+        prediction stack stay live throughout; mid pass an input and an
+        output stage, in the final pass the last stage next to the mapped
+        f32 volume. A grouped remap shrinks every stage with the group
+        width while the other groups' finished bf16 parts stay live."""
+        nc = self.n_classes
+        accum_bytes = float(np.prod(vol_shape)) * nc * 4
+        pred_bytes = float(self.dim * self.dim * P_pad) * nc * 2
+        base = accum_bytes + pred_bytes
+        r_stage = (plan_stage_bytes(r_plan, nc) if r_plan.valid
+                   else float("inf"))
+        peak_f32 = max(2 * r_stage + base, r_stage + accum_bytes + base)
+        if (r_stage <= self.stage_bytes_max
+                and peak_f32 <= self.remap_peak_bytes_max):
+            return "shear", None
+        if r_plan.valid:
+            for g in range(nc - 1, 0, -1):
+                r_g = plan_stage_bytes(r_plan, g)
+                peak_g = 2 * r_g + accum_bytes / 2 + base
+                if (r_g <= self.stage_bytes_max
+                        and peak_g <= self.remap_peak_bytes_max):
+                    return "grouped", g
+        return "gather-remap", None
+
     def _plan_shear_views(self, image, bases, Mts, offsets, n_valid):
-        """Per-view ((stack plan, bounds), (remap plan, bounds)). Raises
-        ShearUnsupportedError where the JAX package would fall back to the
-        exact gather path or the channel-grouped remap."""
+        """Per-view ((stack plan, bounds), (remap mode, group, remap plan,
+        bounds)), or None when a view's plane-stack affine does not factor
+        or its stages exceed the memory guard (the caller then takes the
+        gather path). A view whose stack fits but whose remap does not
+        even in channel groups remaps through the gather kernel (mixed
+        mode)."""
         sampler = image.interpolator
         rot = (np.eye(3) if sampler.rot_mat is None
                else np.asarray(sampler.rot_mat, np.float64))
@@ -166,44 +241,22 @@ class MultiViewPredictor:
         P_pad = len(offsets)
         valid_shape = tuple(int(s) for s in sampler.valid_shape)
         n_ch = int(sampler.n_channels)
-        # Peak memory of a remap: the f32 accumulator, the mapped f32
-        # volume, the bf16 prediction stack and two live bf16 stages
-        accum_bytes = float(np.prod(vol_shape)) * self.n_classes * 4
-        pred_bytes = float(self.dim * self.dim * P_pad) * self.n_classes * 2
-        later = ("the exact-gather resampler and the channel-grouped remap "
-                 "are not ported yet")
         plans = []
-        for v, (basis, (M, t)) in enumerate(zip(bases, Mts)):
+        for basis, (M, t) in zip(bases, Mts):
             s_plan, s_Nc = plan_plane_stack(
                 basis, rot, sampler.origin, sampler.spacing,
                 g0, g_step, o0, o_step, vol_shape, self.dim, P_pad)
-            if not s_plan.valid:
-                raise ShearUnsupportedError(
-                    f"view {v}: the plane-stack affine does not factor into "
-                    f"shear passes; {later}")
-            if plan_stage_bytes(s_plan, n_ch) > self.stage_bytes_max:
-                raise ShearUnsupportedError(
-                    f"view {v}: a plane-stack stage exceeds the memory guard "
-                    f"({self.stage_bytes_max:.3g} B); {later}")
+            if (not s_plan.valid
+                    or plan_stage_bytes(s_plan, n_ch) > self.stage_bytes_max):
+                return None
             r_plan, r_Nc = plan_view_remap(
                 M, t, g0, g_step, o0, o_step,
                 (self.dim, self.dim, P_pad), vol_shape)
-            if not r_plan.valid:
-                raise ShearUnsupportedError(
-                    f"view {v}: the remap affine does not factor into shear "
-                    f"passes; {later}")
-            r_stage = plan_stage_bytes(r_plan, self.n_classes)
-            base = accum_bytes + pred_bytes
-            peak = max(2 * r_stage + base, r_stage + accum_bytes + base)
-            if (r_stage > self.stage_bytes_max
-                    or peak > self.remap_peak_bytes_max):
-                raise ShearUnsupportedError(
-                    f"view {v}: the remap needs {peak:.3g} B at its peak, "
-                    f"over the memory guard ({self.remap_peak_bytes_max:.3g}"
-                    f" B); {later}")
+            mode, group = self._remap_group(r_plan, vol_shape, P_pad)
             # Padded tail planes are out of bounds for the remap
             plans.append(((s_plan, s_Nc + (valid_shape,)),
-                          (r_plan, r_Nc + ((self.dim, self.dim, n_valid),))))
+                          (mode, group, r_plan,
+                           r_Nc + ((self.dim, self.dim, n_valid),))))
         return plans
 
     # ------------------------------------------------------------ running
@@ -219,7 +272,9 @@ class MultiViewPredictor:
         """{stage: milliseconds} of the last predict_image on the card,
         from CUDA events, summed over views: 'stack', 'unet', 'remap'
         (with the accumulation), 'fuse', and 'start' (the gaps between a
-        view's end and the next stage's start). Empty off the card."""
+        view's end and the next stage's start), 'stage' (the volume's
+        host -> device copy and on-device expansion). Empty off the
+        card."""
         if not self._events:
             return {}
         torch.cuda.synchronize(self.device)
@@ -241,17 +296,125 @@ class MultiViewPredictor:
             pred[:, :, p:p + chunk] = probs.permute(2, 3, 0, 1)
         return pred
 
+    def shear_remap(self, pred, r_plan, r_bounds, group=None):
+        """Remap a (d, d, P_pad, n_classes) bf16 prediction stack through
+        a shear plan: all classes at once with a float32 result (group
+        None), or over channel groups of `group` classes with bf16 passes
+        and bf16 parts concatenated. The fill is the one-hot background."""
+        nc = self.n_classes
+        onehot_bg = np.zeros((nc,), np.float32)
+        onehot_bg[0] = 1.0
+        if not group:
+            return shear_resample(pred, r_plan, onehot_bg, method="linear",
+                                  compute_dtype=torch.bfloat16,
+                                  out_dtype=torch.float32,
+                                  exact_bounds=r_bounds)
+        parts = [shear_resample(pred[..., lo:lo + group], r_plan,
+                                onehot_bg[lo:lo + group], method="linear",
+                                compute_dtype=torch.bfloat16,
+                                out_dtype=torch.bfloat16,
+                                exact_bounds=r_bounds)
+                 for lo in range(0, nc, group)]
+        return torch.cat(parts, dim=-1)
+
+    def _stage_volume(self, sampler, packed):
+        quantize = self.stage_dtype == "u8"
+        if packed:
+            return sampler.device_volume_packed(self.device,
+                                                quantize=quantize)
+        return sampler.device_volume_unpacked(self.device, quantize=quantize)
+
+    def prestage(self, image):
+        """The host half of staging this image (scaling, and the uint8
+        codes for stage_dtype 'u8'), for an input thread to run ahead of
+        predict_image; predict_image copies to the device on the calling
+        thread."""
+        image.interpolator.prepare_host(quantize=self.stage_dtype == "u8")
+
+    def _per_view_result(self, cls, crop, labels_dev):
+        """A per-view uint8 class map fetched to the host, or with staged
+        labels its (3, C) confusion counts left on the device."""
+        cls = cls[crop]
+        if labels_dev is None:
+            return cls.cpu().numpy()
+        return class_map_counts(cls, labels_dev, self.n_classes)
+
+    def _stage_eval_labels(self, eval_labels):
+        lab = np.asarray(eval_labels)
+        if lab.ndim == 4:
+            lab = lab[..., 0]
+        return torch.from_numpy(lab.astype(np.uint8)).to(self.device)
+
+    def _run_views(self, sampler, volume, bases, plans, ws, out_shape,
+                   offsets, n_valid, Mts, want_side, crop, labels_dev):
+        """The per-view loop: stack (shear plan, or the corner-packed
+        gather when the view has no stack plan), U-Net, remap (shear,
+        grouped shear, or the gather remap) + fusion accumulation.
+        Returns (accum, per-view results)."""
+        fill = sampler.scaled_bg_value
+        g0, g_step, o0, o_step = self._grid_params(offsets)
+        accum = torch.zeros(out_shape + (self.n_classes,),
+                            dtype=torch.float32, device=self.device)
+        per_view = []
+        for v, (stack_plan, (mode, group, r_plan, r_bounds)) in \
+                enumerate(plans):
+            self.remap_modes.append(mode if group is None
+                                    else f"grouped:{group}")
+            self._log(f"View {v + 1}/{len(plans)}: "
+                      f"{'gather' if stack_plan is None else 'shear'} "
+                      f"stack, remap {self.remap_modes[-1]}")
+            self._mark("start")
+            if stack_plan is None:
+                stack = sample_plane_stack_packed(
+                    volume, sampler.origin, sampler.spacing, sampler.rot_mat,
+                    bases[v], offsets, self.span, self.dim, fill,
+                    valid_shape=sampler.valid_shape)
+            else:
+                # Catmull-Rom forward passes keep the input sharp; bf16
+                # passes halve the bandwidth (the U-Net computes in bf16)
+                stack = shear_resample(volume, stack_plan[0], fill,
+                                       method="cubic",
+                                       compute_dtype=torch.bfloat16,
+                                       exact_bounds=stack_plan[1])
+            self._mark("stack")
+            pred = self._unet_stack(stack)
+            del stack
+            self._mark("unet")
+            if mode in ("gather", "gather-remap"):
+                M, t = Mts[v]
+                side = accum_view_pred_affine(
+                    pred, g0, g_step, o0, o_step, M, t, accum, ws[v],
+                    n_valid, want_argmax=want_side)
+            else:
+                mapped = self.shear_remap(pred, r_plan, r_bounds, group)
+                side = (mapped.argmax(dim=-1).to(torch.uint8)
+                        if want_side else None)
+                # accum + w * mapped in float32, with no second f32 volume
+                accum.addcmul_(mapped, ws[v])
+                del mapped
+            del pred
+            if want_side:
+                per_view.append(self._per_view_result(side, crop,
+                                                      labels_dev))
+            self._mark("remap")
+        return accum, per_view
+
     @torch.inference_mode()
     def predict_image(self, image, views, fusion_params=None,
                       n_planes="same+20", return_per_view=True,
-                      return_probs=False):
+                      return_probs=False, defer_fetch=False,
+                      eval_labels=None):
         """Run all views over one image and fuse.
 
-        Returns (fused, per_view) as numpy arrays cropped to the image's
-        true shape: `fused` is the uint8 argmax class map, or with
-        return_probs the fused probabilities (softmax(accum + b) with
-        learned fusion, accum / n_views without); `per_view` is a list of
-        per-view uint8 argmax maps, or None."""
+        Returns (fused, per_view) cropped to the image's true shape.
+        `fused` is the uint8 argmax class map, or with return_probs the
+        fused probabilities (softmax(accum + b) with learned fusion,
+        accum / n_views without), as numpy; with defer_fetch a zero-arg
+        callable returning it (the device work is already queued).
+        `per_view` is a list of per-view uint8 class maps, or with
+        eval_labels (host label volume) of (3, n_classes) int64 confusion
+        counts against them (only those counts leave the device), or None
+        when not return_per_view."""
         sampler = image.interpolator
         true_shape = tuple(int(s) for s in image.shape[:3])
         offsets, n_valid = self._prepare_offsets(image, n_planes)
@@ -260,54 +423,53 @@ class MultiViewPredictor:
         bases = [geometry.plane_basis(view, noise_sd=0.0) for view in views]
         Mts = [self._remap_transform(image, basis, true_shape)
                for basis in bases]
-        plans = self._plan_shear_views(image, bases, Mts, offsets, n_valid)
+        plans = None
+        if self.resampler in ("auto", "shear"):
+            plans = self._plan_shear_views(image, bases, Mts, offsets,
+                                           n_valid)
+            if plans is None and self.resampler == "shear":
+                raise ValueError(
+                    "resampler='shear' requested but a view affine does not "
+                    "factor within the memory guard; use 'auto' (falls back "
+                    "to the exact gather path) or 'gather'")
+        labels_dev = (self._stage_eval_labels(eval_labels)
+                      if return_per_view and eval_labels is not None
+                      else None)
 
         dev = self.device
         self._events = []
-        volume = sampler.device_volume_unpacked(dev)
+        self.remap_modes = []
+        self._mark("start")
+        volume = self._stage_volume(sampler, packed=plans is None)
+        self._mark("stage")
         out_shape = tuple(int(s) for s in volume.shape[:3])
-        fill = sampler.scaled_bg_value
-        onehot_bg = np.zeros((self.n_classes,), np.float32)
-        onehot_bg[0] = 1.0
         ws = (torch.from_numpy(W) if W is not None
               else torch.ones((n_views, self.n_classes))).to(dev)
-        accum = torch.zeros(out_shape + (self.n_classes,),
-                            dtype=torch.float32, device=dev)
-        per_view = [] if return_per_view else None
         crop = tuple(slice(0, s) for s in true_shape)
-        for v, ((s_plan, s_bounds), (r_plan, r_bounds)) in enumerate(plans):
-            self._mark("start")
-            # Catmull-Rom forward passes keep the input sharp; bf16 passes
-            # halve the bandwidth (the U-Net computes in bf16 anyway)
-            stack = shear_resample(volume, s_plan, fill, method="cubic",
-                                   compute_dtype=torch.bfloat16,
-                                   exact_bounds=s_bounds)
-            self._mark("stack")
-            pred = self._unet_stack(stack)
-            del stack
-            self._mark("unet")
-            mapped = shear_resample(pred, r_plan, onehot_bg, method="linear",
-                                    compute_dtype=torch.bfloat16,
-                                    out_dtype=torch.float32,
-                                    exact_bounds=r_bounds)
-            del pred
-            if return_per_view:
-                per_view.append(mapped[crop].argmax(dim=-1)
-                                .to(torch.uint8).cpu().numpy())
-            accum += mapped.mul_(ws[v])  # in place: no second f32 volume
-            del mapped
-            self._mark("remap")
+        if plans is None:  # the exact gather path for every view
+            plans = [(None, ("gather", None, None, None))] * n_views
+        accum, per_view = self._run_views(
+            sampler, volume, bases, plans, ws, out_shape, offsets, n_valid,
+            Mts, return_per_view, crop, labels_dev)
+        del volume
+        if labels_dev is not None:
+            per_view = [c.cpu().numpy() for c in per_view]
 
         b_t = torch.from_numpy(b).to(dev)
         self._mark("start")
         if return_probs:
             fused = (torch.softmax(accum + b_t, dim=-1)
                      if fusion_params is not None else accum / n_views)
-            out = fused[crop].cpu().numpy()
+            out = fused[crop]
         else:
             # argmax is invariant to softmax and to the sum-fusion 1/n
             # scaling, so bias + argmax is the fused class map
             out = (accum + b_t)[crop].argmax(dim=-1).to(torch.uint8)
-            out = out.cpu().numpy()
+        del accum
+        per_view = per_view if return_per_view else None
+        if defer_fetch:
+            self._mark("fuse")
+            return (lambda: out.cpu().numpy()), per_view
+        out = out.cpu().numpy()
         self._mark("fuse")
         return out, per_view

@@ -23,24 +23,41 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.ops._build",
     "multiplanarunet_tpu_torch.ops.shear_pass",
     "multiplanarunet_tpu_torch.ops.shear",
+    "multiplanarunet_tpu_torch.ops.interp",
     "multiplanarunet_tpu_torch.models.unet",
     "multiplanarunet_tpu_torch.models.fusion_model",
     "multiplanarunet_tpu_torch.models.checkpoint",
+    "multiplanarunet_tpu_torch.models.model_init",
     "multiplanarunet_tpu_torch.image.volume_sampler",
+    "multiplanarunet_tpu_torch.image.image_pair",
+    "multiplanarunet_tpu_torch.image.image_pair_loader",
+    "multiplanarunet_tpu_torch.io.nifti",
+    "multiplanarunet_tpu_torch.preprocessing.scaling",
+    "multiplanarunet_tpu_torch.evaluate.metrics",
+    "multiplanarunet_tpu_torch.hyperparameters.yaml_reader",
+    "multiplanarunet_tpu_torch.hyperparameters.hparams",
+    "multiplanarunet_tpu_torch.logging.loggers",
+    "multiplanarunet_tpu_torch.logging.log_results",
+    "multiplanarunet_tpu_torch.errors.image_errors",
+    "multiplanarunet_tpu_torch.utils.utils",
     "multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict",
+    "multiplanarunet_tpu_torch.bin.predict",
+    "multiplanarunet_tpu_torch.bin.mp",
 ]
+BANNED = ("jax", "flax", "yaml", "pandas", "sklearn", "nibabel",
+          "multiplanarunet_tpu")
 
 
 def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
     """In a fresh interpreter (this one already holds jax): importing every
-    slice module loads none of jax, flax, sklearn, yaml or the JAX package,
-    and builds no kernel."""
+    port module loads none of the banned packages, and builds no
+    kernel."""
     code = (
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "banned = ('jax', 'flax', 'sklearn', 'yaml', 'multiplanarunet_tpu')\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BANNED!r})\n"
         "assert not bad, bad\n"
         "from multiplanarunet_tpu_torch.ops import _build\n"
         "assert _build.kernels.cache_info().currsize == 0\n"
@@ -49,6 +66,33 @@ def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_port_runs_with_banned_packages_blocked():
+    """With jax, flax, yaml, pandas, sklearn, nibabel and the JAX package
+    made unimportable (as on a machine that lacks them), every port
+    module imports and `mp predict --help` runs."""
+    code = (
+        "import importlib, runpy, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {BANNED!r}:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "sys.argv = ['mp', 'predict', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('multiplanarunet_tpu_torch.bin.mp',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "print('ran')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "--stage_dtype" in proc.stdout and "--device" in proc.stdout
+    assert proc.stdout.strip().endswith("ran")
 
 
 def test_shear_pass_on_cpu_uses_plain_version_without_counting():

@@ -162,6 +162,8 @@ def test_geometry_identical():
                                       tgeo.get_pix_dim(img))
         assert (jgeo.get_bounding_sphere_real_radius(img)
                 == tgeo.get_bounding_sphere_real_radius(img))
+        assert (jgeo.get_maximum_real_dim(img)
+                == tgeo.get_maximum_real_dim(img))
     for seed in (0, 42):
         np.testing.assert_array_equal(
             jgeo.get_random_views(5, rng=np.random.RandomState(seed)),
