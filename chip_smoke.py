@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (multiplanarunet_tpu_torch) on one NVIDIA
-GPU: builds the CUDA shear-pass kernel from csrc/, holds it against its
-plain PyTorch version, checks the predictor's geometry with a one-hot
+GPU: builds the CUDA shear-pass kernel from csrc/ (no instantiation may
+keep a stack frame or spill), holds it against its plain PyTorch version
+on every specialisation, checks the predictor's geometry with a one-hot
 oracle (shear, gather and auto's fallback), then drives fused multi-view
 inference at full width (U-Net complexity_factor 2, depth 4, dim 256, 7
 classes; 6 views + learned fusion over 256^3 volumes, bench.py's
-configuration) and times it. Then: the channel-grouped remap against the
+configuration) and times it, and requires the same class map with the
+plain pass in the kernel's place. It times the kernel's 6-pass plans
+beside their HBM bound, the plain version and a dense-W torch.bmm library
+arm. Then: the channel-grouped remap against the
 ungrouped one, the gather resampler on a full-width 256^3 volume, uint8
 staging, `mp predict` end to end on a two-image NIfTI project, and one
 512^3 volume with the kernel held against its plain version at that
@@ -46,11 +50,16 @@ from multiplanarunet_tpu_torch.models import checkpoint
 from multiplanarunet_tpu_torch.models.unet import UNet
 from multiplanarunet_tpu_torch.ops import _build, geometry
 from multiplanarunet_tpu_torch.ops.shear import shear_resample
+from multiplanarunet_tpu_torch.ops import shear as shear_module
 from multiplanarunet_tpu_torch.ops.shear_pass import (
+    pass_positions,
     shear_pass,
     shear_pass_reference,
+    tap_parts,
+    tile_plan,
 )
 from multiplanarunet_tpu_torch.ops.shear_plan import (
+    _Op,
     plan_affine_resample,
     plan_stage_bytes,
 )
@@ -228,30 +237,55 @@ def random_affine(rng):
     return Q @ np.diag(1.0 + (rng.rand(3) * 0.8 - 0.3))
 
 
-def compare_plan_passes(plan, method, channels, dtype, gen):
-    """Feed every pass of `plan` a random input (drawn on the card from
-    `gen`) through the kernel, all channels at once, and through the plain
-    version one channel at a time (a pass treats each channel alone, and
-    one channel of a 512^3 stage keeps the plain version's float32
-    temporaries small); returns the max abs difference."""
+def compare_pass(shape, op, method, dtype, gen, covered=None, offset=0):
+    """Feed one pass a random input (drawn on the card from `gen`, placed
+    `offset` elements past an aligned address) through the kernel, all
+    channels at once, and through the plain version one channel at a time
+    (a pass treats each channel alone, and one channel of a 512^3 stage
+    keeps the plain version's float32 temporaries small); returns the max
+    abs difference. `covered` collects the kernel specialisations run."""
+    n = int(np.prod(shape))
+    A = torch.rand(n + offset, generator=gen, device=gen.device).to(dtype)
+    A = A[offset:].view(shape)
+    if covered is not None:
+        aligned = A.data_ptr() % 16 == 0
+        covered.add((op.m, op.q, method, dtype,
+                     tile_plan(shape, op, method, dtype, aligned).ep))
+    got = shear_pass(A, op, method)
     err = 0.0
-    for i, op in enumerate(plan.ops):
-        shape = [ext for (_, ext) in plan.stages[i]] + [channels]
-        A = torch.rand(shape, generator=gen, device=gen.device).to(dtype)
-        got = shear_pass(A, op, method)
-        for c in range(channels):
-            want = shear_pass_reference(A[..., c:c + 1].contiguous(), op,
-                                        method)
-            got_c = got[..., c].float()
-            if not torch.isfinite(got_c).all():
-                raise AssertionError("kernel output holds non-finite values")
-            err = max(err, (got_c - want[..., 0].float()).abs().max().item())
-            del want, got_c
-        del A, got
+    for c in range(shape[3]):
+        want = shear_pass_reference(A[..., c:c + 1].contiguous(), op, method)
+        got_c = got[..., c].float()
+        if not torch.isfinite(got_c).all():
+            raise AssertionError("kernel output holds non-finite values")
+        err = max(err, (got_c - want[..., 0].float()).abs().max().item())
+        del want, got_c
     if err > TOL[dtype]:
         raise AssertionError(f"kernel vs plain: max abs err {err} > "
-                             f"{TOL[dtype]} ({method}, {dtype})")
+                             f"{TOL[dtype]} ({method}, {dtype}, m={op.m}, "
+                             f"q={op.q}, shape {shape})")
     return err
+
+
+def compare_plan_passes(plan, method, channels, dtype, gen, covered=None):
+    """compare_pass over every pass of `plan`; returns the max abs
+    difference."""
+    return max(compare_pass(tuple(ext for (_, ext) in plan.stages[i])
+                            + (channels,), op, method, dtype, gen, covered)
+               for i, op in enumerate(plan.ops))
+
+
+def q_none_ops():
+    """One pass per axis with no q term: (stage shape without C, op)."""
+    out = []
+    for m in range(3):
+        op = _Op(m, None, -1.17 + 0.4 * m, 0.0)
+        op.gamma, op.in_lo, op.in_extent = 3.3, 0, 40 + m
+        op.out_lo, op.out_extent, op.q_lo = -2, 36 + 5 * m, 0
+        shape = [31, 29, 27]
+        shape[m] = op.in_extent
+        out.append((tuple(shape), op))
+    return out
 
 
 def view_plans(predictor, img, views):
@@ -289,27 +323,72 @@ def phase_environment():
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     k = _build.kernels()
     log(f"kernel library {k.path.name}: built in {k.build_seconds:.2f} s")
-    for line in k.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    # ptxas -v: per function "N bytes stack frame, N bytes spill stores, N
+    # bytes spill loads", then "Used N registers"; every instantiation must
+    # keep no stack frame and spill nothing
+    frames = [[int(w) for w in line.split() if w.isdigit()]
+              for line in k.log.splitlines() if "bytes stack frame" in line]
+    regs = [int(line.split("Used")[1].split()[0])
+            for line in k.log.splitlines() if "registers" in line]
+    worst = [max(f[i] for f in frames) for i in range(3)]
+    log(f"ptxas: {len(frames)} functions, {len(regs)} register reports "
+        f"(max {max(regs)} registers); max stack frame {worst[0]} bytes, "
+        f"spill stores {worst[1]} bytes, spill loads {worst[2]} bytes")
+    if not frames or any(worst):
+        for line in k.log.splitlines():
+            if ("stack frame" in line or "Function properties" in line
+                    or "registers" in line):
+                log(f"  ptxas: {line.strip()}")
+        raise AssertionError("a kernel instantiation has a stack frame or "
+                             "spills")
     return card
 
 
 def phase_kernel_vs_plain(dev, main_plans):
+    """The kernel against its plain version on every specialisation: the
+    six (m, q) layouts of random plans and q = none on each axis, linear
+    and cubic, float32 and bf16, C in {2, 3, 5, 8} (16-byte vectors, the
+    two-channel form and the scalar form), stages with a ragged last tile,
+    an input 2 elements past an aligned address (the scalar form); then
+    every pass of the main path's view plans."""
     rng = np.random.RandomState(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
-    for trial in range(3):
+    covered = set()
+    for trial, (src, out) in enumerate((((48, 44, 40), (46, 42, 38)),
+                                        ((150, 140, 136), (146, 144, 138)),
+                                        ((48, 44, 40), (46, 42, 38)))):
         N = random_affine(rng)
-        src, out = (48, 44, 40), (46, 42, 38)
         c = np.asarray(src) / 2.0 - N @ (np.asarray(out) / 2.0)
         plan = plan_affine_resample(N, c, src, out)
         for dtype in (torch.float32, torch.bfloat16):
             for method in ("linear", "cubic"):
-                e = compare_plan_passes(plan, method, 3, dtype, gen)
-                log(f"random plan {trial} {method:6s} {str(dtype):14s} "
-                    f"max abs err {e:.3g} (tol {TOL[dtype]:.3g})")
-                worst = max(worst, e)
+                for ch in (2, 3, 5, 8):
+                    e = compare_plan_passes(plan, method, ch, dtype, gen,
+                                            covered)
+                    worst = max(worst, e)
+                log(f"random plan {trial} {src} -> {out} {method:6s} "
+                    f"{str(dtype):14s} C=2,3,5,8 max abs err {worst:.3g} "
+                    f"(tol {TOL[dtype]:.3g})")
+    for shape, op in q_none_ops():
+        for dtype in (torch.float32, torch.bfloat16):
+            for method in ("linear", "cubic"):
+                for ch in (2, 3, 8):
+                    worst = max(worst, compare_pass(shape + (ch,), op, method,
+                                                    dtype, gen, covered))
+    for offset in (2, 0):
+        s_plan = main_plans[0][0][0]
+        worst = max(worst, compare_pass(
+            tuple(e for (_, e) in s_plan.stages[0]) + (2,), s_plan.ops[0],
+            "cubic", torch.bfloat16, gen, covered, offset=offset))
+    layouts = {(m, q) for (m, q, *_) in covered}
+    eps = sorted({(str(d), ep) for (*_, d, ep) in covered})
+    log(f"kernel specialisations run against the plain version: "
+        f"{len(covered)} (m, q, taps, dtype, EP) combinations over layouts "
+        f"{sorted(layouts, key=str)}, (dtype, EP) {eps}; max abs err "
+        f"{worst:.3g}")
+    if len(layouts) != 9 or len(eps) != 6:
+        raise AssertionError(f"layout coverage: {layouts}, {eps}")
     for v, ((s_plan, _), (_, _, r_plan, _)) in enumerate(main_plans):
         e_s = compare_plan_passes(s_plan, "cubic", N_CHANNELS + 1,
                                   torch.bfloat16, gen)
@@ -512,10 +591,111 @@ def phase_main_path(dev, predictor, images, views, fusion):
     return launches
 
 
+# The H100 SXM's HBM rate: the bound of a bandwidth-bound pass
+HBM_BYTES_PER_S = 3.35e12
+# Dense-W bmm arm vs the kernel: W's weights are rounded to bf16 (2^-9
+# relative) and the sum is rounded to bf16 at another place; over six
+# passes of unit-range data (Catmull-Rom sum |w| <= 1.25 carries earlier
+# differences forward) the two stay within 2^-4
+LIBRARY_TOL = 2.0 ** -4
+
+
+def dense_pass(op, shape, method, dtype, dev):
+    """The JAX package's impl="matmul" form of one main-path pass (q set)
+    as one torch.bmm: (the permutation to (q, m, r, C), the dense (Q, T,
+    S) W in `dtype`).
+    W is built from pass_positions/tap_parts, in-range taps only, in
+    float32 and cast once, as that executor casts it."""
+    m, q = op.m, op.q
+    r = 3 - m - q
+    Q, S = shape[q], shape[m]
+    pos = pass_positions(op, Q, dev)
+    W = torch.zeros(Q, int(op.out_extent), S, device=dev)
+    for idx, w in tap_parts(pos, method):
+        ok = (idx >= 0) & (idx < S)
+        W.scatter_add_(2, idx.clamp(0, S - 1)[..., None],
+                       (w * ok)[..., None])
+    return (q, m, r, 3), W.to(dtype)
+
+
+def library_arm(plan, method, A0):
+    """(ms of the 6-pass plan as permute -> contiguous (Q, S, R*C) ->
+    torch.bmm -> permute back, ms of the bmm calls alone, the result)."""
+    dev, dtype = A0.device, A0.dtype
+    steps, A = [], A0
+    for i, op in enumerate(plan.ops):
+        shape = [e for (_, e) in plan.stages[i]]
+        perm, W = dense_pass(op, shape, method, dtype, dev)
+        steps.append((perm, W))
+    inv = [tuple(int(i) for i in np.argsort(p)) for p, _ in steps]
+
+    def run():
+        A = A0
+        for (perm, W), back in zip(steps, inv):
+            Q, S, R, C = (A.shape[a] for a in perm)
+            Ac = A.permute(*perm).reshape(Q, S, R * C)
+            out = torch.bmm(W, Ac).view(Q, W.shape[1], R, C)
+            A = out.permute(*back).contiguous()
+        return A
+
+    canon, A = [], A0
+    for (perm, W), back in zip(steps, inv):
+        Q, S, R, C = (A.shape[a] for a in perm)
+        canon.append(A.permute(*perm).reshape(Q, S, R * C))
+        A = torch.bmm(W, canon[-1]).view(Q, W.shape[1], R, C)
+        A = A.permute(*back).contiguous()
+
+    def bmm_only():
+        for (_, W), Ac in zip(steps, canon):
+            torch.bmm(W, Ac)
+
+    result = run()
+    run()
+    ms = cuda_ms(run, 3)
+    bmm_only()
+    bmm_ms = cuda_ms(bmm_only, 3)
+    del canon, steps
+    return ms, bmm_ms, result
+
+
+def phase_reference_swap(predictor, img, views, fusion):
+    """One 256^3 main-path volume through predict_image with the kernel,
+    then with shear_pass_reference put in the kernel's place (in
+    ops.shear, for this comparison only): the uint8 class maps must be
+    identical, since the kernel is bit-equal to its plain version. cuDNN
+    is held to deterministic algorithms for both runs."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        with_kernel, _ = predictor.predict_image(
+            img, views, fusion_params=fusion, return_per_view=False)
+        t1 = time.perf_counter()
+        shear_module.shear_pass = shear_pass_reference
+        try:
+            with_plain, _ = predictor.predict_image(
+                img, views, fusion_params=fusion, return_per_view=False)
+        finally:
+            shear_module.shear_pass = shear_pass
+        t2 = time.perf_counter()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    differ = int((with_kernel != with_plain).sum())
+    log(f"main-path volume with the kernel ({t1 - t0:.3f} s) vs with "
+        f"shear_pass_reference in its place ({t2 - t1:.3f} s): {differ} of "
+        f"{with_kernel.size} class-map voxels differ (must be 0)")
+    if differ:
+        raise AssertionError("class map differs with the plain shear pass")
+
+
 def phase_timing(dev, plans):
     """One view's stack plan and remap plan (6 passes each) at the main
-    path's shapes, kernel vs plain, alternating plain/kernel/kernel/plain;
-    and the remap plan at the shapes of a channel group of 2 (C=3)."""
+    path's shapes, kernel vs plain, alternating plain/kernel/kernel/plain,
+    with the bound (read each input stage once, write each output stage
+    once, at 3.35 TB/s) and the library arm (dense-W bmm with its layout
+    copies, and the bmm alone) held against the kernel within
+    LIBRARY_TOL; and the remap plan at the shapes of a channel group of 2
+    (C=3)."""
     (s_plan, _), (_, _, r_plan, _) = plans[0]
     out = {}
     for name, plan, method, ch in (("stack", s_plan, "cubic", N_CHANNELS + 1),
@@ -529,6 +709,7 @@ def phase_timing(dev, plans):
             A = A0
             for op in plan.ops:
                 A = fn(A, op, method)
+            return A
 
         times = {"plain": [], "kernel": []}
         for arm in ("plain", "kernel", "kernel", "plain"):
@@ -536,15 +717,40 @@ def phase_timing(dev, plans):
             run(fn)  # warm
             times[arm].append(cuda_ms(lambda: run(fn), 5))
         k, p = np.mean(times["kernel"]), np.mean(times["plain"])
-        gbs = plan_bytes(plan, ch) / (k * 1e-3) / 1e9
+        # Each pass alone: its time, share of its bound, (m, q) and EP
+        per_pass, A = [], A0
+        for op in plan.ops:
+            ep = tile_plan(A.shape, op, method, A.dtype).ep
+            B = shear_pass(A, op, method)
+            t = cuda_ms(lambda: shear_pass(A, op, method), 5)
+            share = (A.numel() + B.numel()) * 2 / HBM_BYTES_PER_S * 1e5 / t
+            per_pass.append(f"(m={op.m}, q={op.q}, EP={ep}) {t:.3f} ms "
+                            f"{share:.0f}%")
+            A = B
+        log(f"{name} plan, kernel per pass (time, share of its bound): "
+            + "; ".join(per_pass))
+        del A, B
+        lib_ms, bmm_ms, lib_out = library_arm(plan, method, A0)
+        lib_err = (lib_out.float() - run(shear_pass).float()).abs().max()
+        lib_err = lib_err.item()
+        del lib_out
+        torch.cuda.empty_cache()
+        nbytes = plan_bytes(plan, ch)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"{name} plan {tuple(plan.src_shape)} -> "
             f"{tuple(plan.out_shape)} x C={ch} bf16, 6 {method} passes: "
             f"kernel {k:.3f} ms, plain {p:.3f} ms (runs "
             f"{[round(t, 3) for t in times['kernel']]} / "
-            f"{[round(t, 3) for t in times['plain']]}); kernel moves at "
-            f"least {plan_bytes(plan, ch) / 1e9:.3f} GB: {gbs:.0f} GB/s, "
-            f"{100 * gbs / 3350:.1f}% of the H100 SXM's 3.35 TB/s")
-        out[name] = (k, p)
+            f"{[round(t, 3) for t in times['plain']]}); bound "
+            f"{bound:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s), kernel at "
+            f"{100 * bound / k:.1f}% of it; library arm (dense-W torch.bmm "
+            f"with layout copies) {lib_ms:.3f} ms, bmm alone {bmm_ms:.3f} "
+            f"ms, vs kernel max abs err {lib_err:.3g} (tol "
+            f"{LIBRARY_TOL:.3g})")
+        if lib_err > LIBRARY_TOL:
+            raise AssertionError(f"{name}: library arm vs kernel {lib_err}")
+        out[name] = {"ms": k, "plain_ms": p, "bound_ms": bound,
+                     "library_ms": lib_ms, "bmm_ms": bmm_ms}
     return out
 
 
@@ -967,6 +1173,7 @@ def main():
         phase_oracle(dev)
         paths[f"main {DIM}^3"] = phase_main_path(dev, predictor, images, views,
                                               fusion)
+        phase_reference_swap(predictor, images[0], views, fusion)
         times = phase_timing(dev, plans)
         e, paths[f"grouped {DIM}^3"] = phase_grouped_remap(
             dev, predictor, images[0], views, fusion, plans)
@@ -979,8 +1186,7 @@ def main():
                                                plans, tmp)
         e, paths[f"{DIM_LARGE}^3"] = phase_large(dev, predictor.model, views, fusion)
         err = max(err, e)
-    ms = times["stack"][0] + times["remap"][0]
-    plain_ms = times["stack"][1] + times["remap"][1]
+    view0 = [times["stack"], times["remap"]]
     log(f"shear-pass launches per path: {paths}")
     log(f"card: {card}")
     log(json.dumps({"kernels": [{
@@ -990,8 +1196,11 @@ def main():
         "replaces": "multiplanarunet_tpu/ops/pallas_shear.py:131",
         "launches": sum(paths.values()),
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "ms": sum(t["ms"] for t in view0),
+        "plain_ms": sum(t["plain_ms"] for t in view0),
+        "bound_ms": sum(t["bound_ms"] for t in view0),
+        "bound_by": "bytes",
+        "library_ms": sum(t["library_ms"] for t in view0),
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,11 +60,14 @@ def _source_hash():
 
 def build(build_dir=BUILD_DIR):
     """Compile the kernels unless a library of the same sources exists.
-    Returns (path, seconds spent compiling, compiler log)."""
+    Returns (path, seconds spent compiling, compiler log); the log is kept
+    beside the library."""
     build_dir = Path(build_dir)
     lib_path = build_dir / f"libmp_kernels_{_source_hash()}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.is_file():
-        return lib_path, 0.0, ""
+        log = log_path.read_text() if log_path.is_file() else ""
+        return lib_path, 0.0, log
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
     # Compile to a private name and rename into place: concurrent builds
@@ -80,8 +83,10 @@ def build(build_dir=BUILD_DIR):
         raise KernelBuildError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
     os.replace(tmp, lib_path)
-    return lib_path, seconds, proc.stdout + proc.stderr
+    return lib_path, seconds, log
 
 
 class _Kernels:
@@ -94,11 +99,12 @@ class _Kernels:
         self.lib = ctypes.CDLL(str(path))
         fn = self.lib.mp_shear_pass
         i64, f32, ptr = ctypes.c_int64, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int,
+        c_int = ctypes.c_int
+        fn.argtypes = [ptr, ptr, c_int, c_int,
                        i64, i64, i64, i64,   # sizes
-                       i64, i64, i64, i64,   # strides
-                       ctypes.c_int, ctypes.c_int, i64,
+                       c_int, c_int, i64,
                        f32, f32, f32, f32, f32, f32,
+                       *[c_int] * 7,         # tile geometry (tile_plan)
                        ptr]                  # stream
         fn.restype = ctypes.c_int
         self.shear_pass = fn

@@ -13,11 +13,14 @@ the 2 (linear) or 4 (Catmull-Rom) taps around floor(pos) in float32; taps
 outside [0, L_in) weigh 0.
 
 `shear_pass` runs the plain version only for a tensor on the CPU. For a
-CUDA tensor it launches `csrc/shear_pass.cu` and counts the launch in
-`shear_pass.launches`, or raises.
+CUDA tensor it launches `csrc/shear_pass.cu` with the tile geometry of
+`tile_plan` and counts the launch in `shear_pass.launches`, or raises.
 """
 
 from __future__ import annotations
+
+import math
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -26,6 +29,113 @@ from multiplanarunet_tpu_torch.ops._build import kernels
 
 _TAPS = {"linear": 2, "cubic": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Shared memory a block may use on Hopper, and the share this kernel aims
+# for so that two blocks (each double-buffering its window) fit on an SM
+SMEM_LIMIT = 232448
+SMEM_BUDGET = 100 * 1024
+# Bytes of a column chunk of one window line (m=0/1)
+_LINE_BYTES = 512
+
+TilePlan = namedtuple("TilePlan", [
+    "ep",      # elements of a 16-byte vector sharing a position (1: scalar)
+    "tt",      # outputs along m per tile
+    "iw",      # columns per tile (m=0/1; a power of two)
+    "rb",      # rows per tile (m=2; 1 otherwise)
+    "q_span",  # largest (last - first) q index within a tile
+    "r_max",   # window lines a tile may need (the host's bound)
+    "pitch",   # shared-memory elements of one tile row's window
+    "align",   # alignment of a window's first line (m=2 vectors)
+    "smem",    # shared-memory bytes per block (two windows)
+])
+
+
+def _pow2_at_least(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def window_lines(alpha, beta, tt, q_span, taps, L_in, align):
+    """Bound on the source lines a tile of `tt` outputs along m and
+    `q_span` + 1 consecutive q indices can touch with its in-range taps.
+
+    The float32 position is monotone in t and in the q index, so its
+    extremes lie at the tile's corners and differ by at most
+    |alpha|(tt-1) + |beta| q_span plus float32 rounding (below 1 at these
+    magnitudes): floor(max) - floor(min) <= ceil(that span) + 1, plus TAPS
+    - 1 more lines for the taps around floor(pos). The window never
+    exceeds the axis; aligning its first line down adds align - 1."""
+    span = abs(float(np.float32(alpha))) * (tt - 1)
+    span += abs(float(np.float32(beta))) * q_span
+    return min(math.ceil(span) + taps + 1, L_in) + align - 1
+
+
+def tile_plan(shape, op, method, dtype, aligned=True):
+    """Host half of the kernel: tile sizes, window bound and shared-memory
+    bytes for one pass over a contiguous (S0, S1, S2, C) stage.
+
+    m=0/1 tiles are `tt` outputs along m times `iw` columns of a line
+    (i2*C + c) of one row; m=2 lines are only C wide, so its tiles are
+    `rb` rows (i1) times `tt` outputs. Vectors are 16 bytes where the line
+    widths allow and `aligned` (both pointers 16-byte aligned) holds;
+    EP = V when a vector shares one position, 2 for two-channel positions
+    along a line whose position varies, else 1 (the scalar form)."""
+    S0, S1, S2, C = (int(s) for s in shape)
+    m, q = op.m, op.q
+    L_in, T = (S0, S1, S2)[m], int(op.out_extent)
+    taps = _TAPS[method]
+    esize = 4 if dtype == torch.float32 else 2
+    V = 16 // esize
+    beta = op.beta if q is not None else 0.0
+
+    def fits(smem):
+        return smem <= SMEM_BUDGET
+
+    if m == 2:
+        vec = aligned and (L_in * C) % V == 0 and (T * C) % V == 0
+        ep = V if vec and C % V == 0 else 2 if vec and C == 2 else 1
+        align = V // math.gcd(V, C) if ep > 1 else 1
+        unit = V if ep > 1 else 1
+        tt = -(-T // 8) * 8
+        while True:
+            for rb in (32, 16, 8, 4, 2, 1):
+                rb = min(rb, S1)
+                q_span = rb - 1 if q == 1 else 0
+                r_max = window_lines(op.alpha, beta, tt, q_span, taps, L_in,
+                                     align)
+                pitch = -(-(r_max * C) // unit) * unit
+                smem = 2 * rb * pitch * esize
+                if fits(smem) or (tt == 8 and rb == 1):
+                    break
+            if fits(smem) or tt == 8:
+                break
+            tt = max(8, -(-(tt // 2) // 8) * 8)
+        iw = 1
+    else:
+        W = S2 * C
+        vec = aligned and W % V == 0
+        col = q == 2
+        if not vec:
+            ep = 1
+        elif not col or C % V == 0:
+            ep = V
+        else:
+            ep = 2 if C == 2 else 1
+        iw = _LINE_BYTES // esize
+        if col:
+            iw = min(iw, _pow2_at_least(32 * C))
+        iw = max(min(iw, _pow2_at_least(W)), V if ep > 1 else 1)
+        q_span = -(-(iw - 1) // C) if col else 0
+        align, rb = 1, 1
+        for tt in (128, 64, 32, 16, 8):
+            tt = min(tt, -(-T // 8) * 8)
+            r_max = window_lines(op.alpha, beta, tt, q_span, taps, L_in, 1)
+            pitch = r_max * iw
+            smem = 2 * pitch * esize
+            if fits(smem):
+                break
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"shear pass window needs {smem} bytes of shared "
+                         f"memory per block (limit {SMEM_LIMIT})")
+    return TilePlan(ep, tt, iw, rb, q_span, r_max, pitch, align, smem)
 
 
 class KernelLaunchError(RuntimeError):
@@ -129,14 +239,18 @@ def shear_pass(A, op, method="linear"):
     out_shape = list(A.shape)
     out_shape[op.m] = int(op.out_extent)
     out = torch.empty(out_shape, dtype=A.dtype, device=A.device)
+    aligned = A.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    tp = tile_plan(A.shape, op, method, A.dtype, aligned)
     fn = kernels().shear_pass
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), out.data_ptr(), _DTYPE_CODE[A.dtype],
-                 _TAPS[method], *A.shape, *A.stride(),
+                 _TAPS[method], *A.shape,
                  op.m, -1 if op.q is None else op.q, int(op.out_extent),
                  _f32(op.alpha), _f32(op.beta), _f32(op.gamma),
-                 _f32(op.out_lo), _f32(op.in_lo), _f32(op.q_lo), stream)
+                 _f32(op.out_lo), _f32(op.in_lo), _f32(op.q_lo),
+                 tp.tt, tp.iw, tp.rb, tp.r_max, tp.pitch, tp.align, tp.ep,
+                 stream)
     if err != 0:
         raise KernelLaunchError(f"shear_pass kernel launch failed: "
                                 f"cudaError {err}")
