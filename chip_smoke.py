@@ -11,10 +11,16 @@ plain pass in the kernel's place. It times the kernel's 6-pass plans
 beside their HBM bound, the plain version and a dense-W torch.bmm library
 arm. Then: the channel-grouped remap against the
 ungrouped one, the gather resampler on a full-width 256^3 volume, uint8
-staging, `mp predict` end to end on a two-image NIfTI project, and one
-512^3 volume with the kernel held against its plain version at that
-volume's largest shapes. Each path's shear-pass launches are counted from
-0 just before it and gated against what its plans and remap modes say.
+staging, `mp predict` end to end on a two-image NIfTI project, one 512^3
+volume with the kernel held against its plain version at that volume's
+largest shapes, and training: `mp train` (a subprocess, through the mp
+entry point) of the same model on the default MultiPlanar YAML over 3 + 1
+structured 256^3 subjects (3 epochs of 20 steps of 16, Elastic2D), `mp
+predict` on the trained project, a float32 step on the card against the
+host, the bf16 step against the float32 one, a 50-step overfit, and the
+step, sampler and validation times. Each path's shear-pass launches are
+counted from 0 just before it and gated against what its plans and remap
+modes say (the training path itself launches none).
 
 Run from the repository root with no arguments:
 
@@ -41,13 +47,22 @@ from torch import nn
 
 from multiplanarunet_tpu_torch._device import require_cuda
 from multiplanarunet_tpu_torch.bin import mp as port_mp
-from multiplanarunet_tpu_torch.evaluate.metrics import dice_from_counts
+from multiplanarunet_tpu_torch.callbacks.validation import Validation
+from multiplanarunet_tpu_torch.evaluate.losses import (
+    SparseCategoricalCrossentropy,
+)
+from multiplanarunet_tpu_torch.evaluate.metrics import (
+    METRICS,
+    dice_from_counts,
+)
+from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
 from multiplanarunet_tpu_torch.image.image_pair import ImagePair
 from multiplanarunet_tpu_torch.image.volume_sampler import VolumeSampler
 from multiplanarunet_tpu_torch.io import nifti
 from multiplanarunet_tpu_torch.logging.log_results import load_result_dicts
+from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
-from multiplanarunet_tpu_torch.models.unet import UNet
+from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.ops import _build, geometry
 from multiplanarunet_tpu_torch.ops.shear import shear_resample
 from multiplanarunet_tpu_torch.ops import shear as shear_module
@@ -63,6 +78,13 @@ from multiplanarunet_tpu_torch.ops.shear_plan import (
     plan_affine_resample,
     plan_stage_bytes,
 )
+from multiplanarunet_tpu_torch.preprocessing.data_preparation_funcs import (
+    prepare_for_multi_view_unet,
+)
+from multiplanarunet_tpu_torch.sequences import multi_planar
+from multiplanarunet_tpu_torch.train.train_step import TrainStep
+from multiplanarunet_tpu_torch.train.trainer import Trainer
+from multiplanarunet_tpu_torch.train.utils import init_optimizer
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
     class_map_counts,
@@ -979,12 +1001,14 @@ def write_project(root, views, fusion, dev):
     return proj, data
 
 
-def run_mp_predict_counted(proj, out, extra, expected):
+def run_mp_predict_counted(proj, out, extra, plans, require_shear=True):
     """One `mp predict` through its entry point, with the shear-pass count
     set to 0 just before it; each predict_image it makes is wrapped to
     read its own launches and remap modes. Gates: one call per image, each
-    with `expected` launches and every view on the ungrouped shear remap.
-    Returns (per-image timings, the launches of the run)."""
+    with the launches its views' plans and remap modes give
+    (`expected_launches`), and, with require_shear, every view on the
+    ungrouped shear remap. Returns (per-image timings, the launches of the
+    run)."""
     calls = []
     original = MultiViewPredictor.predict_image
 
@@ -1005,11 +1029,13 @@ def run_mp_predict_counted(proj, out, extra, expected):
     finally:
         MultiViewPredictor.predict_image = original
     for image_id, n, modes in calls:
-        if n != expected or modes != ["shear"] * N_VIEWS:
+        expected = expected_launches(plans, modes)
+        if (n != expected or not n
+                or (require_shear and modes != ["shear"] * N_VIEWS)):
             raise AssertionError(f"mp predict {out} {image_id}: {n} "
                                  f"shear-pass launches (expected {expected}),"
                                  f" remap modes {modes}")
-    if len(calls) != len(timings) or launches != expected * len(timings):
+    if len(calls) != len(timings) or launches != sum(n for _, n, _ in calls):
         raise AssertionError(f"mp predict {out}: {launches} shear-pass "
                              f"launches over {len(calls)} predict_image "
                              f"calls for {len(timings)} images")
@@ -1032,8 +1058,7 @@ def phase_mp_predict(dev, predictor, views, fusion, plans, tmp):
     for out, extra in (("pred_eval", []),
                        ("pred_no_eval", ["--no_eval", "--continue"])):
         t0 = time.perf_counter()
-        timings, launches = run_mp_predict_counted(proj, out, extra,
-                                                   expected)
+        timings, launches = run_mp_predict_counted(proj, out, extra, plans)
         wall = time.perf_counter() - t0
         total += launches
         for image_id, t in sorted(timings.items()):
@@ -1160,6 +1185,433 @@ def phase_large(dev, model, views, fusion):
     return max(e_s, e_r), launches
 
 
+# ------------------------------------------------------------------ training
+# `mp train` of the bench model on a 3 + 1 subject 256^3 project: 3 epochs
+# of 20 steps of 16 and 4 validation steps
+TRAIN_EPOCHS, TRAIN_IMAGES, VAL_IMAGES, BATCH = 3, 320, 64, 16
+N_TRAIN_SUBJECTS, N_VAL_SUBJECTS = 3, 1
+BATCH_LARGE = 64
+# Step checks: the float32 card/host comparison runs at batch 2 (a host
+# step at full width and batch 16 would take minutes); Adam's first step
+# moves a parameter by -lr * g / (|g| + eps), so a gradient near 0 may land
+# anywhere in [-lr, lr] on either side: PARAM_TOL is a fraction of lr and
+# PARAM_SHARE the share of parameters that must be within it
+F32_BATCH, PARAM_TOL, PARAM_SHARE = 2, 1e-2, 0.99
+# The overfit check: OVERFIT_STEPS bf16 Adam steps at lr 1e-3 on one batch
+# must bring the loss below OVERFIT_RATIO of its first value (a CPU
+# rehearsal at depth 2, dim 32, batch 4 reaches 0.009)
+OVERFIT_STEPS, OVERFIT_RATIO = 50, 0.5
+DEFAULT_TRAIN_YAML = (Path(__file__).resolve().parent / "multiplanarunet_tpu"
+                      / "bin" / "defaults" / "MultiPlanar"
+                      / "train_hparams.yaml")
+
+
+def write_train_project(root, dev):
+    """The default MultiPlanar train_hparams.yaml with n_classes and dim
+    given (real_space_span and n_channels left for the Auditor), 3 train
+    and 1 val structured 256^3 subjects (the val subject also serves as
+    the test set)."""
+    dirs = {"train": root / "data" / "train", "val": root / "data" / "val"}
+    seed = 100
+    for split, n in (("train", N_TRAIN_SUBJECTS), ("val", N_VAL_SUBJECTS)):
+        for sub in ("images", "labels"):
+            (dirs[split] / sub).mkdir(parents=True)
+        for i in range(n):
+            vol, lab = structured_subject(dev, seed)
+            seed += 1
+            nifti.save(vol, dirs[split] / "images" / f"{split}_{i}.nii.gz",
+                       np.eye(4))
+            nifti.save(lab, dirs[split] / "labels" / f"{split}_{i}.nii.gz",
+                       np.eye(4))
+    text = DEFAULT_TRAIN_YAML.read_text()
+    for old, new in (
+            ("train_data: &TRAINDATA\n  base_dir: Null",
+             f"train_data: &TRAINDATA\n  base_dir: {dirs['train']}"),
+            ("val_data: &VALDATA\n  base_dir: Null",
+             f"val_data: &VALDATA\n  base_dir: {dirs['val']}"),
+            ("test_data: &TESTDATA\n  base_dir: Null",
+             f"test_data: &TESTDATA\n  base_dir: {dirs['val']}"),
+            ("n_classes: Null", f"n_classes: {N_CLASSES}"),
+            ("dim: Null", f"dim: {DIM}"),
+            ("depth: 4", f"depth: {DEPTH}"),
+            ("complexity_factor: 2", f"complexity_factor: {CF}"),
+            ("batch_size: 16", f"batch_size: {BATCH}")):
+        if old not in text:
+            raise AssertionError(f"default train YAML lacks {old!r}")
+        text = text.replace(old, new)
+    proj = root / "train_project"
+    proj.mkdir()
+    (proj / "train_hparams.yaml").write_text(text)
+    return proj, dirs
+
+
+def run_mp_train(proj, dev):
+    """`python -m multiplanarunet_tpu_torch.bin.mp train` in a subprocess;
+    returns (wall seconds, the per-epoch (train loop s, callbacks s) its
+    log reports). Fails on a non-zero exit."""
+    cmd = [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp", "train",
+           "--project_dir", str(proj), "--device", str(dev), "--overwrite",
+           "--no_images", "--epochs", str(TRAIN_EPOCHS),
+           "--train_images_per_epoch", str(TRAIN_IMAGES),
+           "--val_images_per_epoch", str(VAL_IMAGES)]
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"mp train exited {proc.returncode}")
+    epochs = []
+    for line in (proj / "logs" / "train.txt").read_text().splitlines():
+        if " wall: train loop " in line:
+            words = line.split()
+            epochs.append((float(words[words.index("loop") + 1]),
+                           float(words[words.index("validation") + 1])))
+    if len(epochs) != TRAIN_EPOCHS:
+        raise AssertionError(f"mp train logged {len(epochs)} epoch timings")
+    return wall, epochs
+
+
+def check_trained_project(proj, tmp):
+    """Gates on what `mp train` wrote: 3 CSV rows with finite loss,
+    val_loss, val_dice and lr; model_weights.npz and a best @epoch_*.npz
+    holding exactly the keys and shapes of the JAX-format weights of the
+    same build; views.npz with 6 unit vectors. Returns the CSV rows."""
+    lines = (proj / "logs" / "training.csv").read_text().splitlines()
+    head = lines[0].split(",")
+    rows = [dict(zip(head, r.split(","))) for r in lines[1:]]
+    if len(rows) != TRAIN_EPOCHS:
+        raise AssertionError(f"training.csv has {len(rows)} rows")
+    for row in rows:
+        for key in ("loss", "val_loss", "val_dice", "lr"):
+            if not np.isfinite(float(row[key])):
+                raise AssertionError(f"training.csv {key} = {row[key]}")
+    ref_path = Path(tmp) / "reference_train_build.npz"
+    jax_format_unet_weights(ref_path, N_CLASSES, N_CHANNELS, DEPTH, CF,
+                            seed=0)
+    with np.load(ref_path) as ref:
+        want = {k: ref[k].shape for k in ref.files}
+    best = sorted((proj / "model").glob("@epoch_*.npz"))
+    files = [proj / "model" / "model_weights.npz"] + best[-1:]
+    if len(files) != 2 or not files[0].exists():
+        raise AssertionError(f"model files {sorted((proj / 'model').iterdir())}")
+    for f in files:
+        with np.load(f) as data:
+            got = {k: data[k].shape for k in data.files if k != "__meta__"}
+        if got != want:
+            raise AssertionError(f"{f.name}: keys/shapes differ from the "
+                                 f"JAX-format weights of the build")
+    views = np.load(proj / "views.npz")["arr_0"]
+    if views.shape != (N_VIEWS, 3) or not np.allclose(
+            np.linalg.norm(views, axis=1), 1.0, atol=1e-6):
+        raise AssertionError(f"views.npz {views.shape}")
+    log(f"mp train wrote: training.csv rows {[r['epoch'] for r in rows]} "
+        f"(loss {[r['loss'] for r in rows]}, val_dice "
+        f"{[r['val_dice'] for r in rows]}, lr {[r['lr'] for r in rows]}); "
+        f"{[f.name for f in files]} with the {len(want)} keys and shapes of "
+        f"the JAX-format build; views.npz {views.shape}, unit vectors")
+    return rows
+
+
+def step_time_ms(step, batches, warmup, timed):
+    """(median, first quartile, third quartile) of CUDA-event times around
+    step(*batch) alone, after `warmup` steps, cycling through batches."""
+    times = []
+    for i in range(warmup + timed):
+        batch = batches[i % len(batches)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return tuple(float(np.percentile(times, q)) for q in (50, 25, 75))
+
+
+def step_split_ms(step, batches, warmup, timed):
+    """Mean CUDA-event ms of the train step's parts, as TrainStep runs
+    them: forward + loss, backward, optimizer update (in-step metrics not
+    included)."""
+    names = ("forward + loss", "backward", "update")
+    sums = dict.fromkeys(names, 0.0)
+    for i in range(warmup + timed):
+        X, y, w = batches[i % len(batches)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        step.model.train()
+        ev[0].record()
+        out = step.model(X.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        loss = step.loss_obj(y, out, sample_weight=torch.as_tensor(
+            w, device=X.device))
+        ev[1].record()
+        step.optimizer.zero_grad()
+        loss.backward()
+        ev[2].record()
+        step.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            for name, a, b in zip(names, ev, ev[1:]):
+                sums[name] += a.elapsed_time(b) / timed
+    return sums
+
+
+def profile_steps(step, batches, n=3):
+    """torch.profiler over n steps: (device-busy ms per step, the top rows
+    of its kernel table by self device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n):
+            step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # kernel rows only (the ops that launch them carry the same time)
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return busy, events.table(sort_by="self_device_time_total", row_limit=12)
+
+
+def fresh_step(dtype, dev, lr, seed=0):
+    """A glorot-initialised (from `seed`) full-width UNet in train mode on
+    `dev` with its Adam TrainStep (the default loss and metric)."""
+    model = glorot_init(UNet(N_CLASSES, N_CHANNELS, DEPTH, CF, dtype=dtype),
+                        seed).to(dev).train()
+    opt = init_optimizer("Adam", model.parameters(), lr=lr, epsilon=1e-8)
+    step = TrainStep(model, opt, SparseCategoricalCrossentropy(),
+                     {"sparse_categorical_accuracy":
+                      METRICS["sparse_categorical_accuracy"]})
+    return model, opt, step
+
+
+def compare_f32_step(batch, dev):
+    """One float32 step at F32_BATCH on the card (TF32 off) and on the
+    host from the same weights and batch: loss within 1e-4 relative, BN
+    running statistics within 1e-5, parameters within PARAM_TOL * lr for
+    at least PARAM_SHARE of them and within 2 lr (opposite signs; 1e-3
+    of it for the rounding of p + u - p) for all."""
+    X, y, w = (t[:F32_BATCH] for t in batch)
+    lr = 5e-5
+    out = {}
+    for name, d in (("card", dev), ("host", torch.device("cpu"))):
+        model, opt, step = fresh_step(torch.float32, d, lr)
+        before = opt.packed.data.detach().cpu().clone()
+        t0 = time.perf_counter()
+        loss = step(X.to(d), y.to(d), w)["loss"].item()
+        secs = time.perf_counter() - t0
+        stats = {k: v.cpu() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        out[name] = (loss, stats, opt.packed.data.cpu() - before, secs)
+        del model, opt, step
+    (l_c, s_c, d_c, t_c), (l_h, s_h, d_h, t_h) = out["card"], out["host"]
+    rel = abs(l_c - l_h) / abs(l_h)
+    stat_err = max((s_c[k] - s_h[k]).abs().max().item() for k in s_c)
+    diff = (d_c - d_h).abs()
+    share = (diff <= PARAM_TOL * lr).float().mean().item()
+    log(f"f32 train step, batch {F32_BATCH}, card vs host: loss "
+        f"{l_c:.7f} vs {l_h:.7f} (rel {rel:.3g} <= 1e-4); BN running stats "
+        f"max abs err {stat_err:.3g} (<= 1e-5); parameter updates within "
+        f"{PARAM_TOL} lr: {100 * share:.4f}% (>= {100 * PARAM_SHARE}%), max "
+        f"diff {diff.max().item() / lr:.4g} lr (<= 2, opposite signs, plus "
+        f"rounding); host step "
+        f"{t_h:.1f} s")
+    if not (rel <= 1e-4 and stat_err <= 1e-5 and share >= PARAM_SHARE
+            and diff.max().item() <= 2 * lr * (1 + 1e-3)):
+        raise AssertionError("f32 train step on the card disagrees with the "
+                             "host")
+
+
+def sampler_parts(train_seq, n_batches):
+    """Host wall ms per batch of train_seq.__getitem__ (ending in a
+    synchronisation), then, over as many more batches, of its parts:
+    candidate label gather + presence fetch, image plane gather, elastic
+    augmentation, each timed between synchronisations (which slow the
+    whole, so the parts come from batches of their own)."""
+    train_seq[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        train_seq[i]
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) / n_batches * 1e3
+
+    parts = {"candidates + presence fetch": 0.0, "plane gather": 0.0,
+             "elastic": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name] += time.perf_counter() - t0
+            return result
+        return wrapper
+
+    originals = (multi_planar.candidate_label_slices,
+                 multi_planar.sample_plane)
+    multi_planar.candidate_label_slices = timed(
+        "candidates + presence fetch", originals[0])
+    multi_planar.sample_plane = timed("plane gather", originals[1])
+    train_seq.augment = timed("elastic", train_seq.augment)
+    try:
+        for i in range(n_batches):
+            train_seq[i]
+    finally:
+        multi_planar.candidate_label_slices, multi_planar.sample_plane = \
+            originals
+        del train_seq.augment
+    return total, {k: v / n_batches * 1e3 for k, v in parts.items()}
+
+
+def phase_training(dev, tmp, card):
+    """`mp train` end to end at the bench model's full width (gates in
+    check_trained_project), `mp predict` on the trained project, the step
+    checks (f32 card vs host, bf16 vs f32, overfit) and the training
+    numbers. Returns the shear-pass launches of the mp predict run."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(tmp) / "train"
+    proj, dirs = write_train_project(root, dev)
+    log(f"training project written in {time.perf_counter() - t_phase:.1f} s")
+    wall, epochs = run_mp_train(proj, dev)
+    rows = check_trained_project(proj, tmp)
+
+    # mp predict on the trained project, its launches gated by the plans of
+    # the trained views at the span the Auditor chose
+    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
+    span = float(hparams["fit"]["real_space_span"])
+    views = np.load(proj / "views.npz")["arr_0"]
+    val_vol = nifti.load(dirs["val"] / "images" / "val_0.nii.gz").get_fdata()
+    planner = MultiViewPredictor(None, sample_dim=DIM, real_space_span=span,
+                                 n_classes=N_CLASSES, device=dev)
+    plans = view_plans(planner, Image(val_vol[..., None], np.eye(4)), views)
+    t0 = time.perf_counter()
+    _, predict_launches = run_mp_predict_counted(
+        proj, "pred_trained", ["--no_eval"], plans, require_shear=False)
+    pred = nifti.load(proj / "pred_trained" / "nii_files" / "val_0" /
+                      "PRED.nii.gz").get_raw_data()
+    if pred.shape != (DIM,) * 3 or pred.max() >= N_CLASSES:
+        raise AssertionError(f"trained PRED {pred.shape} {pred.dtype}")
+    log(f"mp predict on the trained project (span {span}): PRED "
+        f"{pred.shape} {pred.dtype}, classes "
+        f"{np.bincount(pred.ravel(), minlength=N_CLASSES).tolist()}, "
+        f"shear-pass launches {predict_launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # In-process sequences over the trained project (its views)
+    train_seq, val_seq = prepare_for_multi_view_unet(
+        hparams, continue_training=True, logger=ScreenLogger(False),
+        base_path=str(proj), device=dev)
+    train_seq.batch_size = val_seq.batch_size = BATCH
+    batches = [train_seq[i] for i in range(4)]
+    compare_f32_step(batches[0], dev)
+
+    # bf16 vs f32 loss of the same first step (batch 16)
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _, _, step = fresh_step(dtype, dev, 5e-5)
+        losses[dtype] = step(*batches[0])["loss"].item()
+        del step
+    rel = abs(losses[torch.bfloat16] - losses[torch.float32]) / abs(
+        losses[torch.float32])
+    log(f"bf16 vs f32 train step loss (batch {BATCH}): "
+        f"{losses[torch.bfloat16]:.6f} vs {losses[torch.float32]:.6f}, rel "
+        f"{rel:.3g} (<= 2e-2)")
+    if rel > 2e-2:
+        raise AssertionError("bf16 step loss too far from the f32 one")
+
+    # Overfit one batch
+    model, _, step = fresh_step(torch.bfloat16, dev, 1e-3)
+    curve = [step(*batches[0])["loss"].item() for _ in range(OVERFIT_STEPS)]
+    log(f"overfit one batch, {OVERFIT_STEPS} bf16 Adam steps at lr 1e-3: "
+        f"loss {curve[0]:.4f} -> {curve[-1]:.4f} (ratio "
+        f"{curve[-1] / curve[0]:.3f} < {OVERFIT_RATIO}); every 10th "
+        f"{[round(v, 4) for v in curve[::10]]}")
+    if not curve[-1] < OVERFIT_RATIO * curve[0]:
+        raise AssertionError("the bf16 train step does not fit one batch")
+
+    # Numbers: the step alone at batch 16 and 64, the sampler, validation
+    model, _, step = fresh_step(torch.bfloat16, dev, 5e-5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    med, q1, q3 = step_time_ms(step, batches, warmup=5, timed=20)
+    peak16 = torch.cuda.max_memory_allocated(dev)
+    split = step_split_ms(step, batches, warmup=2, timed=10)
+    busy, table = profile_steps(step, batches)
+    model.eval()
+    fwd_flops = unet_flops_per_plane(model, dev)
+    model.train()
+    tflops = 3 * fwd_flops * BATCH / (med * 1e-3) / 1e12
+    big = tuple(torch.cat([b[i] for b in batches]) if i < 2
+                else np.concatenate([b[2] for b in batches])
+                for i in range(3))
+    del step, model
+    torch.cuda.empty_cache()
+    model, _, step = fresh_step(torch.bfloat16, dev, 5e-5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    med64, q1_64, q3_64 = step_time_ms(step, [big], warmup=2, timed=5)
+    peak64 = torch.cuda.max_memory_allocated(dev)
+    del step, model, big
+    torch.cuda.empty_cache()
+    samp_ms, parts = sampler_parts(train_seq, 8)
+
+    model, _, _ = fresh_step(torch.bfloat16, dev, 5e-5)
+    trainer = Trainer(model, logger=ScreenLogger(False), device=dev)
+    trainer.compile_model("Adam", {"lr": 5e-5}, "SparseCategoricalCrossentropy",
+                          ["sparse_categorical_accuracy"])
+    val_cb = Validation(val_seq, VAL_IMAGES // BATCH, verbose=False)
+    val_cb.set_trainer(trainer)
+    val_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val_cb.on_epoch_end(0, {})
+        val_ms.append((time.perf_counter() - t0) * 1e3)
+    del trainer, model, val_cb
+
+    steps = TRAIN_IMAGES // BATCH
+    loop = [e[0] for e in epochs[1:]]
+    steady = float(np.mean(loop))
+    step_sum = steps * med / 1e3
+    exposed = max(0.0, steady - step_sum)
+    hidden = 1.0 - min(1.0, exposed / (steps * samp_ms / 1e3))
+    log(f"[{card}] train step (bf16, batch {BATCH}, full width, dim {DIM}): "
+        f"median {med:.2f} ms (quartiles {q1:.2f} / {q3:.2f}) over 20 steps "
+        f"after 5 warm-up, CUDA events around the step alone; peak "
+        f"allocated {peak16 / 2**30:.2f} GiB; {fwd_flops / 1e9:.1f} GFLOP "
+        f"forward per plane, step at 3x forward (an approximation) = "
+        f"{tflops:.1f} TFLOP/s ({100 * tflops / 989:.1f}% of 989 dense bf16 "
+        f"TFLOP/s)")
+    log(f"[{card}] train step parts (mean of 10, CUDA events): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f"; torch.profiler: device busy {busy:.2f} ms per step of "
+        f"{med:.2f} ms ({100 * busy / med:.1f}%), kernels by self device "
+        f"time over 3 steps:\n{table}")
+    log(f"[{card}] train step at batch {BATCH_LARGE}: median {med64:.2f} ms "
+        f"(quartiles {q1_64:.2f} / {q3_64:.2f}, 5 steps after 2 warm-up), "
+        f"{BATCH_LARGE / (med64 * 1e-3):.1f} images/s of step time; peak "
+        f"allocated {peak64 / 2**30:.2f} GiB")
+    log(f"[{card}] sampler (per-image path, batch {BATCH}, Elastic2D on): "
+        f"{samp_ms:.1f} ms host wall per batch; parts, each between "
+        f"synchronisations, "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items()))
+    log(f"[{card}] validation epoch ({VAL_IMAGES // BATCH} steps of "
+        f"{BATCH}): {val_ms[-1]:.1f} ms (first {val_ms[0]:.1f} ms)")
+    log(f"[{card}] mp train: {wall:.1f} s wall for {TRAIN_EPOCHS} epochs; "
+        f"train loop per epoch {[round(e[0], 3) for e in epochs]} s, "
+        f"callbacks incl. validation {[round(e[1], 3) for e in epochs]} s; "
+        f"steady epoch {steady:.3f} s vs {steps} x step median = "
+        f"{step_sum:.3f} s: {exposed:.3f} s exposed of "
+        f"{steps * samp_ms / 1e3:.3f} s of sampling ({100 * hidden:.1f}% "
+        f"hidden by the prefetch); {steps * BATCH / steady:.1f} images/s")
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return predict_launches
+
+
 def main():
     dev = require_cuda()
     torch.manual_seed(0)
@@ -1186,6 +1638,8 @@ def main():
                                                plans, tmp)
         e, paths[f"{DIM_LARGE}^3"] = phase_large(dev, predictor.model, views, fusion)
         err = max(err, e)
+        del predictor
+        paths["mp predict (trained)"] = phase_training(dev, tmp, card)
     view0 = [times["stack"], times["remap"]]
     log(f"shear-pass launches per path: {paths}")
     log(f"card: {card}")

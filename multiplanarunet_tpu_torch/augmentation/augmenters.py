@@ -1,0 +1,123 @@
+"""Batch augmenters (config surface of
+`multiplanarunet_tpu/augmentation/augmenters.py`): `Elastic2D` takes the
+same YAML kwargs (alpha and sigma as scalars or [lo, hi] ranges drawn per
+sample, apply_prob, aug_weight replacing the sample weight of augmented
+elements, seed) and deforms the whole batch on its device in one call of
+`ops.elastic.elastic_deform_2d_batch`.
+
+Per batch, the host draws apply_mask, then alphas, then sigmas from the
+augmenter's numpy RandomState, in the JAX package's order (and, without a
+seed, one randint(2**31) for the noise stream's seed, as the JAX package
+draws its PRNG key's). The noise fields come from a torch.Generator on the
+batch's device seeded with that seed; the JAX package's come from its
+PRNG, so the fields themselves differ.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from multiplanarunet_tpu_torch.ops.elastic import elastic_deform_2d_batch
+
+
+class AugmenterNotPortedError(ValueError):
+    """An augmenter class of the JAX package that the port does not
+    have."""
+
+
+def _validate_range(value, name):
+    if isinstance(value, (list, tuple)):
+        if len(value) != 2:
+            raise ValueError(f"{name} range must have 2 numbers, got {value}")
+        if value[1] <= value[0]:
+            raise ValueError(f"{name} upper bound <= lower bound: {value}")
+    return value
+
+
+class Elastic2D:
+    """Random elastic deformation of every (B, d, d, C) batch element."""
+
+    __name__ = "Elastic2D"
+
+    def __init__(self, alpha, sigma, apply_prob, aug_weight=0.33, seed=None):
+        self._alpha = _validate_range(alpha, "alpha")
+        self._sigma = _validate_range(sigma, "sigma")
+        if not 0 <= apply_prob <= 1:
+            raise ValueError(f"apply_prob must be in [0, 1], got {apply_prob}")
+        self.apply_prob = apply_prob
+        self.weight = aug_weight
+        self._rng = np.random.RandomState(seed)
+        self.noise_seed = int(seed if seed is not None
+                              else self._rng.randint(2 ** 31))
+        self._generators = {}
+
+    def _draw(self, value, n):
+        if isinstance(value, (list, tuple)):
+            return self._rng.uniform(value[0], value[1], size=n)
+        return np.full(n, float(value))
+
+    def draw_batch_params(self, batch_size):
+        """One batch's host draws: (alphas, sigmas, apply_mask)."""
+        apply_mask = self._rng.rand(batch_size) <= self.apply_prob
+        alphas = self._draw(self._alpha, batch_size)
+        sigmas = self._draw(self._sigma, batch_size)
+        return alphas, sigmas, apply_mask
+
+    def generator(self, device):
+        """The noise stream on `device` (one per device, seeded alike)."""
+        device = torch.device(device)
+        if device not in self._generators:
+            self._generators[device] = torch.Generator(
+                device=device).manual_seed(self.noise_seed)
+        return self._generators[device]
+
+    def __call__(self, batch_x, batch_y, batch_w=None, bg_values=None):
+        """Deform (B, d, d, C) images and (B, d, d[, 1]) labels; returns
+        (images, float32 labels or None, weights with aug_weight where
+        applied)."""
+        B, C = batch_x.shape[0], batch_x.shape[-1]
+        dev = batch_x.device
+        lab = (torch.zeros(batch_x.shape[:-1], device=dev)
+               if batch_y is None else batch_y.float())
+        if lab.shape[-1] == 1 and lab.dim() == batch_x.dim():
+            lab = lab[..., 0]
+        alphas, sigmas, apply_mask = self.draw_batch_params(B)
+        if bg_values is None:
+            bg = np.zeros((B, C), np.float32)
+        else:
+            bg = np.array(np.broadcast_to(
+                np.asarray(bg_values, np.float32).reshape(B, -1), (B, C)))
+        x_out, y_out = elastic_deform_2d_batch(
+            batch_x, lab, alphas, sigmas, apply_mask, bg,
+            generator=self.generator(dev))
+        if batch_w is not None:
+            batch_w = np.asarray(batch_w, np.float32).copy()
+            batch_w[apply_mask] = self.weight
+        return x_out, (None if batch_y is None else y_out), batch_w
+
+    def __str__(self):
+        return (f"{self.__name__}(alpha={self._alpha}, sigma={self._sigma}, "
+                f"apply_prob={self.apply_prob:.3f})")
+
+    __repr__ = __str__
+
+
+AUGMENTERS = {"Elastic2D": Elastic2D}
+
+
+def build_augmenters(config_list, seed=None):
+    """Augmenters from the YAML 'augmenters' list of {cls_name, kwargs};
+    a class the port does not have raises AugmenterNotPortedError."""
+    out = []
+    for i, spec in enumerate(config_list or []):
+        name = spec["cls_name"]
+        if name not in AUGMENTERS:
+            raise AugmenterNotPortedError(
+                f"Augmenter {name!r} is not available in the PyTorch port "
+                f"(available: {sorted(AUGMENTERS)})")
+        kwargs = dict(spec.get("kwargs", {}))
+        if seed is not None:
+            kwargs.setdefault("seed", seed + i)
+        out.append(AUGMENTERS[name](**kwargs))
+    return out

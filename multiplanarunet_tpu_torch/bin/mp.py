@@ -1,8 +1,8 @@
 """`mp` dispatcher of the PyTorch port: ``python -m
 multiplanarunet_tpu_torch.bin.mp <script> [script args...]`` forwards the
 script's arguments to its `entry_func`, as `multiplanarunet_tpu/bin/mp.py`
-does. The port has `predict`; the JAX package's other scripts raise
-`ScriptNotPortedError`."""
+does. The port has `predict` and `train`; the JAX package's other
+scripts raise `ScriptNotPortedError`."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import argparse
 import importlib
 import sys
 
-PORTED = ("predict",)
+PORTED = ("predict", "train")
 
 
 class ScriptNotPortedError(NotImplementedError):

@@ -1,0 +1,72 @@
+"""Validation callback: epoch evaluation with exact per-class statistics.
+
+Port of `multiplanarunet_tpu/callbacks/validation.py:Validation` (single
+task, single device). At every epoch end it runs the eval step over
+`steps` validation batches (sampled one batch ahead), sums the batch
+logs and the int32 per-class (tp, rel, sel) counts on the device, fetches
+them once, and writes into the logs: val_<key> (the mean of each eval-step
+log: val_loss and the in-step metrics), and val_precision, val_recall and
+val_dice (per-class values from the summed counts, averaged over the
+classes present in the labels, background left out).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from multiplanarunet_tpu_torch.callbacks.callbacks import Callback
+from multiplanarunet_tpu_torch.evaluate.metrics import precision_recall_dice
+from multiplanarunet_tpu_torch.sequences.base_sequence import prefetched
+
+
+class Validation(Callback):
+    def __init__(self, val_sequence, steps, logger=None, verbose=True,
+                 ignore_bg=True, **kwargs):
+        self.sequence = val_sequence
+        self.steps = int(steps)
+        self.logger = logger
+        self.verbose = verbose
+        self.ignore_bg = ignore_bg
+
+    def _log(self):
+        return self.logger or self.trainer.logger
+
+    def evaluate(self):
+        """(summed eval-step logs, (tp, rel, sel) int64 numpy) over the
+        validation batches, fetched once."""
+        trainer = self.trainer
+        sums, counts = None, None
+        for X, y, w in prefetched(self.sequence, self.steps, trainer.device):
+            step_logs, step_counts = trainer.eval_step(X, y, w)
+            if sums is None:
+                sums, counts = dict(step_logs), list(step_counts)
+            else:
+                sums = {k: sums[k] + v for k, v in step_logs.items()}
+                counts = [a + b for a, b in zip(counts, step_counts)]
+        keys = list(sums)
+        fetched = torch.stack([sums[k].float() for k in keys]).cpu().numpy()
+        return (dict(zip(keys, fetched)),
+                tuple(c.cpu().numpy().astype(np.int64) for c in counts))
+
+    def on_epoch_end(self, epoch, logs=None):
+        logs = logs if logs is not None else {}
+        sums, (tp, rel, sel) = self.evaluate()
+        for key, total in sums.items():
+            logs[f"val_{key}"] = float(total) / self.steps
+        (precision, recall, dice), (mp, mr, md) = precision_recall_dice(
+            tp, rel, sel, ignore_bg=self.ignore_bg)
+        logs["val_precision"] = float(mp)
+        logs["val_recall"] = float(mr)
+        logs["val_dice"] = float(md)
+        if self.verbose:
+            log = self._log()
+            log(f"\n--- Validation epoch {epoch} "
+                f"(loss={logs.get('val_loss', float('nan')):.4f}) ---")
+            classes = np.arange(1 if self.ignore_bg else 0, len(tp))
+            log(f"{'class':>8} {'precision':>10} {'recall':>10} "
+                f"{'dice':>10}")
+            for i, c in enumerate(classes):
+                log(f"{c:>8} {precision[i]:>10.4f} {recall[i]:>10.4f} "
+                    f"{dice[i]:>10.4f}")
+            log(f"{'mean':>8} {mp:>10.4f} {mr:>10.4f} {md:>10.4f}")

@@ -1,13 +1,18 @@
-"""Evaluation metrics of `mp predict`, in numpy.
+"""Evaluation metrics: numpy for offline evaluation, torch for training.
 
-Port of the numpy half of `multiplanarunet_tpu/evaluate/metrics.py`:
-`dice`, `dice_all` over class maps and `dice_from_counts` over the
-(3, C) confusion counts the predictor takes on the device.
+Port of `multiplanarunet_tpu/evaluate/metrics.py`: `dice`, `dice_all`
+over class maps and `dice_from_counts` over the (3, C) confusion counts
+the predictor takes on the device; `precision_recall_dice`, the
+Validation callback's epoch statistics from (tp, rel, sel) counts; and
+the in-step training metrics `METRICS` over integer targets and class
+probabilities (classes on the last axis), computed on the tensors'
+device without a host sync.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def dice(y_true, y_pred, smooth=1.0):
@@ -50,3 +55,113 @@ def dice_from_counts(counts, smooth=1.0, ignore_zero=True):
     if ignore_zero:
         out = out[1:]
     return out
+
+
+def precision_recall_dice(tp, rel, sel, ignore_bg=True):
+    """Epoch-level per-class precision, recall and dice from confusion
+    counts, and their means over the classes present in the labels:
+    ((precision, recall, dice), (mean_p, mean_r, mean_d))."""
+    tp = np.asarray(tp, np.float64)
+    rel = np.asarray(rel, np.float64)
+    sel = np.asarray(sel, np.float64)
+    precision = np.where(sel > 0, tp / np.maximum(sel, 1), 0.0)
+    recall = np.where(rel > 0, tp / np.maximum(rel, 1), 0.0)
+    dice = np.where(rel + sel > 0, 2 * tp / np.maximum(rel + sel, 1), 0.0)
+    if ignore_bg:
+        precision, recall, dice = precision[1:], recall[1:], dice[1:]
+        rel = rel[1:]
+    mask = rel > 0
+    if mask.any():
+        means = (precision[mask].mean(), recall[mask].mean(),
+                 dice[mask].mean())
+    else:
+        means = (0.0, 0.0, 0.0)
+    return (precision, recall, dice), means
+
+
+# ------------------------------------------------------- torch (training)
+def _squeeze_target(y_true, y_pred):
+    if y_true.shape[-1] == 1 and y_true.dim() == y_pred.dim():
+        return y_true[..., 0]
+    return y_true
+
+
+def one_class_dice(y_true, y_pred, smooth=1.0, threshold=0.5):
+    """Dice of a single-output (binary) model's thresholded prediction."""
+    pred = (y_pred > threshold).float()
+    y_true = y_true.float()
+    return (smooth + 2.0 * torch.sum(y_true * pred)) / (
+        smooth + torch.sum(y_true) + torch.sum(pred))
+
+
+def confusion_matrix(y_true, y_pred_cls, n_classes):
+    """(n_classes, n_classes) float32 counts, rows true, columns
+    predicted; labels outside [0, n_classes) count nowhere."""
+    t = y_true.reshape(-1).long()
+    p = y_pred_cls.reshape(-1).long()
+    ok = (t >= 0) & (t < n_classes) & (p >= 0) & (p < n_classes)
+    idx = torch.where(ok, t * n_classes + p, n_classes * n_classes)
+    counts = torch.bincount(idx, minlength=n_classes * n_classes + 1)
+    return counts[:-1].reshape(n_classes, n_classes).float()
+
+
+def sparse_categorical_accuracy(y_true, y_pred):
+    y_true = _squeeze_target(y_true, y_pred)
+    pred_cls = torch.argmax(y_pred, dim=-1)
+    return torch.mean((pred_cls == y_true.long()).float())
+
+
+def sparse_fg_recall(y_true, y_pred, bg_class=0):
+    """Share of true-foreground pixels predicted with the right class."""
+    y_true = _squeeze_target(y_true, y_pred).long()
+    pred_cls = torch.argmax(y_pred, dim=-1)
+    fg = (y_true != bg_class).float()
+    correct = (pred_cls == y_true).float()
+    return torch.sum(correct * fg) / torch.clamp(torch.sum(fg), min=1.0)
+
+
+def sparse_fg_precision(y_true, y_pred, bg_class=0):
+    """Share of predicted-foreground pixels whose class is right."""
+    y_true = _squeeze_target(y_true, y_pred).long()
+    pred_cls = torch.argmax(y_pred, dim=-1)
+    fg = (pred_cls != bg_class).float()
+    correct = (pred_cls == y_true).float()
+    return torch.sum(correct * fg) / torch.clamp(torch.sum(fg), min=1.0)
+
+
+def _cm_precisions_recalls(y_true, y_pred):
+    n_classes = y_pred.shape[-1]
+    y_true = _squeeze_target(y_true, y_pred)
+    cm = confusion_matrix(y_true, torch.argmax(y_pred, dim=-1), n_classes)
+    tp = torch.diagonal(cm)
+    precisions = tp / torch.clamp(cm.sum(dim=0), min=1e-8)
+    recalls = tp / torch.clamp(cm.sum(dim=1), min=1e-8)
+    return precisions, recalls
+
+
+def sparse_mean_fg_precision(y_true, y_pred):
+    precisions, _ = _cm_precisions_recalls(y_true, y_pred)
+    return torch.mean(precisions[1:])
+
+
+def sparse_mean_fg_recall(y_true, y_pred):
+    _, recalls = _cm_precisions_recalls(y_true, y_pred)
+    return torch.mean(recalls[1:])
+
+
+def sparse_mean_fg_f1(y_true, y_pred):
+    precisions, recalls = _cm_precisions_recalls(y_true, y_pred)
+    f1 = (2.0 * precisions * recalls) / torch.clamp(precisions + recalls,
+                                                    min=1e-8)
+    return torch.mean(f1[1:])
+
+
+METRICS = {
+    "one_class_dice": one_class_dice,
+    "sparse_categorical_accuracy": sparse_categorical_accuracy,
+    "sparse_fg_recall": sparse_fg_recall,
+    "sparse_fg_precision": sparse_fg_precision,
+    "sparse_mean_fg_precision": sparse_mean_fg_precision,
+    "sparse_mean_fg_recall": sparse_mean_fg_recall,
+    "sparse_mean_fg_f1": sparse_mean_fg_f1,
+}

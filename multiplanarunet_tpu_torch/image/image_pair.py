@@ -295,8 +295,11 @@ class ImagePair:
                 "Cannot build a sampler without a bg value; call "
                 "set_bg_value first."
             )
-        return VolumeSampler(self.image, self.affine,
-                             bg_value=self.bg_value, scaler=self.scaler)
+        return VolumeSampler(
+            self.image, self.affine, bg_value=self.bg_value,
+            scaler=self.scaler,
+            labels=None if self.predict_mode else self.labels,
+            bg_class=self.bg_class)
 
     def set_interpolator_with_current(self):
         self._interpolator = self.get_interpolator_with_current()

@@ -1,14 +1,19 @@
-"""Per-image volume staging for the predictor (device path only).
+"""Per-image volume staging on a device, for the predictor and the
+training sampler.
 
 Port of the device-staging half of
 `multiplanarunet_tpu/image/volume_sampler.py:VolumeSampler`: the centered
 voxel-axis geometry (origin, spacing, alignment rotation), the scaled
 volume (cached on the host), and the bucket-padded volume as a cached
-tensor on a device, either plain (X, Y, Z, C) for the shear resampler or
-corner-packed (X, Y, Z, 8, C) for the gather resampler. With
-quantize=True the host ships per-channel affine uint8 codes (half the
-bytes of bf16) and the card dequantises them to bf16. The host
-interpolation path (training) is not ported yet.
+tensor on a device, either plain (X, Y, Z, C) for the shear resampler and
+the training sampler or corner-packed (X, Y, Z, 8, C) for the gather
+resampler. With quantize=True the host ships per-channel affine uint8
+codes (half the bytes of bf16) and the card dequantises them to bf16.
+For training, the labels are staged too (`device_labels`, float32
+(X, Y, Z, 1), the nearest-gather source) with the image's background
+class (`bg_class`), and `device_rot` gives the alignment rotation as a
+tensor. The JAX package's host interpolation path (`intrp_image`,
+`intrp_labels`) is not ported: the port samples on the device only.
 """
 
 from __future__ import annotations
@@ -22,14 +27,18 @@ from multiplanarunet_tpu_torch.ops.interp import pack_corners
 
 class VolumeSampler:
     """image: (X, Y, Z, C) array; scaler: any object with `.transform`
-    taking and returning (X, Y, Z, C) arrays, or None."""
+    taking and returning (X, Y, Z, C) arrays, or None; labels: (X, Y, Z)
+    integer array or None."""
 
-    def __init__(self, image, affine, bg_value=0.0, scaler=None):
+    def __init__(self, image, affine, bg_value=0.0, scaler=None, labels=None,
+                 bg_class=0):
         if image.ndim != 4:
             raise ValueError(
                 f"Image must be rank-4 (X,Y,Z,C); got shape {image.shape}. "
                 f"Use np.expand_dims(img, -1) for single-channel volumes.")
         self.image = image
+        self.labels = labels
+        self.bg_class = int(bg_class)
         self.affine = np.asarray(affine)
         self.n_channels = image.shape[-1]
         self.scaler = scaler
@@ -45,6 +54,7 @@ class VolumeSampler:
         self._scaled_cache = None
         self._codes = None    # (bucket, (codes, step, vmin))
         self._staged = None   # ((form, device, bucket, dtype, quantize), t)
+        self._labels_staged = None  # ((device, bucket), t)
 
     # ------------------------------------------------------------- host side
     @property
@@ -153,8 +163,32 @@ class VolumeSampler:
         gather resampler. Cached like the unpacked form."""
         return self._cached("packed", device, bucket, dtype, quantize)
 
+    def device_labels(self, device, bucket=32):
+        """The labels as float32 (X, Y, Z, 1) zero-padded to the bucket on
+        `device` (cached), or None without labels."""
+        if self.labels is None:
+            return None
+        key = (torch.device(device), int(bucket or 0))
+        if self._labels_staged is None or self._labels_staged[0] != key:
+            self._labels_staged = None
+            lab = torch.from_numpy(np.ascontiguousarray(self.labels))
+            lab = lab.to(device).float()[..., None]
+            pads = []
+            for n, p in zip(lab.shape[:3], self.padded_shape(bucket)):
+                pads = [0, p - n] + pads
+            self._labels_staged = (key, torch.nn.functional.pad(
+                lab, [0, 0] + pads))
+        return self._labels_staged[1]
+
+    def device_rot(self, device):
+        """The scanner -> grid alignment rotation as a float32 (3, 3)
+        tensor (the identity when the affine is axis-aligned)."""
+        rot = np.eye(3) if self.rot_mat is None else self.rot_mat
+        return torch.as_tensor(np.asarray(rot, np.float32), device=device)
+
     def unload_device(self):
         """Drop every staged tensor and the host caches."""
+        self._labels_staged = None
         self._staged = None
         self._codes = None
         self._scaled_cache = None

@@ -1,9 +1,13 @@
-"""Read the JAX package's weight files and carry them onto the torch UNet.
+"""Weight files in the JAX package's format, read and written with numpy.
 
 The format is that of `multiplanarunet_tpu/models/checkpoint.py`: one
 numpy .npz whose keys are "params/<module>/<leaf>" and
 "batch_stats/<module>/<leaf>", with an optional "__meta__" entry holding
-json bytes. It is read with numpy alone.
+json bytes. `unet_state_dict_from_jax` carries such a tree onto the torch
+UNet, `unet_variables_from_model` is its inverse, `save_weights` writes a
+tree, and `restore_by_name` overlays a file onto a model wherever names
+and shapes match (the JAX package's by-name restore). Each package reads
+the files the other writes.
 """
 
 from __future__ import annotations
@@ -24,6 +28,30 @@ def _unflatten(entries):
             node = node.setdefault(p, {})
         node[leaf] = value
     return tree
+
+
+def _flatten(tree, prefix):
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}/{key}"))
+        else:
+            out[f"{prefix}/{key}"] = np.asarray(value)
+    return out
+
+
+def save_weights(path, params, batch_stats=None, meta=None):
+    """Write params (+ batch stats, + json metadata) to one .npz file,
+    creating its folder."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    entries = _flatten(params, "params")
+    if batch_stats:
+        entries.update(_flatten(batch_stats, "batch_stats"))
+    if meta is not None:
+        entries["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                            dtype=np.uint8)
+    np.savez(path, **entries)
 
 
 def load_weights(path):
@@ -89,7 +117,7 @@ def unet_state_dict_from_jax(params, batch_stats, model):
             raise ValueError(f"{coll}/{'/'.join(path)} has shape "
                              f"{tuple(arr.shape)} (as {key}); the model "
                              f"needs {tuple(ref.shape)}")
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        state[key] = torch.from_numpy(np.array(arr))
         used.add((coll,) + path)
     for coll, tree in trees.items():
         for path in _leaf_paths(tree):
@@ -105,3 +133,67 @@ def _leaf_paths(tree, prefix=()):
             yield from _leaf_paths(v, prefix + (k,))
         else:
             yield prefix + (k,)
+
+
+def _to_flax_array(torch_key, tensor):
+    arr = tensor.detach().to("cpu", torch.float32).numpy()
+    if arr.ndim == 4:
+        arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    return np.ascontiguousarray(arr)
+
+
+def unet_variables_from_model(model):
+    """The inverse of `unet_state_dict_from_jax`: `model`'s state as the
+    flax (params, batch_stats) trees of numpy float32 arrays (conv kernels
+    OIHW -> HWIO; BatchNorm weight/bias/running_mean/running_var ->
+    scale/bias/mean/var)."""
+    trees = {"params": {}, "batch_stats": {}}
+    for key, value in model.state_dict().items():
+        flax = _flax_key(key)
+        if flax is None:
+            continue
+        coll, path = flax
+        node = trees[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _to_flax_array(key, value)
+    return trees["params"], trees["batch_stats"]
+
+
+def save_unet_weights(path, model, meta=None):
+    """Write `model`'s weights as a JAX-format .npz file."""
+    params, batch_stats = unet_variables_from_model(model)
+    save_weights(path, params, batch_stats, meta=meta)
+
+
+def restore_by_name(model, params, batch_stats=None, logger=None):
+    """Overlay a flax (params, batch_stats) tree onto `model` wherever the
+    names and shapes match, warning for every other entry of the tree
+    (the JAX package's by-name restore). Returns the number of parameter
+    arrays restored."""
+    current = {}
+    for key, ref in model.state_dict().items():
+        flax = _flax_key(key)
+        if flax is not None:
+            current[(flax[0],) + flax[1]] = (key, ref)
+    state = model.state_dict()
+    restored = 0
+    trees = {"params": params, "batch_stats": batch_stats or {}}
+    for coll, tree in trees.items():
+        for path in _leaf_paths(tree):
+            node = tree
+            for p in path:
+                node = node[p]
+            arr = np.asarray(node, np.float32)
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            target = current.get((coll,) + path)
+            if target is None or tuple(target[1].shape) != arr.shape:
+                if logger is not None:
+                    logger.warn(f"Checkpoint key '{coll}/{'/'.join(path)}' "
+                                f"not restored (missing or shape mismatch)")
+                continue
+            state[target[0]] = torch.from_numpy(np.array(arr))
+            restored += coll == "params"
+    model.load_state_dict(state)
+    return restored

@@ -1,17 +1,29 @@
-"""Model construction from a project's `build` hyperparameters.
+"""Model construction from a project's hyperparameters, and the
+continue-training restore.
 
-Port of the build half of `multiplanarunet_tpu/models/model_init.py` for
-inference: the 2D `UNet` from the build group, its weights from the JAX
-package's checkpoint files.
+Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet`:
+the model from the build group, its weights from the JAX package's
+checkpoint files, and `model_initializer` for `mp train` (a fresh
+glorot-uniform init from a seed, `--continue_training` from the last
+'@epoch_NN' checkpoint with the epoch and learning rate of
+logs/training.csv, or `--initialize_from` a weight file, restored by
+name).
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import torch
 
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
-from multiplanarunet_tpu_torch.models.unet import UNet
+from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
+from multiplanarunet_tpu_torch.utils.utils import (
+    clear_csv_after_epoch,
+    get_last_model,
+    get_lr_at_epoch,
+)
 
 # build-group fields the UNet takes; the JAX model's other fields (dim,
 # img_rows/img_cols, l1_reg/l2_reg) do not change inference, and keys
@@ -55,3 +67,45 @@ def load_unet_weights(model, path):
     model.load_state_dict(
         checkpoint.unet_state_dict_from_jax(params, batch_stats, model))
     return model
+
+
+def model_initializer(hparams, continue_training=False, project_dir=None,
+                      logger=None, initialize_from=None):
+    """Build a UNet from hparams and initialise it: glorot-uniform from
+    seed 0 (the JAX package initialises from PRNGKey(0)), then, with
+    continue_training, the last '@epoch_NN' checkpoint of
+    <project_dir>/model restored by name, the rows of
+    logs/training.csv past its epoch dropped and its learning rate
+    recovered; or with initialize_from, that file restored by name.
+    Returns (model on the CPU in train mode, init_epoch, restored_lr or
+    None)."""
+    logger = logger or ScreenLogger()
+    mixed = bool(hparams.get("fit", {}).get("mixed_precision", False))
+    model = build_model(hparams["build"], mixed_precision=mixed,
+                        logger=logger)
+    glorot_init(model, seed=0)
+
+    init_epoch, restored_lr = 0, None
+    weights_path = None
+    if continue_training:
+        if project_dir is None:
+            raise ValueError("continue_training requires a project_dir")
+        weights_path, init_epoch = get_last_model(Path(project_dir) / "model")
+        if weights_path is None:
+            logger.warn("No previous checkpoint found; training from scratch.")
+        else:
+            # Checkpoint names carry the 1-based count of completed epochs;
+            # CSV rows are 0-based epoch indices, so training resumes at
+            # index init_epoch and the rows kept are those < init_epoch
+            csv_path = Path(project_dir) / "logs" / "training.csv"
+            restored_lr, _ = get_lr_at_epoch(init_epoch - 1, csv_path.parent)
+            clear_csv_after_epoch(init_epoch - 1, csv_path)
+    elif initialize_from:
+        weights_path = initialize_from
+
+    if weights_path:
+        logger(f"Restoring weights (by name) from {weights_path}")
+        params, batch_stats, _ = checkpoint.load_weights(weights_path)
+        n = checkpoint.restore_by_name(model, params, batch_stats, logger)
+        logger(f"Restored {n} parameter arrays (epoch={init_epoch})")
+    return model.train(), init_epoch, restored_lr

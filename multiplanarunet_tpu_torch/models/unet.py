@@ -1,4 +1,4 @@
-"""2D U-Net for inference, in torch.
+"""2D U-Net, in torch, for inference and training.
 
 Port of `multiplanarunet_tpu/models/unet.py:UNet` at the same topology:
 a depth-N encoder of [conv kxk SAME -> act] x2 -> BatchNorm -> maxpool
@@ -12,9 +12,16 @@ activation name the port does not know raises
 
 Layout is NCHW. Parameters and BatchNorm statistics stay float32; the
 convolutions run in `dtype` (bf16 on the card), as the JAX model's
-`dtype` does, and BatchNorm normalises in float32 (eval mode, eps 1e-3,
-running statistics). Weights come from the JAX package's checkpoints
-through `models.checkpoint.unet_state_dict_from_jax`.
+`dtype` does, and BatchNorm normalises in float32 (eps 1e-3). In eval
+mode BatchNorm uses the running statistics; in train mode (`.train()`)
+it normalises with the batch statistics and updates the running ones as
+flax does: float32 reductions, the biased variance max(0, E[x^2] -
+E[x]^2), running = 0.99 * running + 0.01 * batch. Weights come from the
+JAX package's checkpoints through `models.checkpoint`, or from
+`glorot_init` (glorot-uniform kernels, zero biases, the JAX model's
+init). `label_crop` holds the (2, 2) skip crops of the last forward, the
+JAX model's sown `label_crop` (zero when the input side is divisible by
+2^depth).
 """
 
 from __future__ import annotations
@@ -76,17 +83,63 @@ class Conv2d(nn.Conv2d):
                                   self.bias.to(x.dtype))
 
 
+# Keras / flax BatchNorm momentum: running = m * running + (1 - m) * batch
+BN_MOMENTUM = 0.99
+
+
+class _BatchStatsNorm(torch.autograd.Function):
+    """BatchNorm over the batch's statistics as flax computes them: float32
+    reductions, the biased variance max(0, E[x^2] - E[x]^2). The forward
+    normalises with those statistics in one fused F.batch_norm (float32
+    arithmetic, output in the input's dtype); the backward is aten's batch
+    norm backward at the same mean and 1/std, the gradient of that same
+    function. Returns (y, mean, var); mean and var carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        del xf
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, grad_y, _grad_mean, _grad_var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        grad_x, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
+            grad_y.contiguous(), x, weight, None, None, mean, invstd, True,
+            ctx.eps, [True, True, True])
+        return grad_x, grad_w, grad_b, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm (Keras eps 1e-3) normalising in float32 from the
-    running statistics and returning the input's dtype."""
+    """BatchNorm (Keras eps 1e-3) normalising in float32 and returning the
+    input's dtype. Eval mode uses the running statistics. Train mode
+    normalises with the batch's statistics and updates the running ones
+    from them, as flax does: 0.99 * running + 0.01 * batch, with the
+    biased variance (F.batch_norm's own running update, with the unbiased
+    variance, is never used)."""
 
     def __init__(self, channels):
-        super().__init__(channels, eps=1e-3, momentum=0.01)
+        super().__init__(channels, eps=1e-3, momentum=1.0 - BN_MOMENTUM)
 
     def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, False, 0.0, self.eps)
-        return y.to(x.dtype)
+        if not self.training:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias,
+                                             self.eps)
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        return y
 
 
 class ConvBNBlock(nn.Module):
@@ -106,13 +159,16 @@ class ConvBNBlock(nn.Module):
 
 
 def crop_to_match(skip, up):
-    """Center-crop `skip`'s spatial dims (NCHW) down to `up`'s."""
+    """Center-crop `skip`'s spatial dims (NCHW) down to `up`'s. Returns
+    (cropped, crops) with crops the (2, 2) (lo, hi) pixel crops."""
     diff = np.array(skip.shape[2:]) - np.array(up.shape[2:])
     if np.all(diff == 0):
-        return skip
+        return skip, np.zeros((2, 2), np.int64)
     lo = diff // 2
     hi = diff - lo
-    return skip[:, :, lo[0]:skip.shape[2] - hi[0], lo[1]:skip.shape[3] - hi[1]]
+    cropped = skip[:, :, lo[0]:skip.shape[2] - hi[0],
+                   lo[1]:skip.shape[3] - hi[1]]
+    return cropped, np.stack([lo, hi], axis=1).astype(np.int64)
 
 
 class UNet(nn.Module):
@@ -153,6 +209,7 @@ class UNet(nn.Module):
                             ConvBNBlock(2 * f, f, k, self.act))
             cin = f
         self.out_conv = nn.Conv2d(cin, self.n_classes, 1)
+        self.label_crop = np.zeros((2, 2), np.int64)
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -162,11 +219,32 @@ class UNet(nn.Module):
             skips.append(x)
             x = F.max_pool2d(x, 2, 2)
         x = self.bottom(x)
+        label_crop = np.zeros((2, 2), np.int64)
         for i in range(self.depth):
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             x = getattr(self, f"decoder_L{i}_conv_up")(F.pad(x, (0, 1, 0, 1)))
             x = getattr(self, f"decoder_L{i}_bn_up")(self.act(x))
-            skip = crop_to_match(skips[-(i + 1)], x)
+            skip, crops = crop_to_match(skips[-(i + 1)], x)
+            label_crop += crops
             x = getattr(self, f"decoder_L{i}")(torch.cat([skip, x], dim=1))
+        self.label_crop = label_crop
         # The out conv runs in float32 whatever the compute dtype
         return self.out_act(self.out_conv(x.float()))
+
+
+def glorot_init(model, seed=0):
+    """Initialise `model` in place as the JAX UNet initialises: every conv
+    kernel glorot-uniform (fan_in = k*k*cin, fan_out = k*k*cout), biases
+    zero, BatchNorm scale 1 / bias 0 / mean 0 / var 1. Draws come from a
+    CPU torch.Generator seeded with `seed`, in module order."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                w = torch.empty(mod.weight.shape, dtype=torch.float32)
+                nn.init.xavier_uniform_(w, generator=gen)
+                mod.weight.copy_(w)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+    return model

@@ -2,10 +2,11 @@
 sampling, plane bases, centered voxel axes, physical image extents.
 
 Numpy copies of the functions of `multiplanarunet_tpu/ops/geometry.py`
-that the inference path needs. The JAX package's module is numpy too, but
-importing it pulls in jax (through its package `__init__`), so the port
-carries its own copy; tests/test_torch_shear.py holds every function here
-equal to the original.
+that the inference path and the training sampler need. The JAX package's
+module is numpy too, but importing it pulls in jax (through its package
+`__init__`), so the port carries its own copy; tests/test_torch_shear.py
+and tests/test_torch_sampler.py hold every function here equal to the
+original.
 """
 
 from __future__ import annotations
@@ -146,3 +147,49 @@ def plane_basis(norm_vector, noise_sd=0.0, rng=None):
         u = rotation_matrix(np.cross(n_hat, n_vs), angle_deg=-90).dot(n_hat)
         v = np.cross(n_hat, u)
     return np.column_stack((u, v, n_hat)).astype(np.float32)
+
+
+def plane_basis_batch(norm_vectors, noise_sd=0.0, rng=None):
+    """`plane_basis` over (N, 3) view vectors at once, (N, 3, 3) float32,
+    equal to N sequential `plane_basis` calls including the rng stream
+    (one normal(size=(N, 3)) draw equals N row-major size-3 draws)."""
+    rng = rng or np.random
+    n_hat = np.asarray(norm_vectors, np.float64).copy()
+    n_hat /= np.linalg.norm(n_hat, axis=1, keepdims=True)
+    if isinstance(noise_sd, np.ndarray):
+        noise = noise_sd
+    elif noise_sd:
+        noise = rng.normal(scale=noise_sd, size=n_hat.shape)
+    else:
+        noise = np.zeros_like(n_hat)
+    n_hat = n_hat + noise
+    n_hat /= np.linalg.norm(n_hat, axis=1, keepdims=True)
+
+    up = np.all(n_hat[:, :-1] < 0.2, axis=1)
+    n_hat[up, :-1] = np.abs(n_hat[up, :-1])
+    degenerate = np.all(np.isclose(n_hat[:, :-1], 0), axis=1)
+
+    n_vs = n_hat.copy()
+    n_vs[:, -1] += 1
+    n_vs /= np.linalg.norm(n_vs, axis=1, keepdims=True)
+    axis = np.cross(n_hat, n_vs)
+    norm = np.linalg.norm(axis, axis=1, keepdims=True)
+    axis = axis / np.where(norm == 0, 1.0, norm)
+    # Rodrigues about `axis` by -90 degrees (`rotation_matrix`'s quaternion
+    # form) applied to n_hat: u = R @ n_hat
+    half = np.deg2rad(-90.0) / 2.0
+    a = np.full(len(axis), np.cos(half))
+    b, c, d = (-axis * np.sin(half)).T
+    R = np.stack([
+        np.stack([a * a + b * b - c * c - d * d, 2 * (b * c + a * d),
+                  2 * (b * d - a * c)], -1),
+        np.stack([2 * (b * c - a * d), a * a + c * c - b * b - d * d,
+                  2 * (c * d + a * b)], -1),
+        np.stack([2 * (b * d + a * c), 2 * (c * d - a * b),
+                  a * a + d * d - b * b - c * c], -1),
+    ], 1)
+    u = np.einsum("nij,nj->ni", R, n_hat)
+    v = np.cross(n_hat, u)
+    u[degenerate] = (1.0, 0.0, 0.0)
+    v[degenerate] = (0.0, 1.0, 0.0)
+    return np.stack([u, v, n_hat], axis=-1).astype(np.float32)

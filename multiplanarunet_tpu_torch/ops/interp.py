@@ -1,7 +1,10 @@
 """Uniform-grid interpolation by gathers, in torch: the exact resampler of
-the predictor's gather path.
+the predictor's gather path and the training sampler's plane gathers.
 
-Port of the gather half of `multiplanarunet_tpu/ops/interp.py`. Sample
+Port of the gather half of `multiplanarunet_tpu/ops/interp.py`, with
+`sample_plane` / `sample_plane_batch` (one oblique plane, or a batch of
+independently oriented planes, linear for images and nearest for
+labels). Sample
 axes are uniform (centered voxel axes spaced by pixdim; plane axes are a
 linspace), so a point's cell index is a multiply-add. Boundary semantics
 are the JAX package's: a point is out of bounds iff it lies outside
@@ -128,6 +131,42 @@ def plane_points(basis, offset, span, dim, device="cpu"):
     return (g[:, None, None] * u[None, None, :]
             + g[None, :, None] * v[None, None, :]
             + _f32(offset) * n[None, None, :])
+
+
+def _rotate(pts, rot):
+    """Points (..., 3) @ rot.T; rot a (3, 3) tensor, array or None (the
+    identity)."""
+    if rot is None:
+        return pts
+    return pts @ torch.as_tensor(rot, dtype=torch.float32,
+                                 device=pts.device).T
+
+
+def sample_plane(volume, origin, spacing, rot, basis, offset, span, dim,
+                 fill, method="linear", valid_shape=None):
+    """One oblique plane (d, d, C) of `volume` (X, Y, Z, C): the points of
+    `plane_points(basis, offset, span, dim)`, rotated by `rot` (scanner ->
+    grid alignment), sampled with `grid_gather`."""
+    pts = plane_points(basis, offset, span, dim, device=volume.device)
+    return grid_gather(volume, origin, spacing, _rotate(pts, rot),
+                       method=method, fill=fill, valid_shape=valid_shape)
+
+
+def sample_plane_batch(volume, origin, spacing, rot, bases, offsets, span,
+                       dim, fill, method="linear", valid_shape=None):
+    """A batch of independently oriented planes (B, d, d, C): plane b has
+    basis bases[b] (3, 3) and offset offsets[b] along its normal."""
+    dev = volume.device
+    hd = _f32(np.floor_divide(np.float32(span), np.float32(2.0)))
+    g = torch.linspace(-hd, hd, int(dim), dtype=torch.float32, device=dev)
+    b = _as_f32(bases, dev)
+    u, v, n = b[:, None, None, :, 0], b[:, None, None, :, 1], b[:, None,
+                                                                None, :, 2]
+    off = _as_f32(offsets, dev)[:, None, None, None]
+    pts = (g[None, :, None, None] * u + g[None, None, :, None] * v
+           + off * n)
+    return grid_gather(volume, origin, spacing, _rotate(pts, rot),
+                       method=method, fill=fill, valid_shape=valid_shape)
 
 
 # --------------------------------------------------------- packed-corner path

@@ -1,0 +1,111 @@
+"""The train and eval steps.
+
+Port of `multiplanarunet_tpu/train/train_step.py` (single device). A train
+step is: forward in train mode (BatchNorm over the batch's statistics,
+running statistics updated), the loss with sample weights, the L1/L2
+penalty over the parameters with ndim > 1, backward, the optimizer update
+and the in-step metrics. Under mixed precision the model keeps float32
+parameters and statistics and runs its convolutions in bf16, its
+BatchNorm reductions and out conv in float32, as the JAX model does; bf16
+needs no loss scaling, and none is used.
+
+Batches come from the sequences in the JAX package's layout: images
+(B, H, W, C), integer labels (B, H, W, 1), sample weights (B,). The steps
+return their logs as 0-d tensors on the device, so the caller decides
+when to fetch them. The eval step also returns the int32 per-class
+(tp, rel = |y == c|, sel = |pred == c|) counts of the batch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def reg_penalty(params, l1_reg=0.0, l2_reg=0.0):
+    """l2 * sum(p^2) + l1 * sum(|p|) over the parameters with ndim > 1
+    (conv kernels), or 0.0 when both are off."""
+    if not l1_reg and not l2_reg:
+        return 0.0
+    leaves = [p for p in params if p.dim() > 1]
+    penalty = 0.0
+    if l2_reg:
+        penalty = penalty + l2_reg * sum(torch.sum(p * p) for p in leaves)
+    if l1_reg:
+        penalty = penalty + l1_reg * sum(torch.sum(torch.abs(p))
+                                         for p in leaves)
+    return penalty
+
+
+def _forward_nhwc(model, x):
+    """model over an NHWC batch; probabilities with classes last."""
+    return model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def _weights(w, device):
+    return torch.as_tensor(w, dtype=torch.float32).to(device,
+                                                      non_blocking=True)
+
+
+class TrainStep:
+    """(x, y, w) -> logs: one optimisation step of `model`."""
+
+    def __init__(self, model, optimizer, loss_obj, metric_fns, l1_reg=0.0,
+                 l2_reg=0.0):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_obj = loss_obj
+        self.metric_fns = dict(metric_fns)
+        self.l1_reg = float(l1_reg or 0.0)
+        self.l2_reg = float(l2_reg or 0.0)
+        self._params = list(model.parameters())
+
+    def __call__(self, x, y, w):
+        self.model.train()
+        out = _forward_nhwc(self.model, x)
+        loss = self.loss_obj(y, out, sample_weight=_weights(w, out.device))
+        loss = loss + reg_penalty(self._params, self.l1_reg, self.l2_reg)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        logs = {"loss": loss.detach()}
+        with torch.no_grad():
+            out = out.detach()
+            for name, fn in self.metric_fns.items():
+                logs[name] = fn(y, out)
+        return logs
+
+
+def class_counts(y, out, n_classes):
+    """int32 (tp, rel, sel) per class of integer labels y (B, ..., 1) or
+    (B, ...) against the argmax of probabilities out (B, ..., C); labels
+    outside [0, n_classes) count nowhere."""
+    if y.shape[-1] == 1 and y.dim() == out.dim():
+        y = y[..., 0]
+    t = y.reshape(-1).long()
+    p = torch.argmax(out, dim=-1).reshape(-1)
+    ok = (t >= 0) & (t < n_classes)
+    t = torch.where(ok, t, n_classes)
+    tp = torch.where(t == p, t, n_classes)
+    counts = [torch.bincount(v, minlength=n_classes + 1)[:n_classes]
+              for v in (tp, t, p)]
+    return tuple(c.to(torch.int32) for c in counts)
+
+
+class EvalStep:
+    """(x, y, w) -> (logs, (tp, rel, sel)) of `model` in eval mode."""
+
+    def __init__(self, model, loss_obj, metric_fns, n_classes):
+        self.model = model
+        self.loss_obj = loss_obj
+        self.metric_fns = dict(metric_fns)
+        self.n_classes = int(n_classes)
+
+    @torch.no_grad()
+    def __call__(self, x, y, w):
+        self.model.eval()
+        out = _forward_nhwc(self.model, x)
+        logs = {"loss": self.loss_obj(y, out,
+                                      sample_weight=_weights(w, out.device))}
+        for name, fn in self.metric_fns.items():
+            logs[name] = fn(y, out)
+        return logs, class_counts(y, out, self.n_classes)

@@ -43,9 +43,27 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict",
     "multiplanarunet_tpu_torch.bin.predict",
     "multiplanarunet_tpu_torch.bin.mp",
+    "multiplanarunet_tpu_torch.evaluate.losses",
+    "multiplanarunet_tpu_torch.errors.implementation_change_errors",
+    "multiplanarunet_tpu_torch.ops.elastic",
+    "multiplanarunet_tpu_torch.augmentation.augmenters",
+    "multiplanarunet_tpu_torch.sequences",
+    "multiplanarunet_tpu_torch.sequences.base_sequence",
+    "multiplanarunet_tpu_torch.sequences.multi_planar",
+    "multiplanarunet_tpu_torch.image.auditor",
+    "multiplanarunet_tpu_torch.image.queue.queues",
+    "multiplanarunet_tpu_torch.preprocessing.data_preparation_funcs",
+    "multiplanarunet_tpu_torch.callbacks.callbacks",
+    "multiplanarunet_tpu_torch.callbacks.validation",
+    "multiplanarunet_tpu_torch.callbacks.funcs",
+    "multiplanarunet_tpu_torch.train.optimizers",
+    "multiplanarunet_tpu_torch.train.utils",
+    "multiplanarunet_tpu_torch.train.train_step",
+    "multiplanarunet_tpu_torch.train.trainer",
+    "multiplanarunet_tpu_torch.bin.train",
 ]
-BANNED = ("jax", "flax", "yaml", "pandas", "sklearn", "nibabel",
-          "multiplanarunet_tpu")
+BANNED = ("jax", "flax", "optax", "yaml", "pandas", "sklearn", "nibabel",
+          "matplotlib", "multiplanarunet_tpu")
 
 
 def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
@@ -69,9 +87,10 @@ def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
 
 
 def test_port_runs_with_banned_packages_blocked():
-    """With jax, flax, yaml, pandas, sklearn, nibabel and the JAX package
-    made unimportable (as on a machine that lacks them), every port
-    module imports and `mp predict --help` runs."""
+    """With jax, flax, optax, yaml, pandas, sklearn, nibabel, matplotlib
+    and the JAX package made unimportable (as on a machine that lacks
+    them), every port module imports and `mp predict --help` and `mp train
+    --help` run."""
     code = (
         "import importlib, runpy, sys\n"
         "class Block:\n"
@@ -81,17 +100,19 @@ def test_port_runs_with_banned_packages_blocked():
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "sys.argv = ['mp', 'predict', '--help']\n"
-        "try:\n"
-        "    runpy.run_module('multiplanarunet_tpu_torch.bin.mp',\n"
-        "                     run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert e.code in (0, None), e.code\n"
+        "for script in ('predict', 'train'):\n"
+        "    sys.argv = ['mp', script, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module('multiplanarunet_tpu_torch.bin.mp',\n"
+        "                         run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code in (0, None), e.code\n"
         "print('ran')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "--stage_dtype" in proc.stdout and "--device" in proc.stdout
+    assert "--continue_training" in proc.stdout
     assert proc.stdout.strip().endswith("ran")
 
 
