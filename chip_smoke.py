@@ -14,13 +14,17 @@ ungrouped one, the gather resampler on a full-width 256^3 volume, uint8
 staging, `mp predict` end to end on a two-image NIfTI project, one 512^3
 volume with the kernel held against its plain version at that volume's
 largest shapes, and training: `mp train` (a subprocess, through the mp
-entry point) of the same model on the default MultiPlanar YAML over 3 + 1
-structured 256^3 subjects (3 epochs of 20 steps of 16, Elastic2D), `mp
-predict` on the trained project, a float32 step on the card against the
-host, the bf16 step against the float32 one, a 50-step overfit, and the
-step, sampler and validation times. Each path's shear-pass launches are
-counted from 0 just before it and gated against what its plans and remap
-modes say (the training path itself launches none).
+entry point) of the same model on a project that the port's `mp
+init_project` makes from its MultiPlanar preset, over 3 + 1 structured
+256^3 subjects (3 epochs of 20 steps of 16, Elastic2D), a float32 step on
+the card against the host, the bf16 step against the float32 one, a
+50-step overfit, and the step, sampler and validation times. Last, the
+workflow on the trained project: `mp train_fusion` (a subprocess), the
+fused probabilities of its points path against predict_image's with the
+learned weights, `mp predict` with the learned fusion and `mp summary`
+over its results. Each path's shear-pass launches are counted from 0 just
+before it and gated against what its plans and remap modes say (the
+training and fusion-training paths themselves launch none).
 
 Run from the repository root with no arguments:
 
@@ -34,6 +38,7 @@ standard output is a JSON object describing the kernels; the last is
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -47,6 +52,7 @@ from torch import nn
 
 from multiplanarunet_tpu_torch._device import require_cuda
 from multiplanarunet_tpu_torch.bin import mp as port_mp
+from multiplanarunet_tpu_torch.bin import train_fusion as port_train_fusion
 from multiplanarunet_tpu_torch.callbacks.validation import Validation
 from multiplanarunet_tpu_torch.evaluate.losses import (
     SparseCategoricalCrossentropy,
@@ -59,9 +65,16 @@ from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
 from multiplanarunet_tpu_torch.image.image_pair import ImagePair
 from multiplanarunet_tpu_torch.image.volume_sampler import VolumeSampler
 from multiplanarunet_tpu_torch.io import nifti
-from multiplanarunet_tpu_torch.logging.log_results import load_result_dicts
+from multiplanarunet_tpu_torch.logging.log_results import (
+    ResultTable,
+    load_result_dicts,
+)
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
+from multiplanarunet_tpu_torch.models.model_init import (
+    build_model,
+    load_unet_weights,
+)
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.ops import _build, geometry
 from multiplanarunet_tpu_torch.ops.shear import shear_resample
@@ -89,6 +102,7 @@ from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
     class_map_counts,
 )
+from multiplanarunet_tpu_torch.utils.utils import get_best_model
 
 # Kernel vs plain version, same inputs on the card. Both compute the same
 # float32 positions and tap weights in the same order and sum the taps in
@@ -1201,17 +1215,17 @@ F32_BATCH, PARAM_TOL, PARAM_SHARE = 2, 1e-2, 0.99
 # must bring the loss below OVERFIT_RATIO of its first value (a CPU
 # rehearsal at depth 2, dim 32, batch 4 reaches 0.009)
 OVERFIT_STEPS, OVERFIT_RATIO = 50, 0.5
-DEFAULT_TRAIN_YAML = (Path(__file__).resolve().parent / "multiplanarunet_tpu"
-                      / "bin" / "defaults" / "MultiPlanar"
-                      / "train_hparams.yaml")
 
 
 def write_train_project(root, dev):
-    """The default MultiPlanar train_hparams.yaml with n_classes and dim
-    given (real_space_span and n_channels left for the Auditor), 3 train
-    and 1 val structured 256^3 subjects (the val subject also serves as
-    the test set)."""
-    dirs = {"train": root / "data" / "train", "val": root / "data" / "val"}
+    """3 train and 1 val structured 256^3 subjects, and a project made by
+    the port's `mp init_project --data_dir` from its MultiPlanar preset
+    (gate: the YAML holds the data folders passed in), then n_classes and
+    dim given (real_space_span and n_channels left for the Auditor), the
+    bench model's depth, width and batch, and the val subject as the test
+    set."""
+    data = root / "data"
+    dirs = {"train": data / "train", "val": data / "val"}
     seed = 100
     for split, n in (("train", N_TRAIN_SUBJECTS), ("val", N_VAL_SUBJECTS)):
         for sub in ("images", "labels"):
@@ -1223,25 +1237,29 @@ def write_train_project(root, dev):
                        np.eye(4))
             nifti.save(lab, dirs[split] / "labels" / f"{split}_{i}.nii.gz",
                        np.eye(4))
-    text = DEFAULT_TRAIN_YAML.read_text()
+    port_mp.entry_func(["init_project", "--name", "train_project", "--root",
+                        str(root), "--data_dir", str(data)])
+    proj = root / "train_project"
+    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
+    for split in ("train", "val", "test"):
+        got = hparams[f"{split}_data"]["base_dir"]
+        if got != f"{data}/{split}":
+            raise AssertionError(f"mp init_project wrote {split}_data "
+                                 f"base_dir {got!r}, not {data}/{split}")
+    text = hparams.string_rep
     for old, new in (
-            ("train_data: &TRAINDATA\n  base_dir: Null",
-             f"train_data: &TRAINDATA\n  base_dir: {dirs['train']}"),
-            ("val_data: &VALDATA\n  base_dir: Null",
-             f"val_data: &VALDATA\n  base_dir: {dirs['val']}"),
-            ("test_data: &TESTDATA\n  base_dir: Null",
-             f"test_data: &TESTDATA\n  base_dir: {dirs['val']}"),
+            (f"base_dir: {data}/test", f"base_dir: {dirs['val']}"),
             ("n_classes: Null", f"n_classes: {N_CLASSES}"),
             ("dim: Null", f"dim: {DIM}"),
             ("depth: 4", f"depth: {DEPTH}"),
             ("complexity_factor: 2", f"complexity_factor: {CF}"),
             ("batch_size: 16", f"batch_size: {BATCH}")):
         if old not in text:
-            raise AssertionError(f"default train YAML lacks {old!r}")
+            raise AssertionError(f"the init_project YAML lacks {old!r}")
         text = text.replace(old, new)
-    proj = root / "train_project"
-    proj.mkdir()
     (proj / "train_hparams.yaml").write_text(text)
+    log(f"mp init_project wrote {proj / 'train_hparams.yaml'} with the data "
+        f"folders passed in ({data}/{{train,val,test}})")
     return proj, dirs
 
 
@@ -1249,20 +1267,11 @@ def run_mp_train(proj, dev):
     """`python -m multiplanarunet_tpu_torch.bin.mp train` in a subprocess;
     returns (wall seconds, the per-epoch (train loop s, callbacks s) its
     log reports). Fails on a non-zero exit."""
-    cmd = [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp", "train",
-           "--project_dir", str(proj), "--device", str(dev), "--overwrite",
-           "--no_images", "--epochs", str(TRAIN_EPOCHS),
-           "--train_images_per_epoch", str(TRAIN_IMAGES),
-           "--val_images_per_epoch", str(VAL_IMAGES)]
-    repo = Path(__file__).resolve().parent
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                          timeout=900)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        log(proc.stdout[-4000:])
-        log(proc.stderr[-4000:])
-        raise AssertionError(f"mp train exited {proc.returncode}")
+    wall, _ = run_mp_script(
+        ["train", "--project_dir", str(proj), "--device", str(dev),
+         "--overwrite", "--no_images", "--epochs", str(TRAIN_EPOCHS),
+         "--train_images_per_epoch", str(TRAIN_IMAGES),
+         "--val_images_per_epoch", str(VAL_IMAGES)], timeout=900)
     epochs = []
     for line in (proj / "logs" / "train.txt").read_text().splitlines():
         if " wall: train loop " in line:
@@ -1272,6 +1281,22 @@ def run_mp_train(proj, dev):
     if len(epochs) != TRAIN_EPOCHS:
         raise AssertionError(f"mp train logged {len(epochs)} epoch timings")
     return wall, epochs
+
+
+def run_mp_script(args, timeout):
+    """`python -m multiplanarunet_tpu_torch.bin.mp <args>` in a
+    subprocess from the repository root; returns (wall seconds, stdout).
+    Fails on a non-zero exit."""
+    cmd = [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"mp {args[0]} exited {proc.returncode}")
+    return wall, proc.stdout
 
 
 def check_trained_project(proj, tmp):
@@ -1469,38 +1494,17 @@ def sampler_parts(train_seq, n_batches):
 
 def phase_training(dev, tmp, card):
     """`mp train` end to end at the bench model's full width (gates in
-    check_trained_project), `mp predict` on the trained project, the step
-    checks (f32 card vs host, bf16 vs f32, overfit) and the training
-    numbers. Returns the shear-pass launches of the mp predict run."""
+    check_trained_project), the step checks (f32 card vs host, bf16 vs
+    f32, overfit) and the training numbers. Returns (the trained project,
+    its data folders)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     root = Path(tmp) / "train"
     proj, dirs = write_train_project(root, dev)
     log(f"training project written in {time.perf_counter() - t_phase:.1f} s")
     wall, epochs = run_mp_train(proj, dev)
-    rows = check_trained_project(proj, tmp)
-
-    # mp predict on the trained project, its launches gated by the plans of
-    # the trained views at the span the Auditor chose
+    check_trained_project(proj, tmp)
     hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
-    span = float(hparams["fit"]["real_space_span"])
-    views = np.load(proj / "views.npz")["arr_0"]
-    val_vol = nifti.load(dirs["val"] / "images" / "val_0.nii.gz").get_fdata()
-    planner = MultiViewPredictor(None, sample_dim=DIM, real_space_span=span,
-                                 n_classes=N_CLASSES, device=dev)
-    plans = view_plans(planner, Image(val_vol[..., None], np.eye(4)), views)
-    t0 = time.perf_counter()
-    _, predict_launches = run_mp_predict_counted(
-        proj, "pred_trained", ["--no_eval"], plans, require_shear=False)
-    pred = nifti.load(proj / "pred_trained" / "nii_files" / "val_0" /
-                      "PRED.nii.gz").get_raw_data()
-    if pred.shape != (DIM,) * 3 or pred.max() >= N_CLASSES:
-        raise AssertionError(f"trained PRED {pred.shape} {pred.dtype}")
-    log(f"mp predict on the trained project (span {span}): PRED "
-        f"{pred.shape} {pred.dtype}, classes "
-        f"{np.bincount(pred.ravel(), minlength=N_CLASSES).tolist()}, "
-        f"shear-pass launches {predict_launches}, "
-        f"{time.perf_counter() - t0:.1f} s")
 
     # In-process sequences over the trained project (its views)
     train_seq, val_seq = prepare_for_multi_view_unet(
@@ -1609,7 +1613,206 @@ def phase_training(dev, tmp, card):
         f"{steps * samp_ms / 1e3:.3f} s of sampling ({100 * hidden:.1f}% "
         f"hidden by the prefetch); {steps * BATCH / steady:.1f} images/s")
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
-    return predict_launches
+    return proj, dirs
+
+
+# ------------------------------------------------------------------ workflow
+# `mp train_fusion` on the trained train-256 project: 4 images (the val
+# subject + 3 random train subjects) in 2 rounds of 2, at the script's
+# defaults (30 epochs, batches of 2^17 points, 2^22 points per image,
+# early stopping 3, same+20 planes); the fused probabilities of the points
+# path against predict_image's within FUSED_TOL
+FUSION_ARGS = ["--overwrite", "--images_per_round", "2", "--min_val_images",
+               "4", "--seed", "0"]
+FUSED_TOL = 1e-4
+# The fit timed alone in-process: one round's worth of points (2 images x
+# 2^22), FIT_EPOCHS epochs at the script's defaults, every epoch run
+FIT_POINTS, FIT_EPOCHS = 2 ** 23, 3
+
+
+def check_fusion_outputs(proj):
+    """Gates on what `mp train_fusion` wrote: the fusion file holds
+    exactly fusion/W (views, classes) and fusion/b (1, classes), finite,
+    meta round 2 and n_views 6; its log has a finite loss and val_dice on
+    every epoch line and a best-val_dice line per round. Returns (the
+    fusion file, its params, the log's numbers)."""
+    files = sorted((proj / "model" / "fusion_weights").glob("*.npz"))
+    if len(files) != 1:
+        raise AssertionError(f"fusion files {files}")
+    with np.load(files[0]) as data:
+        keys = sorted(data.files)
+    params, _, meta = checkpoint.load_weights(files[0])
+    W, b = params["fusion"]["W"], params["fusion"]["b"]
+    if (keys != ["__meta__", "params/fusion/W", "params/fusion/b"]
+            or W.shape != (N_VIEWS, N_CLASSES) or b.shape != (1, N_CLASSES)
+            or not (np.isfinite(W).all() and np.isfinite(b).all())
+            or meta != {"round": 2, "n_views": N_VIEWS}):
+        raise AssertionError(f"{files[0].name}: keys {keys}, W {W.shape}, "
+                             f"b {b.shape}, meta {meta}")
+    lines = (proj / "logs" / "train_fusion.txt").read_text().splitlines()
+    epochs = [line for line in lines if line.lstrip().startswith("epoch ")]
+    for line in epochs:
+        loss = float(line.split("loss=")[1].split()[0])
+        dice = float(line.split("val_dice=")[1])
+        if not (np.isfinite(loss) and np.isfinite(dice)):
+            raise AssertionError(f"train_fusion log: {line.strip()}")
+    best = [float(line.split(":")[-1]) for line in lines
+            if "best fusion val_dice" in line]
+    if not epochs or len(best) != 2 or not np.isfinite(best).all():
+        raise AssertionError(f"train_fusion log: {len(epochs)} epoch lines, "
+                             f"best lines {best}")
+    numbers = {
+        "points": [int(line.split()[3]) for line in lines
+                   if line.startswith("Training fusion on ")],
+        "fits": [line.strip() for line in lines
+                 if line.lstrip().startswith("fit:")],
+        "best": best,
+        "peak": [line for line in lines if "Peak allocated" in line],
+    }
+    return files[0], params, numbers
+
+
+def time_fusion_fit(points, targets):
+    """`_fit_fusion` of `mp train_fusion` on the first FIT_POINTS points
+    for FIT_EPOCHS epochs (after one warm-up fit): (seconds per epoch on a
+    synchronised host clock, device-busy ms per epoch under
+    torch.profiler, its kernel table)."""
+    n = min(FIT_POINTS, points.shape[0])
+    args = argparse.Namespace(batch_size=2 ** 17, epochs=FIT_EPOCHS,
+                              early_stopping=FIT_EPOCHS, learning_rate=1e-3,
+                              dice_weight="Simple")
+
+    def fit():
+        np.random.seed(0)
+        port_train_fusion._fit_fusion(points[:n], targets[:n], N_VIEWS,
+                                      N_CLASSES, args, lambda *a: None)
+
+    fit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / FIT_EPOCHS
+    busy, table = profile_steps(fit, [()], n=1)
+    return secs, busy / FIT_EPOCHS, table
+
+
+def phase_workflow(dev, proj, dirs, card):
+    """The project workflow after `mp train`: `mp train_fusion` in a
+    subprocess (gates in check_fusion_outputs), the fused probabilities of
+    the points path (predict_views_points) against those of predict_image
+    with the learned weights on val_0 (gather resampler, within
+    FUSED_TOL), `mp predict` with the learned fusion (its log names the
+    fusion file, its shear-pass launches equal the plans', it writes
+    csv/results.csv) and `mp summary` over its output (exit 0, its overall
+    fused mean dice equal to the mean of results.csv's MJ column to its 3
+    decimals). Returns the shear-pass launches of the mp predict run."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fusion_wall, _ = run_mp_script(
+        ["train_fusion", "--project_dir", str(proj), "--device", str(dev),
+         *FUSION_ARGS], timeout=600)
+    fusion_file, fusion, numbers = check_fusion_outputs(proj)
+    n_epochs = [int(f.split()[1]) for f in numbers["fits"]]
+    log(f"[{card}] mp train_fusion: {fusion_wall:.1f} s wall, 2 rounds of 2 "
+        f"images; points per round {numbers['points']} ("
+        f"{[round(n * (N_VIEWS * N_CLASSES + 1) * 4 / 2**30, 3) for n in numbers['points']]}"
+        f" GiB of float32 points + int32 targets); epochs run {n_epochs}; "
+        f"{numbers['fits']}; best val_dice {numbers['best']}; "
+        f"{numbers['peak']}")
+    log(f"learned fusion W (views x classes):\n"
+        f"{np.array2string(fusion['fusion']['W'], precision=4)}\n"
+        f"b: {np.array2string(fusion['fusion']['b'], precision=4)}")
+
+    # The points path against predict_image on val_0, in-process
+    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
+    span = float(hparams["fit"]["real_space_span"])
+    views = np.load(proj / "views.npz")["arr_0"]
+    model = load_unet_weights(
+        build_model(hparams["build"],
+                    mixed_precision=bool(hparams["fit"]["mixed_precision"]),
+                    logger=ScreenLogger(False)),
+        get_best_model(proj / "model")).to(dev)
+    predictor = MultiViewPredictor(model, sample_dim=DIM,
+                                   real_space_span=span, n_classes=N_CLASSES,
+                                   device=dev, resampler="gather")
+    pair = ImagePair(dirs["val"] / "images" / "val_0.nii.gz",
+                     dirs["val"] / "labels" / "val_0.nii.gz")
+    pair.set_bg_value(hparams.get_from_anywhere("bg_value"))
+    pair.set_scaler(hparams.get_from_anywhere("scaler"))
+    pair.load()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    points, targets = predictor.predict_views_points(pair, views)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    peak_map = torch.cuda.max_memory_allocated(dev)
+    W = torch.from_numpy(fusion["fusion"]["W"]).to(dev)
+    b = torch.from_numpy(fusion["fusion"]["b"]).to(dev)
+    fused_points = torch.softmax((W * points).sum(dim=1) + b[0], dim=-1)
+    fit_s, fit_busy, fit_table = time_fusion_fit(points, targets)
+    log(f"[{card}] fusion fit alone ({min(FIT_POINTS, points.shape[0])} "
+        f"points, {FIT_EPOCHS} epochs of 2^17-point batches, in-process): "
+        f"{fit_s:.4f} s per epoch (synchronised host clock); device busy "
+        f"{fit_busy:.2f} ms per epoch ({100 * fit_busy / (fit_s * 1e3):.1f}%)"
+        f" under torch.profiler; kernels by self device time:\n{fit_table}")
+    del points
+    probs, _ = predictor.predict_image(pair, views, fusion_params=fusion,
+                                       return_per_view=False,
+                                       return_probs=True)
+    probs = torch.from_numpy(probs).to(dev).reshape(-1, N_CLASSES)
+    diff = float((probs - fused_points).abs().max())
+    lab_ok = bool((targets.cpu().numpy() == pair.labels.reshape(-1)).all())
+    log(f"[{card}] points path on val_0 ({DIM}^3, {N_VIEWS} views, gather): "
+        f"mapping {map_s:.3f} s per image (host clock, synchronised), "
+        f"{fused_points.shape[0]} points, peak allocated "
+        f"{peak_map / 2**30:.2f} GiB; softmax(sum_v W[v] points[:, v] + b) "
+        f"vs predict_image's fused probabilities: max abs diff {diff:.3g} "
+        f"(<= {FUSED_TOL:g}); targets equal the labels: {lab_ok}")
+    if not diff <= FUSED_TOL or not lab_ok:
+        raise AssertionError("the points path disagrees with predict_image")
+    pair.unload()
+    del predictor, model, probs, fused_points, targets
+    torch.cuda.empty_cache()
+
+    # mp predict with the learned fusion, evaluated
+    val_vol = nifti.load(dirs["val"] / "images" / "val_0.nii.gz").get_fdata()
+    planner = MultiViewPredictor(None, sample_dim=DIM, real_space_span=span,
+                                 n_classes=N_CLASSES, device=dev)
+    plans = view_plans(planner, Image(val_vol[..., None], np.eye(4)), views)
+    t0 = time.perf_counter()
+    _, launches = run_mp_predict_counted(proj, "pred_fused", [], plans,
+                                         require_shear=False)
+    predict_wall = time.perf_counter() - t0
+    out = proj / "pred_fused"
+    pred = nifti.load(out / "nii_files" / "val_0" /
+                      "PRED.nii.gz").get_raw_data()
+    if pred.shape != (DIM,) * 3 or pred.max() >= N_CLASSES:
+        raise AssertionError(f"trained PRED {pred.shape} {pred.dtype}")
+    if f"Loaded fusion weights from {fusion_file}" not in (
+            out / "predict_log.txt").read_text():
+        raise AssertionError("mp predict did not load the fusion weights")
+    results = ResultTable.read_csv(out / "csv" / "results.csv")
+    mj = results.values[:, results.columns.index("MJ")]
+    log(f"[{card}] mp predict with learned fusion (span {span}): PRED "
+        f"{pred.shape} {pred.dtype}, classes "
+        f"{np.bincount(pred.ravel(), minlength=N_CLASSES).tolist()}, fused "
+        f"dice {mj.tolist()}, shear-pass launches {launches}, "
+        f"{predict_wall:.1f} s")
+
+    # mp summary over the predictions
+    summary_wall, report = run_mp_script(["summary", "--dir", str(out)],
+                                         timeout=300)
+    overall = next(line for line in report.splitlines()
+                   if line.startswith("Overall fused mean dice:"))
+    want = f"{np.nanmean(mj):.3f}"
+    if overall.split(":")[1].split()[0] != want:
+        raise AssertionError(f"mp summary '{overall}' vs the MJ column's "
+                             f"mean {want}")
+    log(f"mp summary ({summary_wall:.1f} s): '{overall}' (MJ mean {want})")
+    log(f"workflow phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main():
@@ -1639,7 +1842,9 @@ def main():
         e, paths[f"{DIM_LARGE}^3"] = phase_large(dev, predictor.model, views, fusion)
         err = max(err, e)
         del predictor
-        paths["mp predict (trained)"] = phase_training(dev, tmp, card)
+        proj, dirs = phase_training(dev, tmp, card)
+        paths["mp predict (learned fusion)"] = phase_workflow(dev, proj, dirs,
+                                                             card)
     view0 = [times["stack"], times["remap"]]
     log(f"shear-pass launches per path: {paths}")
     log(f"card: {card}")

@@ -25,3 +25,16 @@ def require_cuda(index=0):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", index)
+
+
+def resolve_device(device=None):
+    """The torch.device a library entry point runs on: the card for None
+    (the default), 'cuda' or 'cuda:N', each through require_cuda, so a
+    missing card raises and never turns into the CPU; any other device
+    (the CPU, for tests) as given."""
+    if device is None:
+        return require_cuda()
+    device = torch.device(device)
+    if device.type == "cuda":
+        return require_cuda(device.index or 0)
+    return device

@@ -1,8 +1,10 @@
 """`mp` dispatcher of the PyTorch port: ``python -m
 multiplanarunet_tpu_torch.bin.mp <script> [script args...]`` forwards the
 script's arguments to its `entry_func`, as `multiplanarunet_tpu/bin/mp.py`
-does. The port has `predict` and `train`; the JAX package's other
-scripts raise `ScriptNotPortedError`."""
+does. The port has the project workflow (toy_data, init_project, train,
+train_fusion, predict, summary) and the CV tools (cv_split,
+cv_experiment); the JAX package's other scripts raise
+`ScriptNotPortedError`."""
 
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ import argparse
 import importlib
 import sys
 
-PORTED = ("predict", "train")
+PORTED = ("cv_experiment", "cv_split", "init_project", "predict", "summary",
+          "toy_data", "train", "train_fusion")
 
 
 class ScriptNotPortedError(NotImplementedError):

@@ -91,19 +91,6 @@ def get_argparser():
     return parser
 
 
-def get_device(name):
-    """The torch.device for --device; CUDA goes through require_cuda, so a
-    missing card raises and never turns into the CPU."""
-    import torch
-
-    from multiplanarunet_tpu_torch._device import require_cuda
-
-    dev = torch.device(name)
-    if dev.type == "cuda":
-        return require_cuda(dev.index or 0)
-    return dev
-
-
 def validate_folders(project_dir, out_dir, overwrite, continue_):
     if not (Path(project_dir) / "train_hparams.yaml").exists():
         raise RuntimeError(f"No train_hparams.yaml in {project_dir}")
@@ -314,12 +301,14 @@ def run_predictions_and_eval(loader, predictor, views, fusion_params, args,
 
 
 def entry_func(args=None):
+    from multiplanarunet_tpu_torch._device import resolve_device
+
     args = get_argparser().parse_args(args)
     if args.num_devices > 1:
         raise MultiDeviceNotPortedError(
             f"--num_devices {args.num_devices}: view-parallel inference "
             f"over several GPUs is not ported yet; use 0 or 1")
-    device = get_device(args.device)
+    device = resolve_device(args.device)
     if args.wait_for:
         from multiplanarunet_tpu_torch.utils.utils import await_PIDs
 

@@ -224,13 +224,13 @@ def run(project_dir, logger, args, device):
 
 
 def entry_func(args=None):
-    from multiplanarunet_tpu_torch.bin.predict import get_device
+    from multiplanarunet_tpu_torch._device import resolve_device
     from multiplanarunet_tpu_torch.logging.loggers import Logger
     from multiplanarunet_tpu_torch.utils.utils import await_PIDs
 
     args = get_argparser().parse_args(args)
     validate_args(args)
-    device = get_device(args.device)
+    device = resolve_device(args.device)
     project_dir = os.path.abspath(args.project_dir)
     validate_project_dir(project_dir)
     os.chdir(project_dir)

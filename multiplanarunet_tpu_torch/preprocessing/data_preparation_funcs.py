@@ -104,7 +104,7 @@ def load_or_create_views(hparams, continue_training, logger, base_path,
                 "PyTorch port (views.npz holds them)")
 
 
-def get_sequencers(train_queue, val_queue, logger, hparams, device="cpu"):
+def get_sequencers(train_queue, val_queue, logger, hparams, device=None):
     logger("Preparing sequence objects...")
     out = []
     for queue, is_val in ((train_queue, False), (val_queue, True)):
@@ -121,7 +121,7 @@ def get_sequencers(train_queue, val_queue, logger, hparams, device="cpu"):
 
 def prepare_for_multi_view_unet(hparams, just_one=False, no_val=False,
                                 continue_training=False, logger=None,
-                                base_path="./", device="cpu"):
+                                base_path="./", device=None):
     train_queue, val_queue, logger, auditor = _base_loader_func(
         hparams, just_one, no_val, logger, "2d")
     load_or_create_views(hparams, continue_training, logger, base_path,

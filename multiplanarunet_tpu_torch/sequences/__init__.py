@@ -16,10 +16,11 @@ _NOT_PORTED = ("iso_live_3d", "patches_3d", "sliding_patches_3d")
 
 
 def get_sequence(data_queue, intrp_style, augmenters=None, logger=None,
-                 device="cpu", **kwargs):
+                 device=None, **kwargs):
     """The sampler of `intrp_style` over a data queue (as
     `multiplanarunet_tpu/sequences/utils.py:get_sequence`), sampling on
-    `device`; augmenter config dicts are instantiated here."""
+    `device` (the card by default, which raises without one); augmenter
+    config dicts are instantiated here."""
     style = intrp_style.lower()
     if style in _NOT_PORTED:
         raise SequenceNotPortedError(

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multiplanarunet_tpu_torch._device import resolve_device
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.ops import geometry
 from multiplanarunet_tpu_torch.ops.interp import (
@@ -66,7 +67,7 @@ class IsotrophicLiveViewSequence(BaseSequence):
                  real_space_span=None, noise_sd=0.0, force_all_fg="auto",
                  fg_batch_fraction=0.50, label_crop=None, logger=None,
                  is_validation=False, list_of_augmenters=None,
-                 flatten_y=False, device="cpu", **kwargs):
+                 flatten_y=False, device=None, **kwargs):
         super().__init__()
         self.logger = logger or ScreenLogger()
         self.image_pair_queue = image_pair_queue
@@ -85,7 +86,7 @@ class IsotrophicLiveViewSequence(BaseSequence):
             self.fg_classes = np.array([1])
         self.label_crop = (np.array([[0, 0], [0, 0]])
                            if label_crop is None else np.asarray(label_crop))
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     # ------------------------------------------------------------ fg quotas
     @property

@@ -19,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from multiplanarunet_tpu_torch._device import resolve_device
 from multiplanarunet_tpu_torch.callbacks.funcs import init_callback_objects
 from multiplanarunet_tpu_torch.callbacks.validation import Validation
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
@@ -34,10 +35,11 @@ from multiplanarunet_tpu_torch.train.utils import (
 
 
 class Trainer:
-    """Trains a UNet (on `device`) over batch sampler sequences."""
+    """Trains a UNet (on `device`: the card by default, which raises
+    without one) over batch sampler sequences."""
 
-    def __init__(self, model, logger=None, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, model, logger=None, device=None):
+        self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.logger = logger or ScreenLogger()
         self.optimizer = None

@@ -23,6 +23,10 @@ Two resamplers:
 
 ``auto`` (default) takes shear when every view's plane stack factors
 within the guard and falls back to gather for the whole image otherwise.
+
+Fusion training (`mp train_fusion`) reads each view's mapped probabilities
+through `predict_views_mapped` / `predict_views_points`, which always take
+the exact gather path, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from multiplanarunet_tpu_torch.ops import geometry
 from multiplanarunet_tpu_torch.ops.interp import (
     accum_view_pred_affine,
+    map_view_pred_affine,
     sample_plane_stack_packed,
 )
 from multiplanarunet_tpu_torch.ops.shear import shear_resample
@@ -473,3 +478,76 @@ class MultiViewPredictor:
         out = out.cpu().numpy()
         self._mark("fuse")
         return out, per_view
+
+    # ------------------------------------------------- fusion training data
+    def _views_mapped(self, image, views, n_planes):
+        """Yield each view's mapped class probabilities, (X, Y, Z,
+        n_classes) float32 on the device cropped to the image's true
+        shape, by the exact gather path: corner-packed trilinear stack,
+        U-Net (bf16 probabilities), nearest remap (the JAX package's
+        predict_view with return_probs)."""
+        sampler = image.interpolator
+        volume = self._stage_volume(sampler, packed=True)
+        out_shape = tuple(int(s) for s in volume.shape[:3])
+        true_shape = tuple(int(s) for s in image.shape[:3])
+        crop = tuple(slice(0, s) for s in true_shape)
+        offsets, n_valid = self._prepare_offsets(image, n_planes)
+        g0, g_step, o0, o_step = self._grid_params(offsets)
+        for view in views:
+            basis = geometry.plane_basis(view, noise_sd=0.0)
+            M, t = self._remap_transform(image, basis, true_shape)
+            stack = sample_plane_stack_packed(
+                volume, sampler.origin, sampler.spacing, sampler.rot_mat,
+                basis, offsets, self.span, self.dim, sampler.scaled_bg_value,
+                valid_shape=sampler.valid_shape)
+            pred = self._unet_stack(stack)
+            del stack
+            mapped = map_view_pred_affine(pred, g0, g_step, o0, o_step, M, t,
+                                          out_shape, n_valid)
+            del pred
+            yield mapped[crop].float()
+
+    @torch.inference_mode()
+    def predict_views_mapped(self, image, views, n_planes="same+20"):
+        """Per-view mapped probability volumes (n_views, X, Y, Z,
+        n_classes) float32 on the host, at the image's true shape (the
+        exact gather path)."""
+        return np.stack([m.cpu().numpy() for m in
+                         self._views_mapped(image, views, n_planes)])
+
+    @torch.inference_mode()
+    def predict_views_points(self, image, views, n_planes="same+20",
+                             max_points=None, generator=None):
+        """Fusion-training points of one labelled image, left on the
+        device: (points (n_pts, n_views, n_classes) float32, targets
+        (n_pts,) int32). Each view's mapped volume (the exact gather path)
+        is cropped and flattened on the device and the labels are staged
+        once as uint8, so nothing volume-sized returns to the host.
+
+        max_points: when the image has more voxels, keep a uniform random
+        subset of that many, the first max_points of
+        torch.randperm(n_vox, generator=generator) (a generator on this
+        predictor's device; seed 0 when None). The JAX package draws its
+        subset from jax.random.PRNGKey(seed) instead, so the two packages
+        pick different voxels for the same seed."""
+        true_shape = tuple(int(s) for s in image.shape[:3])
+        n_vox = int(np.prod(true_shape))
+        idx = None
+        if max_points and n_vox > int(max_points):
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            idx = torch.randperm(n_vox, generator=generator,
+                                 device=self.device)[:int(max_points)]
+        labels = np.asarray(image.labels).reshape(-1)
+        tgt_dtype = np.uint8 if self.n_classes <= 256 else np.int32
+        targets = torch.from_numpy(labels.astype(tgt_dtype)).to(self.device)
+        if idx is not None:
+            targets = targets[idx]
+        points = torch.empty((targets.shape[0], len(views), self.n_classes),
+                             dtype=torch.float32, device=self.device)
+        for v, mapped in enumerate(self._views_mapped(image, views,
+                                                      n_planes)):
+            flat = mapped.reshape(-1, self.n_classes)
+            points[:, v] = flat if idx is None else flat[idx]
+            del mapped, flat
+        return points, targets.to(torch.int32)

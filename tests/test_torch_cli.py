@@ -259,8 +259,8 @@ def test_build_model_named_errors():
 
 
 def test_mp_dispatch_and_device_errors(tmp_path, monkeypatch):
-    with pytest.raises(t_mp.ScriptNotPortedError, match="train_fusion"):
-        t_mp.entry_func(["train_fusion", "--project_dir", str(tmp_path)])
+    with pytest.raises(t_mp.ScriptNotPortedError, match="predict_3D"):
+        t_mp.entry_func(["predict_3D", "--project_dir", str(tmp_path)])
     with pytest.raises(t_predict.MultiDeviceNotPortedError):
         t_mp.entry_func(["predict", "--num_devices", "2"])
     # The default device is CUDA: with no card visible it raises, and never

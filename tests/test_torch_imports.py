@@ -61,6 +61,13 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.train.train_step",
     "multiplanarunet_tpu_torch.train.trainer",
     "multiplanarunet_tpu_torch.bin.train",
+    "multiplanarunet_tpu_torch.utils.fusion.fusion_training",
+    "multiplanarunet_tpu_torch.bin.init_project",
+    "multiplanarunet_tpu_torch.bin.toy_data",
+    "multiplanarunet_tpu_torch.bin.train_fusion",
+    "multiplanarunet_tpu_torch.bin.summary",
+    "multiplanarunet_tpu_torch.bin.cv_split",
+    "multiplanarunet_tpu_torch.bin.cv_experiment",
 ]
 BANNED = ("jax", "flax", "optax", "yaml", "pandas", "sklearn", "nibabel",
           "matplotlib", "multiplanarunet_tpu")
@@ -89,8 +96,8 @@ def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
 def test_port_runs_with_banned_packages_blocked():
     """With jax, flax, optax, yaml, pandas, sklearn, nibabel, matplotlib
     and the JAX package made unimportable (as on a machine that lacks
-    them), every port module imports and `mp predict --help` and `mp train
-    --help` run."""
+    them), every port module imports and `mp <script> --help` runs for
+    every ported script."""
     code = (
         "import importlib, runpy, sys\n"
         "class Block:\n"
@@ -100,19 +107,26 @@ def test_port_runs_with_banned_packages_blocked():
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "for script in ('predict', 'train'):\n"
+        "from multiplanarunet_tpu_torch.bin.mp import PORTED\n"
+        "assert len(PORTED) == 8, PORTED\n"
+        "for script in PORTED:\n"
         "    sys.argv = ['mp', script, '--help']\n"
         "    try:\n"
         "        runpy.run_module('multiplanarunet_tpu_torch.bin.mp',\n"
         "                         run_name='__main__')\n"
         "    except SystemExit as e:\n"
         "        assert e.code in (0, None), e.code\n"
+        "    print('helped', script)\n"
         "print('ran')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "--stage_dtype" in proc.stdout and "--device" in proc.stdout
     assert "--continue_training" in proc.stdout
+    for flag in ("--images_per_round", "--model", "--N_channels",
+                 "--CV_dir", "--validation_fraction"):
+        assert flag in proc.stdout, flag
+    assert proc.stdout.count("helped ") == 8
     assert proc.stdout.strip().endswith("ran")
 
 
@@ -131,6 +145,36 @@ def test_require_cuda_raises_without_a_card():
     assert not torch.cuda.is_available()
     with pytest.raises(_device.CudaUnavailableError):
         _device.require_cuda()
+
+
+def test_library_entry_points_default_to_the_card(monkeypatch):
+    """Trainer and get_sequence run on the card unless given a device:
+    with none visible they raise, and never turn into the CPU; the CLIs'
+    --device cpu and an explicit device="cpu" still work."""
+    from multiplanarunet_tpu_torch.models.unet import UNet
+    from multiplanarunet_tpu_torch.preprocessing.data_preparation_funcs \
+        import get_sequencers
+    from multiplanarunet_tpu_torch.sequences import get_sequence
+    from multiplanarunet_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = UNet(n_classes=2, n_channels=1, depth=1, init_filters=2)
+    kw = dict(intrp_style="iso_live", dim=16, batch_size=2, n_classes=2,
+              views=np.eye(3), real_space_span=16.0, no_log=True)
+    with pytest.raises(_device.CudaUnavailableError):
+        Trainer(model)
+    with pytest.raises(_device.CudaUnavailableError):
+        get_sequence([], **kw)
+    with pytest.raises(_device.CudaUnavailableError):
+        get_sequencers(["queue"], None, print,
+                       {"build": {"dim": 16, "n_classes": 2},
+                        "fit": dict(intrp_style="iso_live", batch_size=2,
+                                    views=np.eye(3), no_log=True)})
+    assert Trainer(model, device="cpu").device.type == "cpu"
+    assert get_sequence([], device="cpu", **kw).device.type == "cpu"
+    assert _device.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(_device.CudaUnavailableError):
+        _device.resolve_device("cuda:1")
 
 
 def test_build_raises_named_error_without_nvcc(tmp_path, monkeypatch):

@@ -65,7 +65,8 @@ def _sequences(queues, **over):
     kw.update(over)
     jseq = j_get_sequence(queues["jax"], logger=JScreen(False), **kw)
     jseq.use_pool = False
-    tseq = get_sequence(queues["port"], logger=ScreenLogger(False), **kw)
+    tseq = get_sequence(queues["port"], logger=ScreenLogger(False),
+                        device="cpu", **kw)
     choices = {}
     for name, seq in (("jax", jseq), ("port", tseq)):
         seq.seed = lambda: None  # the test seeds numpy itself
