@@ -16,9 +16,14 @@ volume with the kernel held against its plain version at that volume's
 largest shapes, and training: `mp train` (a subprocess, through the mp
 entry point) of the same model on a project that the port's `mp
 init_project` makes from its MultiPlanar preset, over 3 + 1 structured
-256^3 subjects (3 epochs of 20 steps of 16, Elastic2D), a float32 step on
-the card against the host, the bf16 step against the float32 one, a
-50-step overfit, and the step, sampler and validation times. Last, the
+256^3 subjects (3 epochs of 20 steps of 16, Elastic2D) on the pooled
+sampler, a float32 step on the card against the host, the bf16 step
+against the float32 one, a 50-step overfit, the step, sampler and
+validation times; the pooled sampler against the per-image path in
+alternating rounds, its parts, its batches on the card against the CPU's
+and its pool's bytes; the pooled path with LRU eviction over a
+LimitationQueue, and `mp train --max_loaded_images 2` (a subprocess, the
+per-image path over a LimitationQueue). Last, the
 workflow on the trained project: `mp train_fusion` (a subprocess), the
 fused probabilities of its points path against predict_image's with the
 learned weights, `mp predict` with the learned fusion and `mp summary`
@@ -39,7 +44,9 @@ standard output is a JSON object describing the kernels; the last is
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -63,6 +70,7 @@ from multiplanarunet_tpu_torch.evaluate.metrics import (
 )
 from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
 from multiplanarunet_tpu_torch.image.image_pair import ImagePair
+from multiplanarunet_tpu_torch.image.queue.queues import LimitationQueue
 from multiplanarunet_tpu_torch.image.volume_sampler import VolumeSampler
 from multiplanarunet_tpu_torch.io import nifti
 from multiplanarunet_tpu_torch.logging.log_results import (
@@ -1266,20 +1274,24 @@ def write_train_project(root, dev):
 def run_mp_train(proj, dev):
     """`python -m multiplanarunet_tpu_torch.bin.mp train` in a subprocess;
     returns (wall seconds, the per-epoch (train loop s, callbacks s) its
-    log reports). Fails on a non-zero exit."""
+    log reports). Fails on a non-zero exit, or when its log does not name
+    the pooled sampler."""
     wall, _ = run_mp_script(
         ["train", "--project_dir", str(proj), "--device", str(dev),
          "--overwrite", "--no_images", "--epochs", str(TRAIN_EPOCHS),
          "--train_images_per_epoch", str(TRAIN_IMAGES),
          "--val_images_per_epoch", str(VAL_IMAGES)], timeout=900)
     epochs = []
-    for line in (proj / "logs" / "train.txt").read_text().splitlines():
+    text = (proj / "logs" / "train.txt").read_text()
+    for line in text.splitlines():
         if " wall: train loop " in line:
             words = line.split()
             epochs.append((float(words[words.index("loop") + 1]),
                            float(words[words.index("validation") + 1])))
     if len(epochs) != TRAIN_EPOCHS:
         raise AssertionError(f"mp train logged {len(epochs)} epoch timings")
+    if "Sampler: pooled path" not in text:
+        raise AssertionError("mp train did not sample on the pooled path")
     return wall, epochs
 
 
@@ -1450,8 +1462,9 @@ def compare_f32_step(batch, dev):
 
 
 def sampler_parts(train_seq, n_batches):
-    """Host wall ms per batch of train_seq.__getitem__ (ending in a
-    synchronisation), then, over as many more batches, of its parts:
+    """Host wall ms per batch of train_seq.__getitem__ on the per-image
+    path (ending in a synchronisation), then, over as many more batches,
+    of its parts:
     candidate label gather + presence fetch, image plane gather, elastic
     augmentation, each timed between synchronisations (which slow the
     whole, so the parts come from batches of their own)."""
@@ -1492,11 +1505,339 @@ def sampler_parts(train_seq, n_batches):
     return total, {k: v / n_batches * 1e3 for k, v in parts.items()}
 
 
+# ------------------------------------------------------------ pooled sampler
+# The sampler A/B: AB_ROUNDS rounds of AB_BATCHES batches per path on one
+# sequence, the two paths alternating. The card-vs-CPU gate: CPU_BATCHES
+# pooled batches without augmenters from one numpy seed, images within
+# CPU_IMAGE_TOL of the largest |intensity|, labels equal on CPU_LABEL_SHARE
+# of pixels, weights equal. The pooled eviction run: EVICT_BATCHES batches
+# of EVICT_BATCH over a LimitationQueue of EVICT_LOADED images, each
+# swapped out after EVICT_ACCESS accesses. The bounded `mp train`: its
+# LimitationQueue holds BOUNDED_LOADED images (below the batch of 16, so
+# the per-image path), 1 epoch of 3 steps.
+AB_ROUNDS, AB_BATCHES = 5, 8
+CPU_BATCHES, CPU_IMAGE_TOL, CPU_LABEL_SHARE = 3, 1e-5, 0.9999
+EVICT_LOADED, EVICT_ACCESS, EVICT_BATCH, EVICT_BATCHES = 2, 3, 2, 12
+BOUNDED_LOADED = 2
+BOUNDED_ARGS = ["--max_loaded_images", str(BOUNDED_LOADED), "--num_access",
+                "4", "--epochs", "1", "--train_images_per_epoch", "48",
+                "--val_images_per_epoch", "16"]
+
+
+def set_sampler_path(seq, pooled):
+    """Sample the batches that follow on the pooled (True) or the
+    per-image path of `seq`."""
+    seq.use_pool = pooled
+    seq._path_chosen = True
+
+
+def check_batch_contract(seq, batch, what):
+    """Labels in [0, n_classes) and at least n_fg_slices planes holding a
+    foreground class; returns the count of such planes."""
+    labs = batch[1].detach().cpu().numpy()
+    n_fg = int(sum(np.isin(el, seq.fg_classes).any() for el in labs))
+    if not (labs.min() >= 0 and labs.max() < seq.n_classes
+            and n_fg >= seq.n_fg_slices):
+        raise AssertionError(
+            f"{what}: labels in [{labs.min()}, {labs.max()}] (n_classes "
+            f"{seq.n_classes}), {n_fg} fg planes (quota {seq.n_fg_slices})")
+    return n_fg
+
+
+def staged_sampler_bytes(seq):
+    """Device bytes of the per-image path's staged copies (volumes and
+    labels held by the images' samplers)."""
+    n = 0
+    for image in seq.image_pair_queue.dataset.images:
+        sampler = image._interpolator
+        for staged in (getattr(sampler, "_staged", None),
+                       getattr(sampler, "_labels_staged", None)):
+            if staged is not None:
+                n += staged[1].numel() * staged[1].element_size()
+    return n
+
+
+def pooled_sampler_parts(seq, n_batches):
+    """Host wall ms per pooled batch of its parts, each between
+    synchronisations: start (queue draws, pool staging, the numpy draws),
+    the depth-0 candidate gather with its presence, the phase-2 gather of
+    the rows the rules may reject with theirs (each presence fetch follows
+    its synchronised gather), the chosen-plane gather, Elastic2D; the rest
+    is the host walk, the fetches and the label selection."""
+    names = ("start: draws + staging", "depth-0 gather + fetch",
+             "phase-2 gather + fetch", "chosen-plane gather", "elastic")
+    parts = dict.fromkeys(names, 0.0)
+    in_start = [False]
+
+    def timed(fn, name_of):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            name = name_of(*args, **kwargs)
+            if name:
+                parts[name] += time.perf_counter() - t0
+            return out, time.perf_counter() - t0
+        return wrapper
+
+    cand = timed(multi_planar.pool_candidate_labels, lambda *a, **k: (
+        "depth-0 gather + fetch" if in_start[0] else "phase-2 gather + fetch"))
+    chosen = timed(multi_planar.sample_plane_batch_pool, lambda *a, **k: (
+        "chosen-plane gather" if k.get("method", "linear") == "linear"
+        else None))
+    start = timed(seq._start_pooled_batch, lambda: None)
+    augment = timed(seq.augment, lambda *a, **k: "elastic")
+    depth0 = [0.0]
+
+    def cand_wrapper(*args, **kwargs):
+        out, secs = cand(*args, **kwargs)
+        if in_start[0]:
+            depth0[0] += secs
+        return out
+
+    def start_wrapper():
+        in_start[0] = True
+        try:
+            st, secs = start()
+        finally:
+            in_start[0] = False
+        parts["start: draws + staging"] += secs
+        return st
+
+    originals = (multi_planar.pool_candidate_labels,
+                 multi_planar.sample_plane_batch_pool)
+    multi_planar.pool_candidate_labels = cand_wrapper
+    multi_planar.sample_plane_batch_pool = lambda *a, **k: chosen(*a, **k)[0]
+    seq._start_pooled_batch = start_wrapper
+    seq.augment = lambda *a, **k: augment(*a, **k)[0]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_batches):
+            seq[i]
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) / n_batches * 1e3
+    finally:
+        (multi_planar.pool_candidate_labels,
+         multi_planar.sample_plane_batch_pool) = originals
+        del seq._start_pooled_batch, seq.augment
+    # the depth-0 gather runs inside start: count it once
+    parts["start: draws + staging"] -= depth0[0]
+    out = {k: v / n_batches * 1e3 for k, v in parts.items()}
+    out["rest: walk, fetches, selection"] = total - sum(out.values())
+    return total, out
+
+
+def sampler_ab(seq, rounds, n):
+    """Host wall ms per batch of the pooled and the per-image path of one
+    sequence, in alternating rounds of n batches with a synchronisation
+    before and after each: {path: [ms per batch of each round]}, and the
+    peak allocated bytes above the resident ones during each path's
+    rounds."""
+    ms = {"pooled": [], "per-image": []}
+    peak = dict.fromkeys(ms, 0)
+    for r in range(rounds):
+        order = ("pooled", "per-image") if r % 2 == 0 else ("per-image",
+                                                            "pooled")
+        for path in order:
+            set_sampler_path(seq, path == "pooled")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(n):
+                seq[i]
+            torch.cuda.synchronize()
+            ms[path].append((time.perf_counter() - t0) / n * 1e3)
+            peak[path] = max(peak[path],
+                             torch.cuda.max_memory_allocated() - base)
+    set_sampler_path(seq, True)
+    return ms, peak
+
+
+def check_pooled_card_vs_cpu(seq, n_batches, card):
+    """Pooled batches of copies of `seq` on the card and on the CPU (own
+    pools, no augmenters: Elastic2D's fields come from device generators)
+    from the same numpy seed: images within CPU_IMAGE_TOL of the largest
+    |intensity|, labels equal on CPU_LABEL_SHARE of pixels, weights equal,
+    and the batch contract. Gates the card pool's bytes: allocated when it
+    was built, equal to capacity x padded shape x (C x 4 + label
+    itemsize). Returns the card pool's bytes."""
+    batches, pools, grown = {}, {}, {}
+    for name, device in (("card", seq.device), ("cpu", torch.device("cpu"))):
+        s = copy.copy(seq)
+        s.device, s._pool, s.list_of_augmenters = device, None, None
+        set_sampler_path(s, True)
+        s.seed = lambda: None  # one numpy seed for both
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        pools[name] = s._get_pool()
+        torch.cuda.synchronize()
+        grown[name] = torch.cuda.memory_allocated() - before
+        np.random.seed(1234)
+        batches[name] = [s[i] for i in range(n_batches)]
+        for i, b in enumerate(batches[name]):
+            check_batch_contract(s, b, f"pooled batch {i} on the {name}")
+    pool = pools["card"]
+    want = (pool.capacity * int(np.prod(pool.shape))
+            * (pool.n_channels * 4 + pool.labels.element_size()))
+    if not pool.nbytes == want == grown["card"]:
+        raise AssertionError(f"pool bytes {pool.nbytes}, allocated "
+                             f"{grown['card']}, want {want}")
+    img_err, label_share = 0.0, 1.0
+    for (cX, cy, cw), (hX, hy, hw) in zip(batches["card"], batches["cpu"]):
+        hX = hX.numpy()
+        img_err = max(img_err, float(np.abs(cX.cpu().numpy() - hX).max()
+                                     / max(1.0, np.abs(hX).max())))
+        label_share = min(label_share, float(
+            (cy.cpu().numpy() == hy.numpy()).mean()))
+        if not np.array_equal(cw, hw):
+            raise AssertionError("pooled weights differ card vs CPU")
+    log(f"[{card}] pooled batches card vs CPU ({n_batches} batches of "
+        f"{seq.batch_size}, one numpy seed, no augmenters): images max abs "
+        f"err {img_err:.3g} of the largest |intensity| (<= {CPU_IMAGE_TOL}), "
+        f"labels equal on {label_share:.6f} of pixels (>= "
+        f"{CPU_LABEL_SHARE}), weights equal; every batch meets the fg quota "
+        f"({seq.n_fg_slices} of {seq.batch_size}) with labels in [0, "
+        f"{seq.n_classes}); pool {pool.capacity} slots of "
+        f"{pool.shape + (pool.n_channels,)} float32 + "
+        f"{str(pool.labels.dtype).split('.')[-1]} labels = {pool.nbytes} B "
+        f"({pool.nbytes / 2**30:.3f} GiB), allocated when built "
+        f"{grown['card']} B")
+    if not (img_err <= CPU_IMAGE_TOL and label_share >= CPU_LABEL_SHARE):
+        raise AssertionError("pooled batches differ card vs CPU")
+    del pools, batches
+    return pool.nbytes
+
+
+def phase_sampler(train_seq, card):
+    """The pooled sampler against the per-image path on the in-process
+    train-256 sequence (batch 16, Elastic2D on): the pooled path builds no
+    per-image staged copies (gate), its parts, the A/B, the card-vs-CPU
+    gate; then the per-image path's parts. Returns (pooled median ms per
+    batch, the per-image (ms, parts))."""
+    set_sampler_path(train_seq, True)
+    train_seq[0]
+    staged = staged_sampler_bytes(train_seq)
+    if staged:
+        raise AssertionError(f"the pooled path staged {staged} B of "
+                             f"per-image copies")
+    pool_ms, pool_parts = pooled_sampler_parts(train_seq, 8)
+    set_sampler_path(train_seq, False)
+    train_seq[0]  # stage the per-image copies before the A/B
+    staged = staged_sampler_bytes(train_seq)
+    ab, peak = sampler_ab(train_seq, AB_ROUNDS, AB_BATCHES)
+    med = {k: float(np.median(v)) for k, v in ab.items()}
+    log(f"[{card}] sampler A/B, batch {train_seq.batch_size}, dim "
+        f"{train_seq.sample_dim}, Elastic2D on, {AB_ROUNDS} alternating "
+        f"rounds of {AB_BATCHES} batches each: "
+        + "; ".join(f"{k} median {med[k]:.2f} ms per batch (rounds "
+                    f"{min(v):.2f}-{max(v):.2f}: "
+                    f"{[round(x, 2) for x in v]}), peak {peak[k] / 2**20:.1f} "
+                    f"MiB above the resident" for k, v in ab.items())
+        + f"; per-image / pooled {med['per-image'] / med['pooled']:.2f}x; "
+        f"resident: pool {train_seq._pool.nbytes / 2**20:.1f} MiB, "
+        f"per-image staged copies {staged / 2**20:.1f} MiB")
+    log(f"[{card}] pooled sampler parts (batch {train_seq.batch_size}, "
+        f"each between synchronisations, mean of 8): {pool_ms:.2f} ms per "
+        f"batch in all; "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in pool_parts.items()))
+    check_pooled_card_vs_cpu(train_seq, CPU_BATCHES, card)
+    set_sampler_path(train_seq, False)
+    per_image = sampler_parts(train_seq, 8)
+    for image in train_seq.image_pair_queue.dataset.images:
+        image.interpolator.unload_device()
+    set_sampler_path(train_seq, True)
+    return med["pooled"], per_image
+
+
+def phase_pooled_eviction(proj, dev, card):
+    """The pooled path with LRU eviction: the train-256 subjects through a
+    LimitationQueue of EVICT_LOADED images (swapped after EVICT_ACCESS
+    accesses) at batch EVICT_BATCH, through
+    `prepare_for_multi_view_unet` with fit.max_loaded set, no augmenters.
+    Gates: the pooled path with EVICT_LOADED slots, the batch contract on
+    every batch, at most EVICT_LOADED images loaded at any access, more
+    images staged than slots (evictions), no per-image staged copies."""
+    t0 = time.perf_counter()
+    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True,
+                          no_version_control=True)
+    hparams["fit"].update(max_loaded=EVICT_LOADED, num_access=EVICT_ACCESS,
+                          batch_size=EVICT_BATCH, augmenters=None)
+    seq, _ = prepare_for_multi_view_unet(
+        hparams, no_val=True, continue_training=True,
+        logger=ScreenLogger(False), base_path=str(proj), device=dev)
+    queue = seq.image_pair_queue
+    if not isinstance(queue, LimitationQueue):
+        raise AssertionError(f"fit.max_loaded built a {type(queue).__name__}")
+    pool = seq._get_pool()
+    loaded, staged = [], []
+    ensure = pool.ensure
+
+    def counting(image):
+        loaded.append(queue.dataset.n_loaded)
+        if image.identifier not in pool._slot_of:
+            staged.append(image.identifier)
+        return ensure(image)
+    pool.ensure = counting
+    try:
+        n_fg = [check_batch_contract(seq, seq[i], f"eviction batch {i}")
+                for i in range(EVICT_BATCHES)]
+    finally:
+        queue.loading_pool.join()
+        queue.loading_pool.de_register_dataset(queue.dataset.identifier)
+    per_image = staged_sampler_bytes(seq)
+    log(f"[{card}] pooled eviction run: {EVICT_BATCHES} batches of "
+        f"{EVICT_BATCH} over a LimitationQueue (max_loaded {EVICT_LOADED}, "
+        f"num_access {EVICT_ACCESS}) of {len(queue.dataset)} subjects, "
+        f"pooled {seq.use_pool} with {pool.capacity} slots: {len(staged)} "
+        f"stagings of {len(set(staged))} subjects, loaded at each access "
+        f"max {max(loaded)} (<= {EVICT_LOADED}), fg planes per batch "
+        f"{n_fg}, per-image staged copies {per_image} B; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (seq.use_pool and pool.capacity == EVICT_LOADED
+            and len(loaded) == EVICT_BATCHES * EVICT_BATCH
+            and max(loaded) <= EVICT_LOADED
+            and len(staged) > EVICT_LOADED and per_image == 0):
+        raise AssertionError("the pooled eviction run failed its gates")
+
+
+def run_bounded_mp_train(proj, dev, root, card):
+    """`mp train --max_loaded_images 2 --num_access 4` in a subprocess on
+    the train-256 project's YAML, copied into a project of its own (the
+    trained project stays as it is): the per-image path over a
+    LimitationQueue (2 slots are below the batch of 16). Gates: exit 0,
+    the queue and the path in its log, at least one reload logged, one
+    CSV row with a finite loss."""
+    bproj = root / "bounded_project"
+    bproj.mkdir()
+    shutil.copy(proj / "train_hparams.yaml", bproj / "train_hparams.yaml")
+    wall, _ = run_mp_script(
+        ["train", "--project_dir", str(bproj), "--device", str(dev),
+         "--overwrite", "--no_images", *BOUNDED_ARGS], timeout=600)
+    text = (bproj / "logs" / "train.txt").read_text()
+    reloads = text.count("Reload: unloaded")
+    lines = (bproj / "logs" / "training.csv").read_text().splitlines()
+    row = dict(zip(lines[0].split(","), lines[-1].split(",")))
+    log(f"[{card}] mp train {' '.join(BOUNDED_ARGS)}: {wall:.1f} s wall, "
+        f"{reloads} reloads logged, CSV rows {len(lines) - 1} (loss "
+        f"{row.get('loss')}, val_dice {row.get('val_dice')})")
+    want = (f"Sampler: per-image path (volume pool capacity {BOUNDED_LOADED} "
+            f"< batch size {BATCH})")
+    if not ("'Limitation' queue created" in text and want in text
+            and reloads >= 1 and len(lines) == 2
+            and np.isfinite(float(row["loss"]))):
+        raise AssertionError("the bounded mp train failed its gates")
+
+
 def phase_training(dev, tmp, card):
-    """`mp train` end to end at the bench model's full width (gates in
-    check_trained_project), the step checks (f32 card vs host, bf16 vs
-    f32, overfit) and the training numbers. Returns (the trained project,
-    its data folders)."""
+    """`mp train` end to end at the bench model's full width on the pooled
+    sampler (gates in check_trained_project and run_mp_train), the step
+    checks (f32 card vs host, bf16 vs f32, overfit), the sampler's paths
+    (phase_sampler), the training numbers, the pooled path with eviction
+    and the bounded-memory `mp train`. Returns (the trained project, its
+    data folders)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     root = Path(tmp) / "train"
@@ -1561,7 +1902,7 @@ def phase_training(dev, tmp, card):
     peak64 = torch.cuda.max_memory_allocated(dev)
     del step, model, big
     torch.cuda.empty_cache()
-    samp_ms, parts = sampler_parts(train_seq, 8)
+    pooled_ms, (samp_ms, parts) = phase_sampler(train_seq, card)
 
     model, _, _ = fresh_step(torch.bfloat16, dev, 5e-5)
     trainer = Trainer(model, logger=ScreenLogger(False), device=dev)
@@ -1582,7 +1923,7 @@ def phase_training(dev, tmp, card):
     steady = float(np.mean(loop))
     step_sum = steps * med / 1e3
     exposed = max(0.0, steady - step_sum)
-    hidden = 1.0 - min(1.0, exposed / (steps * samp_ms / 1e3))
+    hidden = 1.0 - min(1.0, exposed / (steps * pooled_ms / 1e3))
     log(f"[{card}] train step (bf16, batch {BATCH}, full width, dim {DIM}): "
         f"median {med:.2f} ms (quartiles {q1:.2f} / {q3:.2f}) over 20 steps "
         f"after 5 warm-up, CUDA events around the step alone; peak "
@@ -1610,8 +1951,11 @@ def phase_training(dev, tmp, card):
         f"callbacks incl. validation {[round(e[1], 3) for e in epochs]} s; "
         f"steady epoch {steady:.3f} s vs {steps} x step median = "
         f"{step_sum:.3f} s: {exposed:.3f} s exposed of "
-        f"{steps * samp_ms / 1e3:.3f} s of sampling ({100 * hidden:.1f}% "
-        f"hidden by the prefetch); {steps * BATCH / steady:.1f} images/s")
+        f"{steps * pooled_ms / 1e3:.3f} s of pooled sampling "
+        f"({100 * hidden:.1f}% hidden by the prefetch); "
+        f"{steps * BATCH / steady:.1f} images/s")
+    phase_pooled_eviction(proj, dev, card)
+    run_bounded_mp_train(proj, dev, root, card)
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
     return proj, dirs
 

@@ -26,7 +26,7 @@ def defaults_dir():
 def copy_yaml_and_set_data_dirs(in_path, out_path, data_dir):
     from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
 
-    hparams = YAMLHParams(in_path, no_log=True)
+    hparams = YAMLHParams(in_path, no_log=True, no_version_control=True)
     for split in ("train", "val", "test", "aug"):
         group = f"{split}_data"
         if group == "aug_data" and not hparams.get(group):

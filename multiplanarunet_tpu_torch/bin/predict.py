@@ -333,7 +333,7 @@ def entry_func(args=None):
                     overwrite_existing=True, no_sub_folder=True)
     try:
         hparams = YAMLHParams(Path(project_dir) / "train_hparams.yaml",
-                              logger=logger)
+                              logger=logger, no_version_control=True)
         loader = get_image_pair_loader(args, hparams, logger)
         loader.set_scaler_and_bg_values(
             bg_value=hparams.get_from_anywhere("bg_value"),

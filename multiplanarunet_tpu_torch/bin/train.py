@@ -1,17 +1,19 @@
 """`mp train` on the PyTorch port: train a project's model on one device.
 
 Port of `multiplanarunet_tpu/bin/train.py`: the same arguments (plus
---device), the hparams checks, data preparation (Auditor fill of the
-YAML, views.npz, eager queues, train/val sequences), the model from the
-build group (glorot init, --continue_training,
---initialize_from, the class-frequency output bias), the Trainer over the
-default callbacks, and model/model_weights.npz at the end (JAX-format
-.npz files, which either package reads). Training runs on the card
-unless --device cpu.
+--device), the hparams checks (and the file's version stamps), data
+preparation (Auditor fill of the YAML, views.npz, the queues: eager, or
+with --max_loaded_images N a LimitationQueue holding at most N training
+images, each swapped out after --num_access accesses; train/val
+sequences, pooled by default), the model from the build group (glorot
+init, --continue_training, --initialize_from, the class-frequency output
+bias), the Trainer over the default callbacks, and
+model/model_weights.npz at the end (JAX-format .npz files, which either
+package reads). Training runs on the card unless --device cpu.
 
-Not ported yet, each raising a named error: --max_loaded_images
-(LimitationQueue), --num_devices > 1, a model class other than UNet;
-QuantileTransformer scaling raises when the images load.
+Not ported yet, each raising a named error: --num_devices > 1, a model
+class other than UNet; QuantileTransformer scaling raises when the images
+load.
 
 Run as ``python -m multiplanarunet_tpu_torch.bin.mp train --project_dir
 <project> [--device cpu] ...``.
@@ -23,10 +25,6 @@ import os
 import shutil
 from argparse import ArgumentParser
 from pathlib import Path
-
-
-class QueueNotPortedError(NotImplementedError):
-    """--max_loaded_images needs the LimitationQueue, not ported yet."""
 
 
 def get_argparser():
@@ -58,11 +56,14 @@ def get_argparser():
     parser.add_argument("--train_images_per_epoch", type=int, default=2500)
     parser.add_argument("--val_images_per_epoch", type=int, default=3500)
     parser.add_argument("--max_loaded_images", type=int, default=None,
-                        help="Bound the resident training images (not "
-                             "ported yet)")
+                        help="Bound the training images resident on the "
+                             "host and the device; cycled every "
+                             "--num_access accesses")
     parser.add_argument("--epochs", type=int, default=None,
                         help="Override the configured number of epochs")
-    parser.add_argument("--num_access", type=int, default=50)
+    parser.add_argument("--num_access", type=int, default=50,
+                        help="Accesses of a loaded image before "
+                             "--max_loaded_images swaps it for another")
     parser.add_argument("--debug", action="store_true",
                         help="Enable autograd anomaly detection (stops at "
                              "the first op producing a NaN in backward)")
@@ -88,10 +89,6 @@ def validate_args(args):
         raise MultiDeviceNotPortedError(
             f"--num_devices {args.num_devices}: data-parallel training over "
             f"several GPUs is not ported yet; use 0 or 1")
-    if args.max_loaded_images is not None:
-        raise QueueNotPortedError(
-            "--max_loaded_images needs the LimitationQueue, which is not "
-            "ported to PyTorch yet; train with every image resident")
 
 
 def validate_project_dir(project_dir):
@@ -132,6 +129,8 @@ def get_data_sequences(project_dir, hparams, logger, args, device):
         raise UnsupportedModelError(
             f"model_class_name {model_name!r} is not ported to PyTorch yet "
             f"(the port trains {sorted(PREPARATION_FUNCS)})")
+    hparams["fit"]["max_loaded"] = args.max_loaded_images
+    hparams["fit"]["num_access"] = args.num_access
     return PREPARATION_FUNCS[model_name](
         hparams=hparams, just_one=args.just_one, no_val=args.no_val,
         continue_training=args.continue_training, logger=logger,

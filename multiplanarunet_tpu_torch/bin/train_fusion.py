@@ -225,7 +225,7 @@ def run(project_dir, args, device, logger):
     from multiplanarunet_tpu_torch.utils.utils import get_best_model
 
     hparams = YAMLHParams(Path(project_dir) / "train_hparams.yaml",
-                          logger=logger)
+                          logger=logger, no_version_control=True)
     views = np.load(Path(project_dir) / "views.npz")["arr_0"]
     n_classes = hparams["build"]["n_classes"]
     n_views = len(views)

@@ -6,14 +6,21 @@ callback anchor definitions, are dropped), the raw text, group lookup,
 `get_from_anywhere`, and `set_value` / `save_current`, which rewrite
 single lines of the raw text so that comments and anchors survive (the
 Auditor writes the values it infers back this way). Parsing goes through
-`yaml_reader.safe_load`. The JAX package also stamps its version and git
-state into the file; the port does not.
+`yaml_reader.safe_load`. Unless no_version_control, loading a file warns
+when its __VERSION__ differs from the installed one, then stamps
+__VERSION__, __BRANCH__ and __COMMIT__ (`VersionController`: the
+package's version and the git state of the checkout holding it) and
+saves the file, as the JAX package does; the port's version equals the
+JAX package's, so a project either package trained opens in the other
+without a warning.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import subprocess
+from pathlib import Path
 
 import numpy as np
 
@@ -23,10 +30,85 @@ from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 _GROUP_RE = re.compile(r"^(?![ \t\n#])([A-Za-z_][^\s:]*):", re.MULTILINE)
 
 
+def _git_info(repo_dir):
+    """(branch, commit) of the git checkout at repo_dir, or Nones where
+    there is no checkout or no git."""
+    def run(*args):
+        try:
+            return subprocess.run(
+                ["git", *args], cwd=repo_dir, capture_output=True, text=True,
+                timeout=5).stdout.strip() or None
+        except (OSError, subprocess.SubprocessError):
+            return None
+
+    return run("rev-parse", "--abbrev-ref", "HEAD"), run("rev-parse", "HEAD")
+
+
+class VersionController:
+    """The package's version and the git branch and commit of the checkout
+    holding it, for stamping project files; in a git checkout it can move
+    the checkout to a version tag, branch or commit (port of the JAX
+    package's `VersionController`)."""
+
+    def __init__(self, logger=None):
+        import multiplanarunet_tpu_torch
+
+        self.logger = logger or ScreenLogger()
+        self.version = multiplanarunet_tpu_torch.__version__
+        self.git_path = str(Path(multiplanarunet_tpu_torch.__file__)
+                            .parent.parent)
+        self.branch, self.commit = _git_info(self.git_path)
+
+    def check_git(self):
+        """True when the package sits inside a usable git checkout."""
+        return (self.commit is not None
+                and os.path.exists(os.path.join(self.git_path, ".git")))
+
+    def _git(self, *args):
+        out = subprocess.run(["git", *args], cwd=self.git_path,
+                             capture_output=True, text=True, timeout=30)
+        if out.returncode != 0:
+            raise OSError(f"git {' '.join(args)} failed: "
+                          f"{out.stderr.strip()}")
+        return out.stdout.strip()
+
+    def set_branch(self, branch):
+        """Check the package's checkout out at `branch` (a branch or tag
+        name)."""
+        if not self.check_git():
+            raise OSError(
+                f"'{self.git_path}' is not a git checkout; cannot switch "
+                f"versions of an installed (non-git) package.")
+        self._git("checkout", str(branch))
+        self.branch, self.commit = _git_info(self.git_path)
+
+    def set_commit(self, commit_id):
+        """Hard-reset the package's checkout to `commit_id`."""
+        if not self.check_git():
+            raise OSError(f"'{self.git_path}' is not a git checkout.")
+        self._git("reset", "--hard", str(commit_id))
+        self.branch, self.commit = _git_info(self.git_path)
+
+    def set_version(self, version):
+        """Check out the version tag or branch ``v<version>`` (a leading
+        'v' of `version` is dropped)."""
+        version = str(version).lower().strip(" v")
+        self.set_branch(f"v{version}")
+
+    def check_or_warn(self, recorded_version, logger=None):
+        logger = logger or self.logger
+        if recorded_version and str(recorded_version) != str(self.version):
+            logger.warn(
+                f"Parameter file created under framework version "
+                f"'{recorded_version}' but the installed version is "
+                f"'{self.version}'. Results may differ.")
+
+
 class YAMLHParams(dict):
     """Dict of hyperparameter groups + the raw YAML string."""
 
-    def __init__(self, yaml_path, logger=None, no_log=False):
+    def __init__(self, yaml_path, logger=None, no_log=False,
+                 no_version_control=False):
         super().__init__()
         self.logger = logger or ScreenLogger()
         self.yaml_path = os.path.abspath(str(yaml_path))
@@ -41,6 +123,16 @@ class YAMLHParams(dict):
                      if not str(k).startswith("__CB")})
         if not no_log:
             self.logger(f"YAML path:    {self.yaml_path}")
+        if not no_version_control:
+            vc = VersionController(logger=self.logger)
+            vc.check_or_warn(self.get("__VERSION__"), self.logger)
+            for name, value in (("__VERSION__", vc.version),
+                                ("__BRANCH__", vc.branch),
+                                ("__COMMIT__", vc.commit)):
+                if value is not None:
+                    self.set_value(None, name, value, overwrite=True,
+                                   add_if_missing=True, log=False)
+            self.save_current()
 
     @property
     def groups(self):

@@ -4,7 +4,9 @@ the predictor's gather path and the training sampler's plane gathers.
 Port of the gather half of `multiplanarunet_tpu/ops/interp.py`, with
 `sample_plane` / `sample_plane_batch` (one oblique plane, or a batch of
 independently oriented planes, linear for images and nearest for
-labels). Sample
+labels) and the pooled training sampler's `grid_gather_pool` /
+`sample_plane_batch_pool` (B planes from B slots of a volume pool in one
+batched gather). Sample
 axes are uniform (centered voxel axes spaced by pixdim; plane axes are a
 linspace), so a point's cell index is a multiply-add. Boundary semantics
 are the JAX package's: a point is out of bounds iff it lies outside
@@ -38,9 +40,10 @@ def _as_f32(x, device):
 def _index_parts(points, origin, spacing, shape3):
     """(i0 int64 (..., 3), frac float32 (..., 3), oob bool (...,)) of
     real-space points on the grid (origin, spacing) of valid extent
-    shape3."""
+    shape3 (a tuple, or a float32 tensor broadcasting against points)."""
     t = (points - origin) / spacing
-    n = torch.as_tensor(np.asarray(shape3, np.float32), device=points.device)
+    n = torch.as_tensor(np.asarray(shape3, np.float32), device=points.device) \
+        if not torch.is_tensor(shape3) else shape3
     oob = ((t < 0.0) | (t > (n - 1.0))).any(dim=-1)
     i0 = torch.minimum(torch.clamp(torch.floor(t), min=0.0), n - 2.0)
     frac = t - i0
@@ -152,21 +155,97 @@ def sample_plane(volume, origin, spacing, rot, basis, offset, span, dim,
                        method=method, fill=fill, valid_shape=valid_shape)
 
 
+def _plane_batch_points(bases, offsets, span, dim, device):
+    """(B, d, d, 3) float32 points of B planes: plane b has basis bases[b]
+    (3, 3) and offset offsets[b] along its normal (`plane_points` per
+    plane, in its order of operations)."""
+    hd = _f32(np.floor_divide(np.float32(span), np.float32(2.0)))
+    g = torch.linspace(-hd, hd, int(dim), dtype=torch.float32, device=device)
+    b = _as_f32(bases, device)
+    u, v, n = b[:, None, None, :, 0], b[:, None, None, :, 1], b[:, None,
+                                                                None, :, 2]
+    off = _as_f32(offsets, device)[:, None, None, None]
+    return g[None, :, None, None] * u + g[None, None, :, None] * v + off * n
+
+
 def sample_plane_batch(volume, origin, spacing, rot, bases, offsets, span,
                        dim, fill, method="linear", valid_shape=None):
     """A batch of independently oriented planes (B, d, d, C): plane b has
     basis bases[b] (3, 3) and offset offsets[b] along its normal."""
-    dev = volume.device
-    hd = _f32(np.floor_divide(np.float32(span), np.float32(2.0)))
-    g = torch.linspace(-hd, hd, int(dim), dtype=torch.float32, device=dev)
-    b = _as_f32(bases, dev)
-    u, v, n = b[:, None, None, :, 0], b[:, None, None, :, 1], b[:, None,
-                                                                None, :, 2]
-    off = _as_f32(offsets, dev)[:, None, None, None]
-    pts = (g[None, :, None, None] * u + g[None, None, :, None] * v
-           + off * n)
+    pts = _plane_batch_points(bases, offsets, span, dim, volume.device)
     return grid_gather(volume, origin, spacing, _rotate(pts, rot),
                        method=method, fill=fill, valid_shape=valid_shape)
+
+
+# ------------------------------------------------------------- pooled path
+def grid_gather_pool(pool, slots, origins, spacings, points, method="linear",
+                     fills=None, valid_shapes=None):
+    """`grid_gather` against B slots of a (N, X, Y, Z, C) volume pool, one
+    per sample of a leading batch axis: sample b reads slot slots[b] at
+    points[b] (..., 3) with its own origins[b], spacings[b] (3,), fill
+    fills[b] (C,) (0 if None) and valid extent valid_shapes[b] (3,) (the
+    slot's padded shape if None). The math is `grid_gather`'s (linear or
+    nearest), with the flat index offset by slot * X*Y*Z: the batched form
+    of the JAX package's vmapped `grid_gather_pool`, in one gather per
+    corner for the whole batch. Indices are int64: thirty 256^3 slots of
+    two channels hold more than 2^31 elements."""
+    N, X, Y, Z, C = pool.shape
+    dev = pool.device
+    lead = (points.shape[0],) + (1,) * (points.dim() - 2)
+    origin = _as_f32(origins, dev).reshape(lead + (3,))
+    spacing = _as_f32(spacings, dev).reshape(lead + (3,))
+    n = (torch.tensor([X, Y, Z], dtype=torch.float32, device=dev)
+         if valid_shapes is None
+         else _as_f32(valid_shapes, dev).reshape(lead + (3,)))
+    i0, frac, oob = _index_parts(points, origin, spacing, n)
+    base = torch.as_tensor(np.asarray(slots, np.int64),
+                           device=dev).reshape(lead) * (X * Y * Z)
+    flat_pool = pool.reshape(-1, C)
+
+    def g(ix, iy, iz):
+        idx = base + (ix * Y + iy) * Z + iz
+        rows = flat_pool.index_select(0, idx.reshape(-1))
+        return rows.reshape(idx.shape + (C,))
+
+    if method == "nearest":
+        idx = torch.where(frac <= 0.5, i0, i0 + 1)
+        out = g(idx[..., 0], idx[..., 1], idx[..., 2])
+    elif method == "linear":
+        fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+        ix, iy, iz = i0[..., 0], i0[..., 1], i0[..., 2]
+        out = None
+        for dx in (0, 1):
+            wx = fx if dx else (1.0 - fx)
+            for dy in (0, 1):
+                wy = fy if dy else (1.0 - fy)
+                for dz in (0, 1):
+                    wz = fz if dz else (1.0 - fz)
+                    contrib = (g(ix + dx, iy + dy, iz + dz)
+                               * (wx * wy * wz)[..., None])
+                    out = contrib if out is None else out + contrib
+    else:
+        raise ValueError(f"Unknown pool gather method '{method}'")
+    fillv = (torch.zeros((C,), dtype=pool.dtype, device=dev)
+             if fills is None else
+             _as_f32(fills, dev).reshape(lead + (C,)).to(pool.dtype))
+    return torch.where(oob[..., None], fillv.to(out.dtype), out)
+
+
+def sample_plane_batch_pool(pool, slots, origins, spacings, rots, bases,
+                            offsets, span, dim, fills, method="linear",
+                            valid_shapes=None):
+    """B independently oriented planes (B, d, d, C) from B (possibly
+    different) slots of a (N, X, Y, Z, C) volume pool in one batched
+    gather: plane b has basis bases[b] (3, 3) and offset offsets[b], is
+    rotated by rots[b] (3, 3) (scanner -> grid alignment) and read from
+    slot slots[b] with origins[b], spacings[b], fills[b] (C,) and
+    valid_shapes[b] (3,), all host arrays. No per-sample loop."""
+    dev = pool.device
+    pts = _plane_batch_points(bases, offsets, span, dim, dev)
+    rot_t = _as_f32(rots, dev).transpose(-1, -2)[:, None]   # (B, 1, 3, 3)
+    return grid_gather_pool(pool, slots, origins, spacings, pts @ rot_t,
+                            method=method, fills=fills,
+                            valid_shapes=valid_shapes)
 
 
 # --------------------------------------------------------- packed-corner path

@@ -4,11 +4,13 @@ sequences.
 Port of `multiplanarunet_tpu/preprocessing/data_preparation_funcs.py` for
 the 2D UNet: the train/val ImagePairLoaders, the Auditor's fill of the
 hparams the YAML leaves Null, the aug-data merge with its sample weight,
---just_one / --no_val, eager queues, the views (sampled with the 60-degree
-restriction and weighted by the median voxel size, saved to views.npz;
-reloaded on --continue_training) and the train/val sequences on the
-training device. Bounded-memory queues (--max_loaded_images) and the 3D
-and multi-task preparations are not ported.
+--just_one / --no_val, the queues (`get_data_queues`: a LimitationQueue
+for training when fit.max_loaded is set, cycling images every
+fit.num_access accesses, else eager; eager for validation), the views
+(sampled with the 60-degree restriction and weighted by the median voxel
+size, saved to views.npz; reloaded on --continue_training) and the
+train/val sequences on the training device. The 3D and multi-task
+preparations are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 
 from multiplanarunet_tpu_torch.image.auditor import Auditor
 from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
-from multiplanarunet_tpu_torch.image.queue.queues import EagerQueue
+from multiplanarunet_tpu_torch.image.queue.queues import get_data_queues
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.ops.geometry import (
     sample_random_views_with_angle_restriction,
@@ -70,8 +72,15 @@ def _base_loader_func(hparams, just_one, no_val, logger, mtype):
             bg_value=hparams.get_from_anywhere("bg_value"),
             scaler=hparams.get_from_anywhere("scaler"),
             compute_now=False)
-    train_queue = EagerQueue(train_data, logger=logger)
-    val_queue = EagerQueue(val_data, logger=logger) if len(val_data) else None
+    max_loaded = hparams["fit"].get("max_loaded")
+    train_queue, val_queue = get_data_queues(
+        train_dataset=train_data,
+        val_dataset=val_data if len(val_data) else None,
+        train_queue_type="limitation" if max_loaded else "eager",
+        val_queue_type="eager",
+        max_loaded=max_loaded,
+        num_access_before_reload=hparams["fit"].get("num_access"),
+        logger=logger)
     return train_queue, val_queue, logger, auditor
 
 

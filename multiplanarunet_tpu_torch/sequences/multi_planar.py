@@ -1,28 +1,46 @@
 """Multi-planar training batches of oblique 2D slices, sampled on a device.
 
 Port of the training half of `multiplanarunet_tpu/sequences/
-multi_planar.py` (`IsotrophicLiveViewSequence` and the per-image path of
-`IsotrophicLiveViewSequence2D`). For each element of a batch:
+multi_planar.py` (`IsotrophicLiveViewSequence` and the pooled and
+per-image paths of `IsotrophicLiveViewSequence2D`). Each batch element
+is a random image of the queue and MAX_TRIES = 10 candidate (view,
+offset, orientation noise) tuples drawn on the host with numpy, in the
+JAX package's order; the reference's accept/retry rules (fg quota,
+force_all_fg) walk the candidates' class presence on the host and pick
+one; the chosen plane is linear-gathered from the scaled volume.
 
-1. a random image of the queue; MAX_TRIES = 10 candidate (view, offset,
-   orientation noise) tuples drawn on the host with numpy, in the JAX
-   package's order;
-2. one nearest gather of all candidate label planes from the labels
-   staged on the device, reduced to per-candidate class presence, and one
-   fetch of that (10, n_classes) presence to the host;
-3. the reference's accept/retry rules (fg quota, force_all_fg) walk the
-   candidates on the host and pick one;
-4. one linear gather of the chosen image plane from the scaled volume
-   staged on the device.
+The pooled path (the default, as in the JAX package) keeps the queue's
+images in a `DeviceVolumePool` (one (capacity, X, Y, Z, C) tensor, plus
+uint8 labels) and samples a whole batch with batched gathers:
 
-Then the batch is augmented on the device (Elastic2D), labels are cropped
-by `label_crop` and given a trailing axis. Batches are (X (B, d, d, C)
-float32, y (B, d, d, 1), w (B,) float32 numpy) on the sequence's device;
-y is int32, or float32 after an augmenter, as in the JAX package.
+1. start: B draws of the queue, each staged into the pool if absent (LRU
+   eviction); the candidates' numpy draws; one nearest gather of the B
+   depth-0 candidate label planes, reduced to class presence on the
+   device;
+2. finish: one fetch of the depth-0 presence; the rows that the rules may
+   reject gather their K-1 deeper candidates in one call, and one fetch
+   of their presence; the host walk (`select_candidate`) picks each row's
+   candidate; one linear gather of the B chosen image planes, the chosen
+   labels selected on the device.
 
-The JAX package's pooled sampler (a device-resident volume pool with
-fused candidate walks, built for a remote TPU transport) is not ported;
-the port has this one path.
+That is two host synchronisations per batch. The per-image path
+(`use_pool = False`) stages each image's volume and labels on the device
+(`VolumeSampler.device_*`) and gathers and fetches per batch element. The
+path is chosen once, before the first batch, by the JAX package's rule:
+per-image when the pool's capacity (the queue's max_loaded, or the
+dataset size) is below both the batch size and the dataset size, or when
+the dataset has no labels.
+
+Batches are sampled one ahead of the train step by
+`base_sequence.prefetched`, on a side stream, with no lookahead inside
+the sequence: a batch's gathers are queued before the next batch's
+`ensure` can overwrite a pool slot, so stream order keeps slots from
+aliasing (and an event, `DeviceVolumePool.mark_read`, where the next
+epoch samples on a new stream). Then the batch is augmented on the device (Elastic2D),
+labels are cropped by `label_crop` and given a trailing axis. Batches are
+(X (B, d, d, C) float32, y (B, d, d, 1), w (B,) float32 numpy) on the
+sequence's device; y is int32, or float32 after an augmenter, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -36,10 +54,23 @@ from multiplanarunet_tpu_torch.ops import geometry
 from multiplanarunet_tpu_torch.ops.interp import (
     sample_plane,
     sample_plane_batch,
+    sample_plane_batch_pool,
 )
+from multiplanarunet_tpu_torch.parallel.volume_pool import DeviceVolumePool
 from multiplanarunet_tpu_torch.sequences.base_sequence import BaseSequence
 
 MAX_TRIES = 10  # candidate count; the reference's retry budget
+
+
+def _presence(labs, n_classes):
+    """(R, n_classes) bool class presence of R label planes (R, d, d), on
+    their device; classes outside [0, n_classes) are dropped."""
+    R = labs.shape[0]
+    idx = torch.where((labs >= 0) & (labs < n_classes), labs, n_classes)
+    presence = torch.zeros((R, n_classes + 1), dtype=torch.bool,
+                           device=labs.device)
+    presence.scatter_(1, idx.reshape(R, -1).long(), True)
+    return presence[:, :n_classes]
 
 
 def candidate_label_slices(labels_vol, origin, spacing, rot, bases, offsets,
@@ -51,13 +82,22 @@ def candidate_label_slices(labels_vol, origin, spacing, rot, bases, offsets,
         labels_vol, origin, spacing, rot, bases, offsets, span, dim,
         fill=float(bg_class), method="nearest", valid_shape=valid_shape,
     )[..., 0].to(torch.int32)
-    K = labs.shape[0]
-    # classes outside [0, n_classes) land in a spare column, dropped
-    idx = torch.where((labs >= 0) & (labs < n_classes), labs, n_classes)
-    presence = torch.zeros((K, n_classes + 1), dtype=torch.bool,
-                           device=labs.device)
-    presence.scatter_(1, idx.reshape(K, -1).long(), True)
-    return labs, presence[:, :n_classes].cpu().numpy()
+    return labs, _presence(labs, n_classes).cpu().numpy()
+
+
+def pool_candidate_labels(label_pool, params, bases, offsets, span, dim,
+                          n_classes):
+    """Nearest-gather R candidate label planes from R pool slots in one
+    call (params: `DeviceVolumePool.params_for` of the R slots). Returns
+    (labs (R, d, d) int32, presence (R, n_classes) bool), both on the
+    pool's device and not fetched (the JAX package's
+    `_pool_candidate_labels`)."""
+    labs = sample_plane_batch_pool(
+        label_pool, params["slots"], params["origins"], params["spacings"],
+        params["rots"], bases, offsets, span, dim,
+        params["bg_classes"][:, None], method="nearest",
+        valid_shapes=params["valid_shapes"])[..., 0].to(torch.int32)
+    return labs, _presence(labs, n_classes)
 
 
 class IsotrophicLiveViewSequence(BaseSequence):
@@ -133,6 +173,36 @@ class IsotrophicLiveViewSequence(BaseSequence):
                 return t, has_fg_vec, has_fg_count + fg_change
         return K - 1, has_fg_vec, has_fg_count  # pragma: no cover
 
+    def walk_candidates(self, pres0, pres_rest, s_pos):
+        """The sequential accept/retry walk over a batch (reference
+        statistics). pres0 (B, n_classes): each row's first candidate;
+        pres_rest (R, K-1, n_classes): the deeper candidates of the rows b
+        with s_pos[b] >= 0 (their row in it); a row with s_pos[b] < 0 must
+        accept its first candidate. Returns the chosen candidate per row
+        (B,) int64."""
+        B = pres0.shape[0]
+        K = MAX_TRIES if pres_rest is None else pres_rest.shape[1] + 1
+        has_fg_count = 0
+        has_fg_vec = np.zeros(len(self.fg_classes), bool)
+        chosen_t = np.empty(B, np.int64)
+        for b in range(B):
+            if s_pos[b] < 0:
+                accept, has_fg_vec, fg_change = self._accepts_candidate(
+                    pres0[b], K == 1, has_fg_vec, has_fg_count, b)
+                if not accept:
+                    raise AssertionError(
+                        "a first candidate outside the phase-2 rows was "
+                        "rejected")
+                has_fg_count += fg_change
+                chosen_t[b] = 0
+            else:
+                presence_b = np.concatenate(
+                    [pres0[b:b + 1], pres_rest[s_pos[b]]])
+                chosen_t[b], has_fg_vec, has_fg_count = \
+                    self.select_candidate(presence_b, has_fg_vec,
+                                          has_fg_count, b)
+        return chosen_t
+
     # ------------------------------------------------------- batch assembly
     def augment(self, batch_x, batch_y, batch_w, bg_values):
         if self.list_of_augmenters:
@@ -160,6 +230,11 @@ class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
     def __init__(self, image_pair_queue, views, no_log=False, **kwargs):
         super().__init__(image_pair_queue, **kwargs)
         self.views = np.asarray(views)
+        # True: the pooled path unless the first batch's path choice rules
+        # it out; False: the per-image path
+        self.use_pool = True
+        self._path_chosen = False
+        self._pool = None
         if not no_log:
             self.log()
 
@@ -205,8 +280,136 @@ class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
             valid_shape=valid)
         return im, labs[j], has_fg_vec, has_fg_count
 
+    # -------------------------------------------------------- pooled batches
+    def pool_capacity(self):
+        """Slots of the volume pool: the queue's max_loaded (a
+        LimitationQueue's bound), else the dataset size."""
+        dataset = self.image_pair_queue.dataset
+        return min(len(dataset),
+                   getattr(self.image_pair_queue, "max_loaded", None)
+                   or len(dataset))
+
+    def _choose_path(self):
+        """Decide once, before the first batch, between the pooled and
+        the per-image path (the JAX package's rule) and log the choice."""
+        self._path_chosen = True
+        if not self.use_pool:
+            self.logger("Sampler: per-image path (use_pool = False)")
+            return
+        dataset = self.image_pair_queue.dataset
+        capacity = self.pool_capacity()
+        reason = None
+        if getattr(dataset, "predict_mode", False):
+            reason = "the dataset has no labels"
+        elif capacity < self.batch_size and capacity < len(dataset):
+            # A batch may draw more distinct images than the pool holds;
+            # LRU eviction could then overwrite a slot an earlier sample of
+            # the same batch reads
+            reason = (f"volume pool capacity {capacity} < batch size "
+                      f"{self.batch_size}")
+        if reason:
+            self.use_pool = False
+            self.logger(f"Sampler: per-image path ({reason})")
+        else:
+            self.logger(f"Sampler: pooled path (DeviceVolumePool of "
+                        f"{capacity} slots on {self.device})")
+
+    def _get_pool(self):
+        """The DeviceVolumePool over the queue's dataset, built at first
+        use."""
+        if self._pool is None:
+            dataset = self.image_pair_queue.dataset
+            self._pool = DeviceVolumePool(
+                DeviceVolumePool.shape_for(dataset.images),
+                dataset.images[0].n_channels, self.pool_capacity(),
+                self.device)
+        return self._pool
+
+    def _start_pooled_batch(self):
+        """Draw one batch's images and randomness, stage the images in the
+        pool and gather the depth-0 candidate labels and their presence
+        (not fetched). The numpy draws come in the JAX package's order: B
+        queue draws, the view indices, the plane-basis noise, the
+        offsets."""
+        pool = self._get_pool()
+        B, K = self.batch_size, MAX_TRIES
+        span = float(self.real_space_span)
+        half = span // 2
+
+        slots, weights = [], []
+        for _ in range(B):
+            with self.image_pair_queue.get_random_image() as image:
+                slots.append(pool.ensure(image))
+                weights.append(image.sample_weight)
+        slots = np.asarray(slots, np.int32)
+
+        view_idx = np.random.randint(0, len(self.views), B * K)
+        bases = geometry.plane_basis_batch(
+            self.views[view_idx], noise_sd=self.noise_sd).reshape(B, K, 3, 3)
+        offsets = np.random.uniform(-half, half, B * K).astype(
+            np.float32).reshape(B, K)
+        params = pool.params_for(slots)
+        labs0, pres0 = pool_candidate_labels(
+            pool.labels, params, bases[:, 0], offsets[:, 0], span,
+            self.sample_dim, self.n_classes)
+        return dict(pool=pool, params=params, weights=weights, bases=bases,
+                    offsets=offsets, labs0=labs0, pres0=pres0, span=span)
+
+    def _finish_pooled_batch(self, st):
+        """Fetch the depth-0 presence, gather and fetch the deeper
+        candidates of the rows the rules may reject (the rules provably
+        accept a first candidate holding every fg class under
+        force_all_fg, or any fg class without), walk the candidates on the
+        host, gather the chosen image planes, select the chosen labels,
+        augment and prepare the batch (the JAX package's host-walk
+        finish)."""
+        pool, params = st["pool"], st["params"]
+        bases, offsets, labs0 = st["bases"], st["offsets"], st["labs0"]
+        B, K = bases.shape[:2]
+        pres0 = st["pres0"].cpu().numpy()
+        fg = pres0[:, self.fg_classes]
+        maybe_rejected = ~fg.all(1) if self.force_all_fg else ~fg.any(1)
+        S = np.nonzero(maybe_rejected)[0]
+        s_pos = np.full(B, -1, np.int64)
+        labs_rest = pres_rest = None
+        if len(S) and K > 1:
+            rep = np.repeat(S, K - 1)
+            labs_rest, pres_rest = pool_candidate_labels(
+                pool.labels, {k: v[rep] for k, v in params.items()},
+                bases[S, 1:].reshape(-1, 3, 3), offsets[S, 1:].reshape(-1),
+                st["span"], self.sample_dim, self.n_classes)
+            pres_rest = pres_rest.cpu().numpy().reshape(len(S), K - 1, -1)
+            s_pos[S] = np.arange(len(S))
+        chosen_t = self.walk_candidates(pres0, pres_rest, s_pos)
+
+        rows = np.arange(B)
+        batch_x = sample_plane_batch_pool(
+            pool.volumes, params["slots"], params["origins"],
+            params["spacings"], params["rots"], bases[rows, chosen_t],
+            offsets[rows, chosen_t], st["span"], self.sample_dim,
+            params["fills"], valid_shapes=params["valid_shapes"])
+        pool.mark_read()
+        # Chosen label planes: depth-0 rows from labs0, deeper ones from
+        # the phase-2 block (its row s_pos[b] * (K-1) + t - 1)
+        if labs_rest is None:
+            batch_y = labs0
+        else:
+            sel_idx = np.where(chosen_t == 0, rows,
+                               B + s_pos * (K - 1) + chosen_t - 1)
+            batch_y = torch.cat([labs0, labs_rest]).index_select(
+                0, torch.as_tensor(sel_idx, device=labs0.device))
+        batch_x, batch_y, batch_w = self.augment(
+            batch_x, batch_y, np.asarray(st["weights"], np.float32),
+            params["fills"])
+        return self.prepare_batches(batch_x, batch_y, batch_w)
+
+    # ---------------------------------------------------- per-image batches
     def __getitem__(self, idx):
         self.seed()
+        if not self._path_chosen:
+            self._choose_path()
+        if self.use_pool:
+            return self._finish_pooled_batch(self._start_pooled_batch())
         has_fg_count = 0
         has_fg_vec = np.zeros(len(self.fg_classes), bool)
         xs, ys, ws, bgs = [], [], [], []

@@ -159,4 +159,15 @@ class Trainer:
                 break
         for cb in cb_objs:
             cb.on_train_end({})
+        self._stop_queues(train, val)
         return history
+
+    @staticmethod
+    def _stop_queues(train, val):
+        """De-register the datasets of LimitationQueues from their loading
+        pool (its daemon threads end with the process)."""
+        for seq in (train, val):
+            queue = getattr(seq, "image_pair_queue", None)
+            pool = getattr(queue, "loading_pool", None)
+            if pool is not None:
+                pool.de_register_dataset(queue.dataset.identifier)

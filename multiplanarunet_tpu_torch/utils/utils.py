@@ -109,11 +109,17 @@ def clear_csv_after_epoch(epoch, csv_path):
 def estimate_class_frequencies(image_queue, n_classes, max_images=25,
                                logger=None):
     """Label counts per class over (up to) `max_images` images of a
-    queue."""
+    queue; an image not loaded (a LimitationQueue's) is loaded for the
+    count and unloaded after it."""
     counts = np.zeros(n_classes, np.int64)
     n = 0
     for image in image_queue.get_image_iterator(max_load=max_images):
-        counts += np.bincount(image.labels.ravel(), minlength=n_classes)
+        if image.is_loaded:
+            counts += np.bincount(image.labels.ravel(), minlength=n_classes)
+        else:
+            with image.loaded_in_context():
+                counts += np.bincount(image.labels.ravel(),
+                                      minlength=n_classes)
         n += 1
     if logger:
         logger(f"Estimated class counts over {n} images: {counts}")

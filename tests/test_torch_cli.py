@@ -106,7 +106,7 @@ def test_yaml_reader_equals_pyyaml(tmp_path, which):
             else next(p for p in DEFAULTS if p.parent.name == which))
     text = path.read_text()
     assert safe_load(text) == yaml.safe_load(text)
-    port = YAMLHParams(path, no_log=True)
+    port = YAMLHParams(path, no_log=True, no_version_control=True)
     ref = JYAMLHParams(path, no_log=True, no_version_control=True)
     assert dict(port) == dict(ref)
     assert port.groups == ref.groups

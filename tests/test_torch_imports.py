@@ -68,6 +68,10 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.bin.summary",
     "multiplanarunet_tpu_torch.bin.cv_split",
     "multiplanarunet_tpu_torch.bin.cv_experiment",
+    "multiplanarunet_tpu_torch.bin.version",
+    "multiplanarunet_tpu_torch.parallel",
+    "multiplanarunet_tpu_torch.parallel.volume_pool",
+    "multiplanarunet_tpu_torch.image.queue",
 ]
 BANNED = ("jax", "flax", "optax", "yaml", "pandas", "sklearn", "nibabel",
           "matplotlib", "multiplanarunet_tpu")
@@ -108,7 +112,7 @@ def test_port_runs_with_banned_packages_blocked():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from multiplanarunet_tpu_torch.bin.mp import PORTED\n"
-        "assert len(PORTED) == 8, PORTED\n"
+        "assert len(PORTED) == 9, PORTED\n"
         "for script in PORTED:\n"
         "    sys.argv = ['mp', script, '--help']\n"
         "    try:\n"
@@ -124,9 +128,10 @@ def test_port_runs_with_banned_packages_blocked():
     assert "--stage_dtype" in proc.stdout and "--device" in proc.stdout
     assert "--continue_training" in proc.stdout
     for flag in ("--images_per_round", "--model", "--N_channels",
-                 "--CV_dir", "--validation_fraction"):
+                 "--CV_dir", "--validation_fraction", "--checkout",
+                 "--max_loaded_images"):
         assert flag in proc.stdout, flag
-    assert proc.stdout.count("helped ") == 8
+    assert proc.stdout.count("helped ") == 9
     assert proc.stdout.strip().endswith("ran")
 
 

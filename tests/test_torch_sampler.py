@@ -67,6 +67,7 @@ def _sequences(queues, **over):
     jseq.use_pool = False
     tseq = get_sequence(queues["port"], logger=ScreenLogger(False),
                         device="cpu", **kw)
+    tseq.use_pool = False
     choices = {}
     for name, seq in (("jax", jseq), ("port", tseq)):
         seq.seed = lambda: None  # the test seeds numpy itself

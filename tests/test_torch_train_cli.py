@@ -19,7 +19,6 @@ from multiplanarunet_tpu.bin.toy_data import create_dataset
 from multiplanarunet_tpu.models import checkpoint as jckpt
 from multiplanarunet_tpu_torch import _device
 from multiplanarunet_tpu_torch.bin import mp as t_mp
-from multiplanarunet_tpu_torch.bin import train as t_train
 from multiplanarunet_tpu_torch.bin.predict import MultiDeviceNotPortedError
 from multiplanarunet_tpu_torch.callbacks.funcs import CallbackNotPortedError
 from multiplanarunet_tpu_torch.io import nifti
@@ -35,7 +34,7 @@ DEFAULT_YAML = (REPO / "multiplanarunet_tpu" / "bin" / "defaults" /
                 "MultiPlanar" / "train_hparams.yaml")
 ARGS = ["--overwrite", "--no_images", "--epochs", "2",
         "--train_images_per_epoch", "12", "--val_images_per_epoch", "8"]
-# YAML lines the JAX package stamps with its version and git state
+# YAML lines both packages stamp with their version and git state
 STAMPS = ("__VERSION__", "__BRANCH__", "__COMMIT__")
 
 
@@ -106,8 +105,10 @@ def test_csv_yaml_and_files_match_jax(trained):
         ["5e-05"] * 2
     p_yaml = yaml.safe_load((port / "train_hparams.yaml").read_text())
     j_yaml = yaml.safe_load((jax_proj / "train_hparams.yaml").read_text())
+    # both packages stamp their version and this checkout's git state
+    assert p_yaml["__VERSION__"] == j_yaml["__VERSION__"] == "0.1.0"
     for key in STAMPS:
-        p_yaml.pop(key), j_yaml.pop(key)
+        assert p_yaml[key] == j_yaml[key], key
     for group in ("train_data", "val_data", "test_data"):
         p_yaml.pop(group), j_yaml.pop(group)  # per-project paths
     assert p_yaml == j_yaml
@@ -178,7 +179,6 @@ def test_predict_on_the_trained_project(trained):
 def test_named_errors(trained, tmp_path, monkeypatch):
     root, _, _ = trained
     cases = [
-        (["--max_loaded_images", "2"], t_train.QueueNotPortedError),
         (["--num_devices", "2"], MultiDeviceNotPortedError),
         (["--continue_training", "--overwrite"], ValueError),
     ]
@@ -207,6 +207,30 @@ def test_named_errors(trained, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(_device.CudaUnavailableError):
         _run(t_mp.entry_func, "train", "--project_dir", str(tmp_path))
+
+
+def test_max_loaded_images_trains_in_both_packages(trained):
+    """`mp train --max_loaded_images 2 --num_access 3` on the 3-image
+    project: both packages train over a LimitationQueue (per-image
+    sampling, the pool's 2 slots being below the batch of 4) and write
+    their CSV rows; the port logs its reloads."""
+    root, _, _ = trained
+    extra = ("--max_loaded_images", "2", "--num_access", "3")
+    port = _write_project(root, "port_bounded")
+    jax_proj = _write_project(root, "jax_bounded")
+    _run(t_mp.entry_func, "train", "--project_dir", str(port), "--device",
+         "cpu", *ARGS, *extra)
+    _run(j_train.entry_func, "--project_dir", str(jax_proj),
+         "--num_devices", "1", *ARGS, *extra)
+    for proj in (port, jax_proj):
+        _, rows = _csv(proj)
+        assert [r["epoch"] for r in rows] == ["0", "1"]
+        assert all(np.isfinite(float(r["loss"])) for r in rows)
+    log = (port / "logs" / "train.txt").read_text()
+    assert "'Limitation' queue created" in log
+    assert "Sampler: per-image path (volume pool capacity 2 < batch " \
+        "size 4)" in log
+    assert "Reload: unloaded" in log
 
 
 def test_jax_trained_weights_load_in_port(trained):
