@@ -23,13 +23,21 @@ validation times; the pooled sampler against the per-image path in
 alternating rounds, its parts, its batches on the card against the CPU's
 and its pool's bytes; the pooled path with LRU eviction over a
 LimitationQueue, and `mp train --max_loaded_images 2` (a subprocess, the
-per-image path over a LimitationQueue). Last, the
+per-image path over a LimitationQueue). Then the 3D path at the 3D
+preset's full width (UNet3D cf 1, depth 3, 64 filters, 64^3 boxes, batch
+16): a project from `mp init_project --model 3D` over the same subjects
+(the Auditor fills dim and real_box_dim), `mp train` (a subprocess, 2
+epochs of 10 steps, Elastic3D, the pooled box sampler), the step and
+sampler times, a float32 step and forward on the card against the host,
+a pooled box batch card vs CPU, `pred_3D_iso` and `predict_3D_patches`
+with the one-hot oracle, and `mp predict_3D` (a subprocess) on the 256^3
+val subject. Last, the
 workflow on the trained project: `mp train_fusion` (a subprocess), the
 fused probabilities of its points path against predict_image's with the
 learned weights, `mp predict` with the learned fusion and `mp summary`
 over its results. Each path's shear-pass launches are counted from 0 just
 before it and gated against what its plans and remap modes say (the
-training and fusion-training paths themselves launch none).
+training, 3D and fusion-training paths themselves launch none).
 
 Run from the repository root with no arguments:
 
@@ -84,6 +92,7 @@ from multiplanarunet_tpu_torch.models.model_init import (
     load_unet_weights,
 )
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
+from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.ops import _build, geometry
 from multiplanarunet_tpu_torch.ops.shear import shear_resample
 from multiplanarunet_tpu_torch.ops import shear as shear_module
@@ -100,15 +109,23 @@ from multiplanarunet_tpu_torch.ops.shear_plan import (
     plan_stage_bytes,
 )
 from multiplanarunet_tpu_torch.preprocessing.data_preparation_funcs import (
+    prepare_for_3d_unet,
     prepare_for_multi_view_unet,
 )
 from multiplanarunet_tpu_torch.sequences import multi_planar
+from multiplanarunet_tpu_torch.sequences.iso_3d import (
+    IsotrophicLiveViewSequence3D,
+)
+from multiplanarunet_tpu_torch.sequences.patches_3d import PatchSequence3D
 from multiplanarunet_tpu_torch.train.train_step import TrainStep
 from multiplanarunet_tpu_torch.train.trainer import Trainer
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
     class_map_counts,
+    pred_3D_iso,
+    predict_3D_patches,
+    unet_predict_fn,
 )
 from multiplanarunet_tpu_torch.utils.utils import get_best_model
 
@@ -171,12 +188,18 @@ def log(msg=""):
 
 
 class Image:
-    """Minimal ImagePair stand-in: shape, affine and the port's sampler."""
+    """Minimal ImagePair stand-in: shape, affine, physical extent and the
+    port's sampler."""
 
     def __init__(self, volume, affine):
         self.shape = volume.shape
         self.affine = affine
         self.interpolator = VolumeSampler(volume, affine, bg_value=0.0)
+
+    @property
+    def real_shape(self):
+        return (np.asarray(self.shape[:3])
+                * np.linalg.norm(np.asarray(self.affine)[:3, :3], axis=0))
 
 
 class OneHotOracle(nn.Module):
@@ -190,7 +213,7 @@ class OneHotOracle(nn.Module):
     def forward(self, x):
         cls = torch.clamp(torch.round(x[:, 0].float()), 0, self.n_classes - 1)
         onehot = nn.functional.one_hot(cls.long(), self.n_classes)
-        return onehot.permute(0, 3, 1, 2).float()
+        return onehot.movedim(-1, 1).float()
 
 
 def cuda_ms(fn, reps):
@@ -206,17 +229,18 @@ def cuda_ms(fn, reps):
 
 
 def jax_format_unet_weights(path, n_classes, n_channels, depth, cf, seed,
-                            init_filters=64):
-    """Write a UNet checkpoint in the JAX package's .npz format from numpy
-    alone: flax key names, HWIO kernels drawn glorot-uniform from a seed,
-    zero biases, BN scale 1 / bias 0 / mean 0 / var 1."""
+                            init_filters=64, ndim=2):
+    """Write a UNet (ndim 2) or UNet3D (ndim 3) checkpoint in the JAX
+    package's .npz format from numpy alone: flax key names, HWIO (DHWIO)
+    kernels drawn glorot-uniform from a seed, zero biases, BN scale 1 /
+    bias 0 / mean 0 / var 1."""
     rng = np.random.RandomState(seed)
     entries = {}
 
     def conv(name, k, cin, cout):
-        lim = np.sqrt(6.0 / (k * k * cin + k * k * cout))
+        lim = np.sqrt(6.0 / (k ** ndim * (cin + cout)))
         entries[f"params/{name}/kernel"] = rng.uniform(
-            -lim, lim, (k, k, cin, cout)).astype(np.float32)
+            -lim, lim, (k,) * ndim + (cin, cout)).astype(np.float32)
         entries[f"params/{name}/bias"] = np.zeros(cout, np.float32)
 
     def bn(name, c):
@@ -1213,6 +1237,9 @@ def phase_large(dev, model, views, fusion):
 TRAIN_EPOCHS, TRAIN_IMAGES, VAL_IMAGES, BATCH = 3, 320, 64, 16
 N_TRAIN_SUBJECTS, N_VAL_SUBJECTS = 3, 1
 BATCH_LARGE = 64
+# The 3D preset's model at full width: UNet3D, complexity_factor 1, depth
+# 3, 64 filters; the Auditor's dim_3d (64) for the box
+DEPTH_3D, CF_3D, DIM_3D = 3, 1.0, 64
 # Step checks: the float32 card/host comparison runs at batch 2 (a host
 # step at full width and batch 16 would take minutes); Adam's first step
 # moves a parameter by -lr * g / (|g| + eps), so a gradient near 0 may land
@@ -1271,16 +1298,17 @@ def write_train_project(root, dev):
     return proj, dirs
 
 
-def run_mp_train(proj, dev):
+def run_mp_train(proj, dev, n_epochs=TRAIN_EPOCHS, images=TRAIN_IMAGES,
+                 val_images=VAL_IMAGES, sampler="Sampler: pooled path"):
     """`python -m multiplanarunet_tpu_torch.bin.mp train` in a subprocess;
     returns (wall seconds, the per-epoch (train loop s, callbacks s) its
     log reports). Fails on a non-zero exit, or when its log does not name
-    the pooled sampler."""
+    the pooled sampler (`sampler` begins its log line)."""
     wall, _ = run_mp_script(
         ["train", "--project_dir", str(proj), "--device", str(dev),
-         "--overwrite", "--no_images", "--epochs", str(TRAIN_EPOCHS),
-         "--train_images_per_epoch", str(TRAIN_IMAGES),
-         "--val_images_per_epoch", str(VAL_IMAGES)], timeout=900)
+         "--overwrite", "--no_images", "--epochs", str(n_epochs),
+         "--train_images_per_epoch", str(images),
+         "--val_images_per_epoch", str(val_images)], timeout=900)
     epochs = []
     text = (proj / "logs" / "train.txt").read_text()
     for line in text.splitlines():
@@ -1288,10 +1316,11 @@ def run_mp_train(proj, dev):
             words = line.split()
             epochs.append((float(words[words.index("loop") + 1]),
                            float(words[words.index("validation") + 1])))
-    if len(epochs) != TRAIN_EPOCHS:
+    if len(epochs) != n_epochs:
         raise AssertionError(f"mp train logged {len(epochs)} epoch timings")
-    if "Sampler: pooled path" not in text:
-        raise AssertionError("mp train did not sample on the pooled path")
+    if sampler not in text:
+        raise AssertionError(f"mp train's log lacks {sampler!r}: it did not "
+                             f"sample on the pooled path")
     return wall, epochs
 
 
@@ -1311,23 +1340,28 @@ def run_mp_script(args, timeout):
     return wall, proc.stdout
 
 
-def check_trained_project(proj, tmp):
-    """Gates on what `mp train` wrote: 3 CSV rows with finite loss,
+def check_trained_project(proj, tmp, n_epochs=TRAIN_EPOCHS, three_d=False):
+    """Gates on what `mp train` wrote: n_epochs CSV rows with finite loss,
     val_loss, val_dice and lr; model_weights.npz and a best @epoch_*.npz
     holding exactly the keys and shapes of the JAX-format weights of the
-    same build; views.npz with 6 unit vectors. Returns the CSV rows."""
+    same build; for the 2D model views.npz with 6 unit vectors. Returns
+    the CSV rows."""
     lines = (proj / "logs" / "training.csv").read_text().splitlines()
     head = lines[0].split(",")
     rows = [dict(zip(head, r.split(","))) for r in lines[1:]]
-    if len(rows) != TRAIN_EPOCHS:
+    if len(rows) != n_epochs:
         raise AssertionError(f"training.csv has {len(rows)} rows")
     for row in rows:
         for key in ("loss", "val_loss", "val_dice", "lr"):
             if not np.isfinite(float(row[key])):
                 raise AssertionError(f"training.csv {key} = {row[key]}")
-    ref_path = Path(tmp) / "reference_train_build.npz"
-    jax_format_unet_weights(ref_path, N_CLASSES, N_CHANNELS, DEPTH, CF,
-                            seed=0)
+    ref_path = Path(tmp) / f"reference_train_build_{3 if three_d else 2}d.npz"
+    if three_d:
+        jax_format_unet_weights(ref_path, N_CLASSES, N_CHANNELS, DEPTH_3D,
+                                CF_3D, seed=0, ndim=3)
+    else:
+        jax_format_unet_weights(ref_path, N_CLASSES, N_CHANNELS, DEPTH, CF,
+                                seed=0)
     with np.load(ref_path) as ref:
         want = {k: ref[k].shape for k in ref.files}
     best = sorted((proj / "model").glob("@epoch_*.npz"))
@@ -1340,6 +1374,13 @@ def check_trained_project(proj, tmp):
         if got != want:
             raise AssertionError(f"{f.name}: keys/shapes differ from the "
                                  f"JAX-format weights of the build")
+    if three_d:
+        log(f"mp train (3D) wrote: training.csv rows "
+            f"{[r['epoch'] for r in rows]} (loss {[r['loss'] for r in rows]}"
+            f", val_dice {[r['val_dice'] for r in rows]}); "
+            f"{[f.name for f in files]} with the {len(want)} keys and shapes "
+            f"of the JAX-format UNet3D build")
+        return rows
     views = np.load(proj / "views.npz")["arr_0"]
     if views.shape != (N_VIEWS, 3) or not np.allclose(
             np.linalg.norm(views, axis=1), 1.0, atol=1e-6):
@@ -1412,11 +1453,14 @@ def profile_steps(step, batches, n=3):
     return busy, events.table(sort_by="self_device_time_total", row_limit=12)
 
 
-def fresh_step(dtype, dev, lr, seed=0):
-    """A glorot-initialised (from `seed`) full-width UNet in train mode on
-    `dev` with its Adam TrainStep (the default loss and metric)."""
-    model = glorot_init(UNet(N_CLASSES, N_CHANNELS, DEPTH, CF, dtype=dtype),
-                        seed).to(dev).train()
+def fresh_step(dtype, dev, lr, seed=0, three_d=False):
+    """A glorot-initialised (from `seed`) full-width UNet (the 3D preset's
+    UNet3D with three_d) in train mode on `dev` with its Adam TrainStep
+    (the default loss and metric)."""
+    model = (UNet3D(N_CLASSES, N_CHANNELS, DEPTH_3D, CF_3D, dtype=dtype)
+             if three_d else UNet(N_CLASSES, N_CHANNELS, DEPTH, CF,
+                                  dtype=dtype))
+    model = glorot_init(model, seed).to(dev).train()
     opt = init_optimizer("Adam", model.parameters(), lr=lr, epsilon=1e-8)
     step = TrainStep(model, opt, SparseCategoricalCrossentropy(),
                      {"sparse_categorical_accuracy":
@@ -1424,17 +1468,17 @@ def fresh_step(dtype, dev, lr, seed=0):
     return model, opt, step
 
 
-def compare_f32_step(batch, dev):
-    """One float32 step at F32_BATCH on the card (TF32 off) and on the
-    host from the same weights and batch: loss within 1e-4 relative, BN
-    running statistics within 1e-5, parameters within PARAM_TOL * lr for
-    at least PARAM_SHARE of them and within 2 lr (opposite signs; 1e-3
-    of it for the rounding of p + u - p) for all."""
-    X, y, w = (t[:F32_BATCH] for t in batch)
+def compare_f32_step(batch, dev, n=F32_BATCH, three_d=False):
+    """One float32 step on the first n elements of `batch` on the card
+    (TF32 off) and on the host from the same weights and batch: loss
+    within 1e-4 relative, BN running statistics within 1e-5, parameters
+    within PARAM_TOL * lr for at least PARAM_SHARE of them and within 2 lr
+    (opposite signs; 1e-3 of it for the rounding of p + u - p) for all."""
+    X, y, w = (t[:n] for t in batch)
     lr = 5e-5
     out = {}
     for name, d in (("card", dev), ("host", torch.device("cpu"))):
-        model, opt, step = fresh_step(torch.float32, d, lr)
+        model, opt, step = fresh_step(torch.float32, d, lr, three_d=three_d)
         before = opt.packed.data.detach().cpu().clone()
         t0 = time.perf_counter()
         loss = step(X.to(d), y.to(d), w)["loss"].item()
@@ -1448,7 +1492,8 @@ def compare_f32_step(batch, dev):
     stat_err = max((s_c[k] - s_h[k]).abs().max().item() for k in s_c)
     diff = (d_c - d_h).abs()
     share = (diff <= PARAM_TOL * lr).float().mean().item()
-    log(f"f32 train step, batch {F32_BATCH}, card vs host: loss "
+    log(f"f32 {'3D ' if three_d else ''}train step, batch {n}, card vs "
+        f"host: loss "
         f"{l_c:.7f} vs {l_h:.7f} (rel {rel:.3g} <= 1e-4); BN running stats "
         f"max abs err {stat_err:.3g} (<= 1e-5); parameter updates within "
         f"{PARAM_TOL} lr: {100 * share:.4f}% (>= {100 * PARAM_SHARE}%), max "
@@ -1960,6 +2005,267 @@ def phase_training(dev, tmp, card):
     return proj, dirs
 
 
+# ------------------------------------------------------------------ 3D path
+# `mp train` of the 3D preset on the training phase's 3 + 1 subjects: 2
+# epochs of 10 steps of 16 boxes and 2 validation steps, Elastic3D on, the
+# pooled sampler; the float32 card/host step on F32_BATCH_3D boxes
+TRAIN_EPOCHS_3D, TRAIN_IMAGES_3D, VAL_IMAGES_3D = 2, 160, 32
+F32_BATCH_3D = 1
+# The oracle's boxes (oversampled, so that the nearest scatter leaves no
+# voxel of a 1 mm grid untouched) and patches
+ORACLE_BOX, ORACLE_BOX_DIM, ORACLE_PATCH = 40.0, 48, 32
+
+
+def unet3d_flops_per_box(model, dev):
+    """Forward FLOPs of one DIM_3D^3 box: 2 * MACs of every convolution,
+    counted with forward hooks on one box."""
+    flops = []
+
+    def hook(mod, _, out):
+        flops.append(2 * out[0, 0].numel() * mod.out_channels
+                     * mod.in_channels * int(np.prod(mod.kernel_size)))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, nn.Conv3d)]
+    with torch.inference_mode():
+        model(torch.zeros((1, N_CHANNELS) + (DIM_3D,) * 3, device=dev))
+    for h in hooks:
+        h.remove()
+    return sum(flops)
+
+
+def write_3d_project(root, data, val_dir):
+    """A project made by the port's `mp init_project --model 3D` over the
+    training phase's data folder: only n_classes given (the Auditor fills
+    dim, real_box_dim, real_space_span and n_channels at `mp train`), the
+    val subject as the test set."""
+    port_mp.entry_func(["init_project", "--name", "train3d_project",
+                        "--root", str(root), "--data_dir", str(data),
+                        "--model", "3D"])
+    proj = root / "train3d_project"
+    text = (proj / "train_hparams.yaml").read_text()
+    for old, new in ((f"base_dir: {data}/test", f"base_dir: {val_dir}"),
+                     ("n_classes: Null", f"n_classes: {N_CLASSES}")):
+        if old not in text:
+            raise AssertionError(f"the 3D init_project YAML lacks {old!r}")
+        text = text.replace(old, new)
+    for want in ('model_class_name: "UNet3D"', "intrp_style: 'iso_live_3d'",
+                 "dim: Null", "real_box_dim: Null", "Elastic3D",
+                 "batch_size: 16", "depth: 3"):
+        if want not in text:
+            raise AssertionError(f"the 3D preset lacks {want!r}")
+    (proj / "train_hparams.yaml").write_text(text)
+    return proj
+
+
+def check_3d_yaml(proj):
+    """The Auditor's values written back by `mp train`: dim 64, and
+    real_box_dim = 64 x the 25th-percentile voxel size (1 mm here)."""
+    hp = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
+    dim, box = hp["build"]["dim"], hp["fit"]["real_box_dim"]
+    span = hp["fit"]["real_space_span"]
+    log(f"3D project after mp train: build.dim {dim}, fit.real_box_dim "
+        f"{box}, fit.real_space_span {span}, n_channels "
+        f"{hp['build']['n_channels']}")
+    if dim != DIM_3D or box is None or abs(float(box) - DIM_3D) > 1e-6 \
+            or span is None:
+        raise AssertionError("the Auditor did not fill the 3D values")
+    return hp
+
+
+def check_unet3d_against_host(dev):
+    """The full-width UNet3D on one DIM_3D^3 box on the card in float32
+    (TF32 off) against the same glorot weights on the host."""
+    ref = glorot_init(UNet3D(N_CLASSES, N_CHANNELS, DEPTH_3D, CF_3D),
+                      seed=4).eval()
+    card = copy.deepcopy(ref).to(dev)
+    x = torch.from_numpy(np.random.RandomState(6).randn(
+        1, N_CHANNELS, DIM_3D, DIM_3D, DIM_3D).astype(np.float32))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = ref(x)
+        host_s = time.perf_counter() - t0
+        got = card(x.to(dev)).cpu()
+    err = (got - want).abs().max().item()
+    log(f"UNet3D full width on one {DIM_3D}^3 box: card f32 vs host f32 max "
+        f"abs err {err:.3g} (< 1e-4); host forward {host_s:.1f} s")
+    if not err < 1e-4:
+        raise AssertionError("UNet3D on the card disagrees with the host")
+
+
+def phase_3d_oracle(dev):
+    """pred_3D_iso and predict_3D_patches on the card with the one-hot
+    oracle on a 64^3 label volume fed as its image: box coverage > 0.95 and
+    accuracy > 0.9 on the interior (base tiling + 2x random rotated
+    boxes), patch accuracy > 0.99 over the volume. Launches no shear
+    pass."""
+    lab = oracle_labels(64)
+    nc = 4
+    img = Image(lab.astype(np.float32)[..., None], np.eye(4))
+    fn = unet_predict_fn(OneHotOracle(nc).to(dev), dev)
+    quiet = ScreenLogger(False)
+    iso = IsotrophicLiveViewSequence3D(
+        None, real_box_dim=ORACLE_BOX, dim=ORACLE_BOX_DIM, batch_size=1,
+        n_classes=nc, noise_sd=0.1, no_log=True, device=dev, logger=quiet)
+    np.random.seed(3)
+    sums = pred_3D_iso(fn, iso, img, extra_boxes="2x")
+    interior = np.zeros(lab.shape, bool)
+    interior[2:-2, 2:-2, 2:-2] = True
+    covered = sums.sum(-1) > 0
+    cls = sums.argmax(-1)
+    cov = float(covered[interior].mean())
+    acc = float((cls == lab)[interior & covered].mean())
+    patches = PatchSequence3D(None, dim=ORACLE_PATCH, n_classes=nc,
+                              batch_size=1, no_log=True, device=dev,
+                              logger=quiet)
+    pcls = predict_3D_patches(fn, patches, img, want_argmax=True)
+    pacc = float((pcls == lab).mean())
+    n_base = len(iso.base_placements(img))
+    log(f"3D oracle 64^3: pred_3D_iso ({n_base} base + {2 * n_base} extra "
+        f"boxes of {ORACLE_BOX:g} mm at {ORACLE_BOX_DIM}^3, noise_sd 0.1) "
+        f"interior coverage {cov:.4f} (> 0.95), accuracy {acc:.4f} (> 0.9); "
+        f"predict_3D_patches ({len(patches.base_corners(img))} patches of "
+        f"{ORACLE_PATCH}^3) accuracy {pacc:.4f} (> 0.99), uint8 "
+        f"{pcls.dtype == np.uint8}")
+    if not (cov > 0.95 and acc > 0.9 and pacc > 0.99
+            and pcls.dtype == np.uint8):
+        raise AssertionError("3D oracle reconstruction failed")
+
+
+def run_mp_predict_3d(proj, dev):
+    """`mp predict_3D` in a subprocess on the trained 3D project over the
+    256^3 val subject (box mode, --extra_boxes 2x). Gates: PRED.nii.gz of
+    the image's shape with classes below N_CLASSES, results.csv and
+    detailed.csv written, a finite mean dice. Returns (wall s, the numbers
+    its log reports)."""
+    wall, _ = run_mp_script(
+        ["predict_3D", "--project_dir", str(proj), "--device", str(dev),
+         "--overwrite", "--out_dir", "pred3d", "--extra_boxes", "2x"],
+        timeout=600)
+    out = proj / "pred3d"
+    pred = nifti.load(out / "nii_files" / "val_0" /
+                      "PRED.nii.gz").get_raw_data()
+    if pred.shape != (DIM,) * 3 or pred.max() >= N_CLASSES:
+        raise AssertionError(f"3D PRED {pred.shape} {pred.dtype}")
+    for name in ("results.csv", "detailed.csv"):
+        if not (out / "csv" / name).exists():
+            raise AssertionError(f"mp predict_3D wrote no csv/{name}")
+    results = ResultTable.read_csv(out / "csv" / "results.csv")
+    dice = float(results.values[0, 0])
+    text = (out / "predict_log.txt").read_text()
+    boxes, numbers = 0, {}
+    for line in text.splitlines():
+        words = line.split()
+        if " boxes in chunks of " in line:
+            boxes += int(words[0])
+        elif line.startswith("Timing val_0:"):
+            numbers["seconds"] = {w.strip(":"): float(v) for w, v in zip(
+                words[2::3], words[3::3])}
+        elif "Peak device memory:" in line:
+            numbers["peak_gib"] = float(words[-2])
+    if not np.isfinite(dice) or boxes == 0 or "seconds" not in numbers:
+        raise AssertionError(f"mp predict_3D: dice {dice}, {boxes} boxes, "
+                             f"log numbers {numbers}")
+    numbers.update(dice=dice, boxes=boxes, classes=np.bincount(
+        pred.ravel(), minlength=N_CLASSES).tolist())
+    return wall, numbers
+
+
+def phase_3d(dev, tmp, data, dirs, card):
+    """The 3D path at full width: the project from `mp init_project
+    --model 3D`, `mp train` in a subprocess (gates in check_trained_project,
+    check_3d_yaml and run_mp_train), the in-process step, sampler and
+    correctness checks, the oracle (phase_3d_oracle) and `mp predict_3D` in
+    a subprocess (run_mp_predict_3d). The in-process parts launch no shear
+    pass (gated). Returns 0, the shear-pass launches of the in-process
+    parts."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(tmp) / "train3d"
+    root.mkdir()
+    proj = write_3d_project(root, data, dirs["val"])
+    wall, epochs = run_mp_train(
+        proj, dev, TRAIN_EPOCHS_3D, TRAIN_IMAGES_3D, VAL_IMAGES_3D,
+        sampler="Sampler: pooled path (isotropic 3D boxes")
+    check_trained_project(proj, tmp, TRAIN_EPOCHS_3D, three_d=True)
+    hparams = check_3d_yaml(proj)
+    t_train = time.perf_counter() - t_phase
+    shear_pass.launches = 0
+
+    # In-process: the pooled 3D sampler (Elastic3D on) and the step
+    train_seq, _ = prepare_for_3d_unet(hparams, logger=ScreenLogger(False),
+                                       base_path=str(proj), device=dev)
+    train_seq.batch_size = BATCH
+    batches = [train_seq[i] for i in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4):
+        batches.append(train_seq[i])
+    torch.cuda.synchronize()
+    samp_ms = (time.perf_counter() - t0) / 4 * 1e3
+    X = batches[0][0]
+    if X.shape != (BATCH,) + (DIM_3D,) * 3 + (N_CHANNELS,):
+        raise AssertionError(f"3D batch {tuple(X.shape)}")
+    for i, b in enumerate(batches):
+        check_batch_contract(train_seq, b, f"3D pooled batch {i}")
+    compare_f32_step(batches[0], dev, n=F32_BATCH_3D, three_d=True)
+    check_unet3d_against_host(dev)
+    check_pooled_card_vs_cpu(train_seq, 1, card)
+
+    model, _, step = fresh_step(torch.bfloat16, dev, 5e-5, three_d=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    med, q1, q3 = step_time_ms(step, batches, warmup=3, timed=10)
+    peak = torch.cuda.max_memory_allocated(dev)
+    model.eval()
+    fwd_flops = unet3d_flops_per_box(model, dev)
+    predict = unet_predict_fn(model, dev)
+    box_ms = cuda_ms(lambda: predict(X), 3) / BATCH
+    del step, model, predict, batches, X
+    torch.cuda.empty_cache()
+    tflops = 3 * fwd_flops * BATCH / (med * 1e-3) / 1e12
+    steps = TRAIN_IMAGES_3D // BATCH
+    steady = epochs[-1][0]
+    exposed = max(0.0, steady - steps * med / 1e3)
+    log(f"[{card}] 3D train step (bf16, batch {BATCH} boxes of {DIM_3D}^3, "
+        f"UNet3D cf {CF_3D:g}, depth {DEPTH_3D}, 64 filters): median "
+        f"{med:.2f} ms (quartiles {q1:.2f} / {q3:.2f}) over 10 steps after 3 "
+        f"warm-up, CUDA events around the step alone; peak allocated "
+        f"{peak / 2**30:.2f} GiB; {fwd_flops / 1e9:.1f} GFLOP forward per "
+        f"box, step at 3x forward = {tflops:.1f} TFLOP/s "
+        f"({100 * tflops / 989:.1f}% of 989 dense bf16 TFLOP/s); U-Net "
+        f"inference {box_ms:.2f} ms per box (bf16, chunks of {BATCH})")
+    log(f"[{card}] 3D pooled sampler (batch {BATCH}, Elastic3D on): "
+        f"{samp_ms:.1f} ms host wall per batch (4 batches, synchronised)")
+    log(f"[{card}] 3D mp train: {wall:.1f} s wall for {TRAIN_EPOCHS_3D} "
+        f"epochs; train loop per epoch {[round(e[0], 3) for e in epochs]} s, "
+        f"callbacks incl. validation {[round(e[1], 3) for e in epochs]} s; "
+        f"steady epoch {steady:.3f} s vs {steps} x step median = "
+        f"{steps * med / 1e3:.3f} s: {exposed:.3f} s exposed "
+        f"({100 * exposed / steady:.1f}% of the epoch); "
+        f"{steps * BATCH / steady:.1f} boxes/s")
+
+    phase_3d_oracle(dev)
+    if shear_pass.launches != 0:
+        raise AssertionError(f"the 3D path launched {shear_pass.launches} "
+                             f"shear passes")
+    launches = shear_pass.launches
+    p_wall, numbers = run_mp_predict_3d(proj, dev)
+    secs = numbers["seconds"]
+    log(f"[{card}] mp predict_3D on the {DIM}^3 val subject (box mode, "
+        f"--extra_boxes 2x): {p_wall:.1f} s wall for the command; "
+        f"{numbers['boxes']} boxes per volume; per volume: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; U-Net about {numbers['boxes'] * box_ms / 1e3:.3f} s of it at "
+        f"{box_ms:.2f} ms per box; peak device memory "
+        f"{numbers.get('peak_gib', float('nan')):.2f} GiB; mean dice "
+        f"{numbers['dice']:.4f} (2 epochs of training); classes "
+        f"{numbers['classes']}")
+    log(f"3D phase: {time.perf_counter() - t_phase:.1f} s (project + mp "
+        f"train {t_train:.1f} s)")
+    return launches
+
+
 # ------------------------------------------------------------------ workflow
 # `mp train_fusion` on the trained train-256 project: 4 images (the val
 # subject + 3 random train subjects) in 2 rounds of 2, at the script's
@@ -2187,6 +2493,8 @@ def main():
         err = max(err, e)
         del predictor
         proj, dirs = phase_training(dev, tmp, card)
+        paths["3D (in-process)"] = phase_3d(dev, tmp, proj.parent / "data",
+                                            dirs, card)
         paths["mp predict (learned fusion)"] = phase_workflow(dev, proj, dirs,
                                                              card)
     view0 = [times["stack"], times["remap"]]

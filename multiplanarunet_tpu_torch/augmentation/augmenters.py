@@ -1,9 +1,10 @@
 """Batch augmenters (config surface of
-`multiplanarunet_tpu/augmentation/augmenters.py`): `Elastic2D` takes the
-same YAML kwargs (alpha and sigma as scalars or [lo, hi] ranges drawn per
-sample, apply_prob, aug_weight replacing the sample weight of augmented
-elements, seed) and deforms the whole batch on its device in one call of
-`ops.elastic.elastic_deform_2d_batch`.
+`multiplanarunet_tpu/augmentation/augmenters.py`): `Elastic2D` and
+`Elastic3D` take the same YAML kwargs (alpha and sigma as scalars or
+[lo, hi] ranges drawn per sample, apply_prob, aug_weight replacing the
+sample weight of augmented elements, seed) and deform the whole batch of
+slices or boxes on its device in one call of
+`ops.elastic.elastic_deform_{2d,3d}_batch`.
 
 Per batch, the host draws apply_mask, then alphas, then sigmas from the
 augmenter's numpy RandomState, in the JAX package's order (and, without a
@@ -18,12 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from multiplanarunet_tpu_torch.ops.elastic import elastic_deform_2d_batch
-
-
-class AugmenterNotPortedError(ValueError):
-    """An augmenter class of the JAX package that the port does not
-    have."""
+from multiplanarunet_tpu_torch.ops.elastic import (
+    elastic_deform_2d_batch,
+    elastic_deform_3d_batch,
+)
 
 
 def _validate_range(value, name):
@@ -35,10 +34,12 @@ def _validate_range(value, name):
     return value
 
 
-class Elastic2D:
-    """Random elastic deformation of every (B, d, d, C) batch element."""
+class Elastic:
+    """Random elastic deformation of every batch element (on its
+    device)."""
 
-    __name__ = "Elastic2D"
+    deform_fn = None  # set by subclasses
+    __name__ = "Elastic"
 
     def __init__(self, alpha, sigma, apply_prob, aug_weight=0.33, seed=None):
         self._alpha = _validate_range(alpha, "alpha")
@@ -73,9 +74,9 @@ class Elastic2D:
         return self._generators[device]
 
     def __call__(self, batch_x, batch_y, batch_w=None, bg_values=None):
-        """Deform (B, d, d, C) images and (B, d, d[, 1]) labels; returns
-        (images, float32 labels or None, weights with aug_weight where
-        applied)."""
+        """Deform (B, *spatial, C) images and (B, *spatial[, 1]) labels;
+        returns (images, float32 labels or None, weights with aug_weight
+        where applied)."""
         B, C = batch_x.shape[0], batch_x.shape[-1]
         dev = batch_x.device
         lab = (torch.zeros(batch_x.shape[:-1], device=dev)
@@ -88,7 +89,7 @@ class Elastic2D:
         else:
             bg = np.array(np.broadcast_to(
                 np.asarray(bg_values, np.float32).reshape(B, -1), (B, C)))
-        x_out, y_out = elastic_deform_2d_batch(
+        x_out, y_out = type(self).deform_fn(
             batch_x, lab, alphas, sigmas, apply_mask, bg,
             generator=self.generator(dev))
         if batch_w is not None:
@@ -103,19 +104,32 @@ class Elastic2D:
     __repr__ = __str__
 
 
-AUGMENTERS = {"Elastic2D": Elastic2D}
+class Elastic2D(Elastic):
+    """Elastic deformation of 2D slice batches (B, d, d, C)."""
+
+    deform_fn = staticmethod(elastic_deform_2d_batch)
+    __name__ = "Elastic2D"
+
+
+class Elastic3D(Elastic):
+    """Elastic deformation of 3D box batches (B, d, d, d, C)."""
+
+    deform_fn = staticmethod(elastic_deform_3d_batch)
+    __name__ = "Elastic3D"
+
+
+AUGMENTERS = {"Elastic2D": Elastic2D, "Elastic3D": Elastic3D}
 
 
 def build_augmenters(config_list, seed=None):
     """Augmenters from the YAML 'augmenters' list of {cls_name, kwargs};
-    a class the port does not have raises AugmenterNotPortedError."""
+    an unknown class raises ValueError."""
     out = []
     for i, spec in enumerate(config_list or []):
         name = spec["cls_name"]
         if name not in AUGMENTERS:
-            raise AugmenterNotPortedError(
-                f"Augmenter {name!r} is not available in the PyTorch port "
-                f"(available: {sorted(AUGMENTERS)})")
+            raise ValueError(f"Unknown augmenter {name!r} (available: "
+                             f"{sorted(AUGMENTERS)})")
         kwargs = dict(spec.get("kwargs", {}))
         if seed is not None:
             kwargs.setdefault("seed", seed + i)

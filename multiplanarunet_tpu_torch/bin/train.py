@@ -2,18 +2,20 @@
 
 Port of `multiplanarunet_tpu/bin/train.py`: the same arguments (plus
 --device), the hparams checks (and the file's version stamps), data
-preparation (Auditor fill of the YAML, views.npz, the queues: eager, or
-with --max_loaded_images N a LimitationQueue holding at most N training
-images, each swapped out after --num_access accesses; train/val
-sequences, pooled by default), the model from the build group (glorot
-init, --continue_training, --initialize_from, the class-frequency output
-bias), the Trainer over the default callbacks, and
-model/model_weights.npz at the end (JAX-format .npz files, which either
-package reads). Training runs on the card unless --device cpu.
+preparation (Auditor fill of the YAML; for the 2D UNet views.npz; the
+queues: eager, or with --max_loaded_images N a LimitationQueue holding
+at most N training images, each swapped out after --num_access accesses;
+train/val sequences: oblique slices, or for the UNet3D the iso_live_3d
+boxes or the voxel patches, pooled by default), the model from the build
+group (UNet or UNet3D; glorot init, --continue_training,
+--initialize_from, the class-frequency output bias), the Trainer over
+the default callbacks, and model/model_weights.npz at the end (JAX-format
+.npz files, which either package reads). Training runs on the card unless
+--device cpu.
 
 Not ported yet, each raising a named error: --num_devices > 1, a model
-class other than UNet; QuantileTransformer scaling raises when the images
-load.
+class other than UNet and UNet3D; QuantileTransformer scaling raises when
+the images load.
 
 Run as ``python -m multiplanarunet_tpu_torch.bin.mp train --project_dir
 <project> [--device cpu] ...``.

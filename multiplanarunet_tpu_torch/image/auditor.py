@@ -5,9 +5,12 @@ val NIfTI header for shapes, voxel sizes, physical sizes and memory;
 infers `n_classes` from up to 50 label volumes unless the hparams set it;
 chooses the 2D sample dim (the 16-divisible dim in [min_dim, max_dim]
 nearest real_space_span / sample_res, shrinking the span when that dim
-would under-resolve it) and real_space_span (75th percentile of the
-physical axis sizes); and `fill` writes them into the YAML where the file
-has Null. The JAX Auditor's 3D and multi-task values are not ported.
+would under-resolve it), real_space_span (75th percentile of the
+physical axis sizes), and for the 3D model the box: sample_dim_3D =
+dim_3d voxels spanning real_box_span = dim_3d * sample_res (the 25th
+percentile voxel size); and `fill` writes the values of a model type
+('2d' or '3d') into the YAML where the file has Null. The JAX Auditor's
+multi-task values are not ported.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ class Auditor:
     dataset."""
 
     def __init__(self, nii_paths, nii_lab_paths=None, logger=None,
-                 min_dim_2d=128, max_dim_2d=512, span_percentile=75, res_percentile=25, hparams=None):
+                 min_dim_2d=128, max_dim_2d=512, dim_3d=64,
+                 span_percentile=75, res_percentile=25, hparams=None):
         self.nii_paths = list(nii_paths)
         self.nii_lab_paths = list(nii_lab_paths) if nii_lab_paths else None
         self.logger = logger or ScreenLogger()
@@ -72,6 +76,9 @@ class Auditor:
         self.sample_dim_2D, self.real_space_span_2D = \
             self.heuristic_sample_dim(real_space_span, sample_res,
                                       min_dim_2d, max_dim_2d)
+        self.sample_dim_3D = int(dim_3d)
+        self.real_space_span_3D = real_space_span
+        self.real_box_span = dim_3d * sample_res
         self.total_memory_bytes = int(sum(self.info["memory_bytes"]))
         self.total_memory_gib = self.total_memory_bytes / 1024 ** 3
         # attribute -> ([group, ...], [key, ...]) destinations in the YAML
@@ -79,6 +86,13 @@ class Auditor:
             "2d": {
                 "real_space_span_2D": (["fit"], ["real_space_span"]),
                 "sample_dim_2D": (["build"], ["dim"]),
+                "n_channels": (["build"], ["n_channels"]),
+                "n_classes": (["build"], ["n_classes"]),
+            },
+            "3d": {
+                "real_space_span_3D": (["fit"], ["real_space_span"]),
+                "sample_dim_3D": (["build"], ["dim"]),
+                "real_box_span": (["fit"], ["real_box_dim"]),
                 "n_channels": (["build"], ["n_channels"]),
                 "n_classes": (["build"], ["n_classes"]),
             },
@@ -125,6 +139,9 @@ class Auditor:
             self.logger(f"Number of classes: {self.n_classes}")
         self.logger(f"\n2D:\nReal space span:   {self.real_space_span_2D:.3f}"
                     f"\nSample dim:        {self.sample_dim_2D:.3f}")
+        self.logger(f"\n3D:\nSample dim:        {self.sample_dim_3D}\n"
+                    f"Real space span:   {self.real_space_span_3D:.3f}\n"
+                    f"Box span:          {self.real_box_span:.3f}")
 
     def fill(self, hparams, model_type):
         """Write the audited values into hparams and its YAML file where

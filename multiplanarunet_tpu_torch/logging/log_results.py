@@ -1,10 +1,12 @@
 """Per-image / per-view / per-class evaluation result tables of
-`mp predict`, without pandas.
+`mp predict` and `mp predict_3D`, without pandas.
 
 Port of `multiplanarunet_tpu/logging/log_results.py` with the same file
 layout: <out_dir>/csv/results.csv (image x (views + fused "MJ") mean
 dice), <out_dir>/csv/MJ.csv and one csv per view (class x image dice)
-named by `_view_fname`, and their twins as text tables under txt/. The
+named by `_view_fname`, and their twins as text tables under txt/; for
+`mp predict_3D`, results.csv (image x one unnamed mean-dice column "0")
+and detailed.csv (class x image dice). The
 CSVs are written as pandas writes them (index column first, floats at
 full precision, NaN as an empty field), so the JAX package's `mp summary`
 and `load_result_dicts` read the port's files and the port reads theirs.
@@ -102,8 +104,9 @@ class ResultTable:
         widths = [max([len(c)] + [len(r[j]) for r in cells])
                   for j, c in enumerate(cols)]
         lines = [" " * lw + "".join(f"  {c:>{w}}"
-                                    for c, w in zip(cols, widths)),
-                 self.index_name]
+                                    for c, w in zip(cols, widths))]
+        if self.index_name:
+            lines.append(self.index_name)
         for label, row in zip(labels, cells):
             lines.append(f"{label:<{lw}}" + "".join(
                 f"  {v:>{w}}" for v, w in zip(row, widths)))
@@ -120,6 +123,15 @@ def init_result_dicts(views, all_images, n_classes):
     pc_results = {k: ResultTable("class", range(1, n_classes), all_images)
                   for k in keys}
     return results, pc_results
+
+
+def init_result_dict_3D(all_images, n_classes):
+    """(results table: image x the mean dice column "0", detailed table:
+    class x image dice), all NaN."""
+    if n_classes == 1:
+        n_classes = 2
+    return (ResultTable("", all_images, ["0"]),
+            ResultTable("class", range(1, n_classes), all_images))
 
 
 def load_result_dicts(csv_dir, views):
@@ -156,6 +168,17 @@ def save_all(results, pc_results, out_dir):
     tables = [("results", results)] + [(_view_fname(view), frame)
                                        for view, frame in pc_results.items()]
     for fname, table in tables:
+        table.write_csv(os.path.join(csv_dir, f"{fname}.csv"))
+        with open(os.path.join(txt_dir, f"{fname}.txt"), "w") as f:
+            f.write(table.to_text() + "\n")
+
+
+def save_all_3D(results, detailed, out_dir):
+    """csv/ and txt/ results and detailed tables of `mp predict_3D`."""
+    txt_dir = os.path.join(out_dir, "txt")
+    csv_dir = os.path.join(out_dir, "csv")
+    create_folders([txt_dir, csv_dir])
+    for fname, table in (("results", results), ("detailed", detailed)):
         table.write_csv(os.path.join(csv_dir, f"{fname}.csv"))
         with open(os.path.join(txt_dir, f"{fname}.txt"), "w") as f:
             f.write(table.to_text() + "\n")

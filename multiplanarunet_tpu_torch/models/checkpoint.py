@@ -3,8 +3,9 @@
 The format is that of `multiplanarunet_tpu/models/checkpoint.py`: one
 numpy .npz whose keys are "params/<module>/<leaf>" and
 "batch_stats/<module>/<leaf>", with an optional "__meta__" entry holding
-json bytes. `unet_state_dict_from_jax` carries such a tree onto the torch
-UNet, `unet_variables_from_model` is its inverse, `save_weights` writes a
+json bytes. `unet_state_dict_from_jax` carries such a tree onto a torch
+UNet or UNet3D (conv kernels HWIO -> OIHW, DHWIO -> OIDHW),
+`unet_variables_from_model` is its inverse, `save_weights` writes a
 tree, and `restore_by_name` overlays a file onto a model wherever names
 and shapes match (the JAX package's by-name restore). Each package reads
 the files the other writes.
@@ -77,6 +78,23 @@ _BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
        "running_var": ("batch_stats", "var")}
 
 
+def _kernel_to_torch(arr):
+    """A flax conv kernel (*spatial, I, O) as torch's (O, I, *spatial); any
+    other array as it is."""
+    if arr.ndim < 4:
+        return arr
+    n = arr.ndim
+    return arr.transpose((n - 1, n - 2) + tuple(range(n - 2)))
+
+
+def _kernel_to_flax(arr):
+    """The inverse of `_kernel_to_torch`: (O, I, *spatial) -> (*spatial,
+    I, O)."""
+    if arr.ndim < 4:
+        return arr
+    return arr.transpose(tuple(range(2, arr.ndim)) + (1, 0))
+
+
 def _flax_key(torch_key):
     """'encoder_L0.conv1.weight' -> ('params', ('encoder_L0', 'conv1',
     'kernel')); None for buffers with no flax counterpart."""
@@ -91,10 +109,11 @@ def _flax_key(torch_key):
 def unet_state_dict_from_jax(params, batch_stats, model):
     """Map a flax UNet variable tree onto `model`'s state dict.
 
-    Conv kernels go HWIO -> OIHW; BatchNorm scale/bias/mean/var go to
-    weight/bias/running_mean/running_var. Raises KeyError on a key the
-    model needs that the tree lacks or on a tree entry the model has no
-    place for, and ValueError on a shape mismatch."""
+    Conv kernels go HWIO -> OIHW (DHWIO -> OIDHW in 3D); BatchNorm
+    scale/bias/mean/var go to weight/bias/running_mean/running_var.
+    Raises KeyError on a key the model needs that the tree lacks or on a
+    tree entry the model has no place for, and ValueError on a shape
+    mismatch."""
     trees = {"params": params, "batch_stats": batch_stats or {}}
     used = set()
     state = {}
@@ -110,9 +129,7 @@ def unet_state_dict_from_jax(params, batch_stats, model):
                 raise KeyError(f"{coll}/{'/'.join(path)} missing (needed "
                                f"for {key})")
             node = node[p]
-        arr = np.asarray(node, np.float32)
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        arr = _kernel_to_torch(np.asarray(node, np.float32))
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{coll}/{'/'.join(path)} has shape "
                              f"{tuple(arr.shape)} (as {key}); the model "
@@ -135,18 +152,16 @@ def _leaf_paths(tree, prefix=()):
             yield prefix + (k,)
 
 
-def _to_flax_array(torch_key, tensor):
+def _to_flax_array(tensor):
     arr = tensor.detach().to("cpu", torch.float32).numpy()
-    if arr.ndim == 4:
-        arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-    return np.ascontiguousarray(arr)
+    return np.ascontiguousarray(_kernel_to_flax(arr))
 
 
 def unet_variables_from_model(model):
     """The inverse of `unet_state_dict_from_jax`: `model`'s state as the
     flax (params, batch_stats) trees of numpy float32 arrays (conv kernels
-    OIHW -> HWIO; BatchNorm weight/bias/running_mean/running_var ->
-    scale/bias/mean/var)."""
+    OIHW -> HWIO, OIDHW -> DHWIO; BatchNorm weight/bias/running_mean/
+    running_var -> scale/bias/mean/var)."""
     trees = {"params": {}, "batch_stats": {}}
     for key, value in model.state_dict().items():
         flax = _flax_key(key)
@@ -156,7 +171,7 @@ def unet_variables_from_model(model):
         node = trees[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = _to_flax_array(key, value)
+        node[path[-1]] = _to_flax_array(value)
     return trees["params"], trees["batch_stats"]
 
 
@@ -184,9 +199,7 @@ def restore_by_name(model, params, batch_stats=None, logger=None):
             node = tree
             for p in path:
                 node = node[p]
-            arr = np.asarray(node, np.float32)
-            if arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            arr = _kernel_to_torch(np.asarray(node, np.float32))
             target = current.get((coll,) + path)
             if target is None or tuple(target[1].shape) != arr.shape:
                 if logger is not None:

@@ -1,9 +1,9 @@
 """Model construction from a project's hyperparameters, and the
 continue-training restore.
 
-Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet`:
-the model from the build group, its weights from the JAX package's
-checkpoint files, and `model_initializer` for `mp train` (a fresh
+Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet` and
+the `UNet3D`: the model from the build group, its weights from the JAX
+package's checkpoint files, and `model_initializer` for `mp train` (a fresh
 glorot-uniform init from a seed, `--continue_training` from the last
 '@epoch_NN' checkpoint with the epoch and learning rate of
 logs/training.csv, or `--initialize_from` a weight file, restored by
@@ -19,15 +19,19 @@ import torch
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
+from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.utils.utils import (
     clear_csv_after_epoch,
     get_last_model,
     get_lr_at_epoch,
 )
 
-# build-group fields the UNet takes; the JAX model's other fields (dim,
-# img_rows/img_cols, l1_reg/l2_reg) do not change inference, and keys
-# that are not UNet fields are ignored, as the JAX package ignores them
+MODELS = {"UNet": UNet, "UNet3D": UNet3D}
+# build-group fields the U-Nets take; the JAX models' other fields (dim,
+# img_rows/img_cols, l1_reg/l2_reg, and the exact inference restructurings
+# dilated_upconv / subpixel_decoder) do not change what they compute, and
+# keys that are not model fields are ignored, as the JAX package ignores
+# them
 _UNET_FIELDS = ("n_classes", "n_channels", "depth", "complexity_factor",
                 "init_filters", "kernel_size", "activation",
                 "out_activation")
@@ -38,31 +42,31 @@ class UnsupportedModelError(ValueError):
 
 
 def build_model(build_hparams, mixed_precision=False, logger=None):
-    """An inference UNet (eval mode, on the CPU) from the 'build' group;
+    """A UNet or UNet3D (eval mode, on the CPU) from the 'build' group;
     bf16 compute when mixed_precision."""
     logger = logger or ScreenLogger()
     build = dict(build_hparams)
     name = build.get("model_class_name")
-    if name != "UNet":
+    if name not in MODELS:
         raise UnsupportedModelError(
             f"model_class_name {name!r} is not ported to PyTorch yet (the "
-            f"port builds 'UNet')")
+            f"port builds {sorted(MODELS)})")
     if str(build.get("padding", "same")).lower() != "same":
         raise UnsupportedModelError(
-            f"padding {build['padding']!r}: the port's UNet pads 'same'")
+            f"padding {build['padding']!r}: the port's U-Nets pad 'same'")
     if build.get("flatten_output"):
         raise UnsupportedModelError(
-            "flatten_output: the port's UNet returns (B, C, H, W)")
+            "flatten_output: the port's U-Nets return (B, C, *spatial)")
     kwargs = {k: build[k] for k in _UNET_FIELDS if build.get(k) is not None}
     if mixed_precision:
         kwargs["dtype"] = torch.bfloat16
-    model = UNet(**kwargs).eval()
+    model = MODELS[name](**kwargs).eval()
     logger(f"Built model: {name}({kwargs})")
     return model
 
 
 def load_unet_weights(model, path):
-    """Load a JAX-format UNet checkpoint (.npz) into `model`."""
+    """Load a JAX-format UNet or UNet3D checkpoint (.npz) into `model`."""
     params, batch_stats, _ = checkpoint.load_weights(path)
     model.load_state_dict(
         checkpoint.unet_state_dict_from_jax(params, batch_stats, model))
@@ -71,8 +75,8 @@ def load_unet_weights(model, path):
 
 def model_initializer(hparams, continue_training=False, project_dir=None,
                       logger=None, initialize_from=None):
-    """Build a UNet from hparams and initialise it: glorot-uniform from
-    seed 0 (the JAX package initialises from PRNGKey(0)), then, with
+    """Build a UNet or UNet3D from hparams and initialise it: glorot-uniform
+    from seed 0 (the JAX package initialises from PRNGKey(0)), then, with
     continue_training, the last '@epoch_NN' checkpoint of
     <project_dir>/model restored by name, the rows of
     logs/training.csv past its epoch dropped and its learning rate

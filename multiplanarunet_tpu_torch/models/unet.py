@@ -1,26 +1,29 @@
-"""2D U-Net, in torch, for inference and training.
+"""The U-Net, in torch, for inference and training, over 2D slices or 3D
+boxes.
 
 Port of `multiplanarunet_tpu/models/unet.py:UNet` at the same topology:
-a depth-N encoder of [conv kxk SAME -> act] x2 -> BatchNorm -> maxpool
-2x2, a bottom block, and a decoder of [nearest 2x upsample -> conv2x2 SAME
--> act -> BatchNorm -> crop skip to match -> concat [skip, up] -> ConvBN
-block], then a float32 1x1 out conv and the output activation. Filters
-are int(init_filters * 2^i * sqrt(complexity_factor)). kernel_size,
-activation and out_activation follow the JAX model's fields; an
-activation name the port does not know raises
-`UnsupportedActivationError` rather than computing something else.
+a depth-N encoder of [conv k^n SAME -> act] x2 -> BatchNorm -> maxpool
+2^n, a bottom block, and a decoder of [nearest 2x upsample -> conv 2^n
+SAME -> act -> BatchNorm -> crop skip to match -> concat [skip, up] ->
+ConvBN block], then a float32 1^n out conv and the output activation.
+Filters are int(init_filters * 2^i * sqrt(complexity_factor)).
+kernel_size, activation and out_activation follow the JAX model's fields;
+an activation name the port does not know raises
+`UnsupportedActivationError` rather than computing something else. The
+building blocks take the spatial rank n (`ndim`): `UNet` is the 2D model
+(NCHW), `models/unet3d.py:UNet3D` the 3D one (NCDHW) on the same blocks.
 
-Layout is NCHW. Parameters and BatchNorm statistics stay float32; the
-convolutions run in `dtype` (bf16 on the card), as the JAX model's
-`dtype` does, and BatchNorm normalises in float32 (eps 1e-3). In eval
-mode BatchNorm uses the running statistics; in train mode (`.train()`)
-it normalises with the batch statistics and updates the running ones as
-flax does: float32 reductions, the biased variance max(0, E[x^2] -
-E[x]^2), running = 0.99 * running + 0.01 * batch. Weights come from the
-JAX package's checkpoints through `models.checkpoint`, or from
-`glorot_init` (glorot-uniform kernels, zero biases, the JAX model's
-init). `label_crop` holds the (2, 2) skip crops of the last forward, the
-JAX model's sown `label_crop` (zero when the input side is divisible by
+Parameters and BatchNorm statistics stay float32; the convolutions run
+in `dtype` (bf16 on the card), as the JAX model's `dtype` does, and
+BatchNorm normalises in float32 (eps 1e-3). In eval mode BatchNorm uses
+the running statistics; in train mode (`.train()`) it normalises with
+the batch statistics and updates the running ones as flax does: float32
+reductions, the biased variance max(0, E[x^2] - E[x]^2), running = 0.99 *
+running + 0.01 * batch. Weights come from the JAX package's checkpoints
+through `models.checkpoint`, or from `glorot_init` (glorot-uniform
+kernels of every conv rank, zero biases, the JAX model's init).
+`label_crop` holds the (n, 2) skip crops of the last forward, the JAX
+model's sown `label_crop` (zero when the input side is divisible by
 2^depth).
 """
 
@@ -75,12 +78,23 @@ def output_activation(name):
     return get_activation(name)
 
 
-class Conv2d(nn.Conv2d):
+class _CastConv:
     """Conv with float32 parameters that computes in the input's dtype."""
 
     def forward(self, x):
         return self._conv_forward(x, self.weight.to(x.dtype),
                                   self.bias.to(x.dtype))
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    pass
+
+
+class Conv3d(_CastConv, nn.Conv3d):
+    pass
+
+
+CONV = {2: Conv2d, 3: Conv3d}
 
 
 # Keras / flax BatchNorm momentum: running = m * running + (1 - m) * batch
@@ -98,9 +112,9 @@ class _BatchStatsNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        dims = (0,) + tuple(range(2, x.dim()))  # all but the channel axis
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
         del xf
         y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
@@ -117,7 +131,7 @@ class _BatchStatsNorm(torch.autograd.Function):
         return grad_x, grad_w, grad_b, None
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+class _FlaxBatchNorm:
     """BatchNorm (Keras eps 1e-3) normalising in float32 and returning the
     input's dtype. Eval mode uses the running statistics. Train mode
     normalises with the batch's statistics and updates the running ones
@@ -142,14 +156,28 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-class ConvBNBlock(nn.Module):
-    """Two kxk SAME convs with the activation, then BatchNorm."""
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
 
-    def __init__(self, in_channels, filters, kernel_size, act):
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
+BATCH_NORM = {2: BatchNorm2d, 3: BatchNorm3d}
+MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+
+
+class ConvBNBlock(nn.Module):
+    """Two k^n SAME convs with the activation, then BatchNorm (n = ndim
+    spatial axes)."""
+
+    def __init__(self, in_channels, filters, kernel_size, act, ndim=2):
         super().__init__()
-        self.conv1 = Conv2d(in_channels, filters, kernel_size, padding="same")
-        self.conv2 = Conv2d(filters, filters, kernel_size, padding="same")
-        self.bn = BatchNorm2d(filters)
+        conv = CONV[ndim]
+        self.conv1 = conv(in_channels, filters, kernel_size, padding="same")
+        self.conv2 = conv(filters, filters, kernel_size, padding="same")
+        self.bn = BATCH_NORM[ndim](filters)
         self.act = act
 
     def forward(self, x):
@@ -159,23 +187,28 @@ class ConvBNBlock(nn.Module):
 
 
 def crop_to_match(skip, up):
-    """Center-crop `skip`'s spatial dims (NCHW) down to `up`'s. Returns
-    (cropped, crops) with crops the (2, 2) (lo, hi) pixel crops."""
+    """Center-crop `skip`'s spatial dims (channels first, any number of
+    them) down to `up`'s. Returns (cropped, crops) with crops the (n, 2)
+    (lo, hi) voxel crops of the n spatial axes."""
     diff = np.array(skip.shape[2:]) - np.array(up.shape[2:])
     if np.all(diff == 0):
-        return skip, np.zeros((2, 2), np.int64)
+        return skip, np.zeros((len(diff), 2), np.int64)
     lo = diff // 2
     hi = diff - lo
-    cropped = skip[:, :, lo[0]:skip.shape[2] - hi[0],
-                   lo[1]:skip.shape[3] - hi[1]]
+    cropped = skip[(slice(None), slice(None)) + tuple(
+        slice(l, n - h) for l, h, n in zip(lo, hi, skip.shape[2:]))]
     return cropped, np.stack([lo, hi], axis=1).astype(np.int64)
 
 
 class UNet(nn.Module):
-    """Configurable-depth 2D U-Net with complexity scaling (inference).
+    """Configurable-depth U-Net with complexity scaling over `ndim`
+    spatial axes (2 here; `UNet3D` sets 3).
 
-    forward: (B, n_channels, H, W) -> (B, n_classes, H', W') float32
-    outputs of out_activation (probabilities for the default softmax)."""
+    forward: (B, n_channels, *spatial) -> (B, n_classes, *spatial')
+    float32 outputs of out_activation (probabilities for the default
+    softmax)."""
+
+    ndim = 2
 
     def __init__(self, n_classes, n_channels=1, depth=4, complexity_factor=1.0,
                  init_filters=64, kernel_size=3, activation="relu",
@@ -190,39 +223,43 @@ class UNet(nn.Module):
         cf = float(np.sqrt(complexity_factor))
         k = int(kernel_size)
 
+        n = self.ndim
         cin, filters = self.n_channels, init_filters
         for i in range(self.depth):
             f = int(filters * cf)
-            self.add_module(f"encoder_L{i}", ConvBNBlock(cin, f, k, self.act))
+            self.add_module(f"encoder_L{i}",
+                            ConvBNBlock(cin, f, k, self.act, n))
             cin, filters = f, filters * 2
         f = int(filters * cf)
-        self.bottom = ConvBNBlock(cin, f, k, self.act)
+        self.bottom = ConvBNBlock(cin, f, k, self.act, n)
         cin = f
         for i in range(self.depth):
             filters //= 2
             f = int(filters * cf)
-            # 2x2 SAME conv after the upsample: SAME pads an even kernel
-            # (0, 1), the high edge only (done in forward)
-            self.add_module(f"decoder_L{i}_conv_up", Conv2d(cin, f, 2))
-            self.add_module(f"decoder_L{i}_bn_up", BatchNorm2d(f))
+            # 2^n SAME conv after the upsample: SAME pads an even kernel
+            # (0, 1), the high edge of every axis only (done in forward)
+            self.add_module(f"decoder_L{i}_conv_up", CONV[n](cin, f, 2))
+            self.add_module(f"decoder_L{i}_bn_up", BATCH_NORM[n](f))
             self.add_module(f"decoder_L{i}",
-                            ConvBNBlock(2 * f, f, k, self.act))
+                            ConvBNBlock(2 * f, f, k, self.act, n))
             cin = f
-        self.out_conv = nn.Conv2d(cin, self.n_classes, 1)
-        self.label_crop = np.zeros((2, 2), np.int64)
+        self.out_conv = (nn.Conv2d if n == 2 else nn.Conv3d)(
+            cin, self.n_classes, 1)
+        self.label_crop = np.zeros((n, 2), np.int64)
 
     def forward(self, x):
         x = x.to(self.dtype)
+        n = self.ndim
         skips = []
         for i in range(self.depth):
             x = getattr(self, f"encoder_L{i}")(x)
             skips.append(x)
-            x = F.max_pool2d(x, 2, 2)
+            x = MAX_POOL[n](x, 2, 2)
         x = self.bottom(x)
-        label_crop = np.zeros((2, 2), np.int64)
+        label_crop = np.zeros((n, 2), np.int64)
         for i in range(self.depth):
             x = F.interpolate(x, scale_factor=2, mode="nearest")
-            x = getattr(self, f"decoder_L{i}_conv_up")(F.pad(x, (0, 1, 0, 1)))
+            x = getattr(self, f"decoder_L{i}_conv_up")(F.pad(x, (0, 1) * n))
             x = getattr(self, f"decoder_L{i}_bn_up")(self.act(x))
             skip, crops = crop_to_match(skips[-(i + 1)], x)
             label_crop += crops
@@ -233,18 +270,19 @@ class UNet(nn.Module):
 
 
 def glorot_init(model, seed=0):
-    """Initialise `model` in place as the JAX UNet initialises: every conv
-    kernel glorot-uniform (fan_in = k*k*cin, fan_out = k*k*cout), biases
-    zero, BatchNorm scale 1 / bias 0 / mean 0 / var 1. Draws come from a
-    CPU torch.Generator seeded with `seed`, in module order."""
+    """Initialise `model` in place as the JAX U-Nets initialise: every
+    conv kernel of any rank glorot-uniform (fan_in = k^n * cin, fan_out =
+    k^n * cout), biases zero, every BatchNorm at scale 1 / bias 0 / mean
+    0 / var 1. Draws come from a CPU torch.Generator seeded with `seed`,
+    in module order."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, nn.modules.conv._ConvNd):
                 w = torch.empty(mod.weight.shape, dtype=torch.float32)
                 nn.init.xavier_uniform_(w, generator=gen)
                 mod.weight.copy_(w)
                 mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
                 mod.reset_parameters()
     return model

@@ -1,29 +1,40 @@
-"""Elastic deformation of batches of 2D slices on the device, in torch.
+"""Elastic deformation of batches of 2D slices or 3D boxes on the device,
+in torch.
 
-Port of `multiplanarunet_tpu/ops/elastic.py:elastic_deform_2d_batch`
-(Simard-style, as the reference's host-side elastic augmentation):
+Port of `multiplanarunet_tpu/ops/elastic.py:elastic_deform_2d_batch` and
+`elastic_deform_3d_batch` (Simard-style, as the reference's host-side
+elastic augmentation):
 
-- two uniform random fields in [-1, 1) per sample (x and y displacement),
+- one uniform random field in [-1, 1) per sample and spatial axis (the
+  displacement along that axis),
 - each blurred by a separable gaussian with the sample's sigma: a static
-  kernel radius (64) whose weights come from the dynamic sigma, taps past
-  scipy's truncation (4 sigma) set to 0, normalised, applied as a
-  zero-padded 1-D convolution along each axis in turn (scipy's
-  gaussian_filter with mode='constant'),
+  kernel radius (64 in 2D, 52 in 3D) whose weights come from the dynamic
+  sigma, taps past scipy's truncation (4 sigma) set to 0, normalised,
+  applied as a zero-padded 1-D convolution along each axis in turn
+  (scipy's gaussian_filter with mode='constant'),
 - scaled by the sample's alpha and added to the pixel grid,
-- the image warped bilinearly with an out-of-bounds fill per channel, the
-  labels by nearest neighbour (frac <= 0.5 picks the lower pixel) with
-  class 0 out of bounds,
+- the image warped (bi/trilinear) with an out-of-bounds fill per channel,
+  the labels by nearest neighbour (frac <= 0.5 picks the lower pixel)
+  with class 0 out of bounds,
 - samples whose apply flag is off passed through unchanged.
 
-`elastic_deform_2d_fields` takes the noise fields as arguments (the tests
-feed it the JAX draws); `elastic_deform_2d_batch` draws them from a
-torch.Generator.
+The 3D warp samples through the plain trilinear pool gather
+(`ops.interp.grid_gather_pool`, one slot per sample), where the JAX
+package uses its corner-packed gather: the same function up to the order
+of the eight-corner sum.
+
+`elastic_deform_{2d,3d}_fields` take the noise fields as arguments (the
+tests feed them the JAX draws); `elastic_deform_{2d,3d}_batch` draw them
+from a torch.Generator.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from multiplanarunet_tpu_torch.ops.interp import grid_gather_pool
 
 # scipy's gaussian_filter truncates at 4 sigma by default
 _TRUNCATE = 4.0
@@ -42,21 +53,22 @@ def gauss_kernels(sigmas, radius):
 
 
 def _blur_axis(fields, kernels, axis):
-    """Zero-padded 1-D convolution of each (H, W) field of `fields`
-    (N, H, W) with its own kernel (N, K), along spatial `axis` (0 or
-    1)."""
+    """Zero-padded 1-D convolution of each field of `fields` (N, *spatial)
+    with its own kernel (N, K), along spatial `axis`."""
     n, radius = fields.shape[0], kernels.shape[1] // 2
+    moved = fields.movedim(axis + 1, -1)
+    shape = moved.shape
     # (rows, N, length): the fields ride the channel axis, one group each
-    moved = fields.permute(2, 0, 1) if axis == 0 else fields.permute(1, 0, 2)
-    out = F.conv1d(moved, kernels[:, None, :], padding=radius, groups=n)
-    return out.permute(1, 2, 0) if axis == 0 else out.permute(1, 0, 2)
+    rows = moved.reshape(n, -1, shape[-1]).transpose(0, 1)
+    out = F.conv1d(rows, kernels[:, None, :], padding=radius, groups=n)
+    return out.transpose(0, 1).reshape(shape).movedim(-1, axis + 1)
 
 
 def smooth_fields(fields, sigmas, radius):
-    """Separable gaussian blur (zero boundary) of (N, H, W) fields, field i
-    with sigmas[i]: axis 0, then axis 1."""
+    """Separable gaussian blur (zero boundary) of (N, *spatial) fields,
+    field i with sigmas[i]: axis 0, then axis 1 (then axis 2)."""
     kernels = gauss_kernels(sigmas, radius)
-    for axis in (0, 1):
+    for axis in range(fields.dim() - 1):
         fields = _blur_axis(fields, kernels, axis)
     return fields
 
@@ -138,3 +150,55 @@ def elastic_deform_2d_batch(images, labels, alphas, sigmas, apply_mask,
     return elastic_deform_2d_fields(images, labels, noise[0], noise[1],
                                     alphas, sigmas, apply_mask, bg_values,
                                     radius)
+
+
+def elastic_deform_3d_fields(images, labels, f0, f1, f2, alphas, sigmas,
+                             apply_mask, bg_values, radius=52):
+    """Deform a batch of 3D boxes with given noise fields.
+
+    images (B, d, d, d, C) float; labels (B, d, d, d) float labels; f0,
+    f1, f2 (B, d, d, d) uniform noise in [-1, 1), the displacements along
+    axes 0, 1, 2; alphas, sigmas (B,) float; apply_mask (B,) bool;
+    bg_values (B, C) fill. Returns (images, labels) deformed where
+    apply_mask is set."""
+    B, d = images.shape[:2]
+    C = images.shape[-1]
+    dev = images.device
+    alphas = torch.as_tensor(alphas, dtype=torch.float32, device=dev)
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=dev)
+    apply_mask = torch.as_tensor(apply_mask, dtype=torch.bool, device=dev)
+    bg = np.array(np.broadcast_to(
+        np.asarray(bg_values, np.float32).reshape(B, -1), (B, C)))
+    disp = smooth_fields(torch.cat([f0, f1, f2]).float(), sigmas.repeat(3),
+                         radius)
+    disp = (disp * alphas.repeat(3)[:, None, None, None]).reshape(
+        3, B, d, d, d)
+    grid = torch.arange(d, dtype=torch.float32, device=dev)
+    pts = torch.stack([grid[None, :, None, None] + disp[0],
+                       grid[None, None, :, None] + disp[1],
+                       grid[None, None, None, :] + disp[2]], dim=-1)
+    # each sample is a slot of its own: origin 0, spacing 1, full extent
+    slots, origins = np.arange(B), np.zeros((B, 3), np.float32)
+    spacings = np.ones((B, 3), np.float32)
+    im_out = grid_gather_pool(images.float(), slots, origins, spacings, pts,
+                              fills=bg)
+    lab_out = grid_gather_pool(labels.float()[..., None], slots, origins,
+                               spacings, pts, method="nearest")[..., 0]
+    im_out = torch.where(apply_mask[:, None, None, None, None], im_out,
+                         images.float())
+    lab_out = torch.where(apply_mask[:, None, None, None], lab_out,
+                          labels.float())
+    return im_out, lab_out
+
+
+def elastic_deform_3d_batch(images, labels, alphas, sigmas, apply_mask,
+                            bg_values, generator=None, radius=52):
+    """`elastic_deform_3d_fields` with the three noise fields drawn uniform
+    in [-1, 1) from `generator` (on the images' device)."""
+    B, d = images.shape[:2]
+    noise = torch.rand((3, B, d, d, d), generator=generator,
+                       device=images.device)
+    noise = noise * 2.0 - 1.0
+    return elastic_deform_3d_fields(images, labels, noise[0], noise[1],
+                                    noise[2], alphas, sigmas, apply_mask,
+                                    bg_values, radius)

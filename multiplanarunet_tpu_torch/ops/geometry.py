@@ -1,12 +1,14 @@
 """Scanner-space geometry for the predictor and the image layer: view
-sampling, plane bases, centered voxel axes, physical image extents.
+sampling, plane bases, centered voxel axes, physical image extents, and
+the isotropic 3D boxes (grids, random placements and rotations).
 
 Numpy copies of the functions of `multiplanarunet_tpu/ops/geometry.py`
-that the inference path and the training sampler need. The JAX package's
-module is numpy too, but importing it pulls in jax (through its package
-`__init__`), so the port carries its own copy; tests/test_torch_shear.py
-and tests/test_torch_sampler.py hold every function here equal to the
-original.
+that the inference paths and the training samplers need. The JAX
+package's module is numpy too, but importing it pulls in jax (through its
+package `__init__`), so the port carries its own copy;
+tests/test_torch_shear.py, tests/test_torch_sampler.py and
+tests/test_torch_3d_sampler.py hold every function here equal to the
+original, with the same np.random draws in the same order.
 """
 
 from __future__ import annotations
@@ -14,6 +16,18 @@ from __future__ import annotations
 from itertools import combinations
 
 import numpy as np
+
+
+def mgrid_to_points(mgrid):
+    """(N, D1, D2, ...) stacked mesh -> (D1*D2*..., N) point matrix."""
+    mgrid = np.asarray(mgrid)
+    return mgrid.reshape(mgrid.shape[0], -1).T
+
+
+def points_to_mgrid(points, grid_shape):
+    """(P, N) point matrix -> (N, *grid_shape) stacked mesh."""
+    points = np.asarray(points)
+    return points.T.reshape((points.shape[1],) + tuple(grid_shape))
 
 
 def get_angle_deg(v1, v2):
@@ -92,6 +106,24 @@ def voxel_axes_origin_spacing(shape, affine):
     spacing = np.diagonal(transform).astype(np.float32)
     origin = np.array([a[0] for a in axes], dtype=np.float32)
     return origin, spacing, rot
+
+
+def get_voxel_grid_real_space(shape, affine):
+    """Real-space (scanner) position of every voxel, centered on the mean:
+    a (3, X, Y, Z) float32 stacked mesh."""
+    affine = np.asarray(affine, np.float64)
+    shape = tuple(int(s) for s in shape[:3])
+    A = affine[:3, :3]
+    idx = [np.arange(n, dtype=np.float64) for n in shape]
+    # position = A @ index, centered by subtracting A @ mean_index
+    mean_idx = np.array([(n - 1) / 2.0 for n in shape])
+    center = A.dot(mean_idx)
+    xx = (
+        A[:, 0][:, None, None, None] * idx[0][None, :, None, None]
+        + A[:, 1][:, None, None, None] * idx[1][None, None, :, None]
+        + A[:, 2][:, None, None, None] * idx[2][None, None, None, :]
+    )
+    return (xx - center[:, None, None, None]).astype(np.float32)
 
 
 def get_random_views(N, dim=3, pos_z=True, weights=None, rng=None):
@@ -193,3 +225,52 @@ def plane_basis_batch(norm_vectors, noise_sd=0.0, rng=None):
     u[degenerate] = (1.0, 0.0, 0.0)
     v[degenerate] = (0.0, 1.0, 0.0)
     return np.stack([u, v, n_hat], axis=-1).astype(np.float32)
+
+
+# ----------------------------------------------------------------- box grids
+def sample_box_grid(real_placement, sample_dim, real_box_dim,
+                    rot_mat=None, return_axes=False):
+    """Real-space (3, d, d, d) grid of an isotropic box with its corner at
+    `real_placement`; rotated about its center by rot_mat when given.
+    With return_axes, also the three axes and the inverse rotation."""
+    a, b, c = (float(x) for x in real_placement)
+    axes = tuple(
+        np.linspace(s, s + real_box_dim, sample_dim).astype(np.float32)
+        for s in (a, b, c)
+    )
+    xx, yy, zz = np.meshgrid(*axes, indexing="ij")
+    grid = np.stack([xx, yy, zz])
+    if rot_mat is not None:
+        pts = mgrid_to_points(grid)
+        center = pts.mean(axis=0)
+        pts = (pts - center).dot(np.asarray(rot_mat).T) + center
+        grid = points_to_mgrid(pts.astype(np.float32), grid.shape[1:])
+    if return_axes:
+        inv = np.eye(3, dtype=np.float32) if rot_mat is None else \
+            np.linalg.inv(np.asarray(rot_mat, np.float64)).astype(np.float32)
+        return grid, axes, inv
+    return grid
+
+
+def random_box_placement(real_dims, real_box_dim, rng=None):
+    """A uniform random box corner (3,) inside the sample space (each axis
+    at least 1.1 box widths), centered on the origin: 3 uniform draws."""
+    rng = rng or np.random
+    sample_space = np.asarray(
+        [max(float(i), real_box_dim * 1.1) for i in real_dims]
+    )
+    d = sample_space - real_box_dim
+    placement = np.array([rng.uniform(0, d[i]) for i in range(3)])
+    return placement - sample_space / 2.0
+
+
+def random_box_rotation(noise_sd, rng=None):
+    """A small random rotation matrix: a random +z-hemisphere axis and
+    |angle| half-normal(noise_sd), redrawn until below 2 pi."""
+    rng = rng or np.random
+    axis = get_random_views(1, dim=3, pos_z=True, rng=rng)[0]
+    while True:
+        angle = abs(rng.normal(scale=noise_sd))
+        if angle < 2 * np.pi:
+            break
+    return rotation_matrix(axis, angle_rad=angle)

@@ -6,7 +6,10 @@ Port of the gather half of `multiplanarunet_tpu/ops/interp.py`, with
 independently oriented planes, linear for images and nearest for
 labels) and the pooled training sampler's `grid_gather_pool` /
 `sample_plane_batch_pool` (B planes from B slots of a volume pool in one
-batched gather). Sample
+batched gather), and the 3D path's isotropic boxes: `sample_box` /
+`sample_box_batch` (boxes of one volume), `sample_box_batch_pool` (B
+boxes from B pool slots) and `scatter_box_pred` (box predictions added
+onto their nearest voxels, as one `index_add_`). Sample
 axes are uniform (centered voxel axes spaced by pixdim; plane axes are a
 linspace), so a point's cell index is a multiply-add. Boundary semantics
 are the JAX package's: a point is out of bounds iff it lies outside
@@ -246,6 +249,133 @@ def sample_plane_batch_pool(pool, slots, origins, spacings, rots, bases,
     return grid_gather_pool(pool, slots, origins, spacings, pts @ rot_t,
                             method=method, fills=fills,
                             valid_shapes=valid_shapes)
+
+
+# ----------------------------------------------------------------------- boxes
+def _linspace_f32(start, stop, num):
+    """jnp.linspace(start, stop, num) in float32 over the last axis of
+    (..., 1) starts and stops: start * (1 - i/(num-1)) + stop *
+    i/(num-1), with the last point exactly stop (the JAX formula, which
+    torch.linspace does not round alike). i/(num-1) is divided on the
+    host: a card's torch divides by a Python scalar as a multiplication by
+    its reciprocal, which rounds differently."""
+    div = int(num) - 1
+    step = torch.from_numpy(np.arange(div, dtype=np.float32)
+                            / np.float32(div)).to(start.device)
+    out = start * (1.0 - step) + stop * step
+    return torch.cat([out, stop], dim=-1)
+
+
+def _times(pts, m):
+    """pts (..., 3) @ m (..., 3, 3) as three elementwise products summed in
+    a fixed order: unlike a BLAS product, the same float32 result on the
+    host and on a card."""
+    return ((pts[..., 0:1] * m[..., 0, :] + pts[..., 1:2] * m[..., 1, :])
+            + pts[..., 2:3] * m[..., 2, :])
+
+
+def _box_points(corners, right, real_box_dim, box_dim, device):
+    """(B, d, d, d, 3) float32 real-space points of B isotropic boxes in
+    the JAX package's order of operations: a linspace from corner to
+    corner + real_box_dim per axis, the meshgrid, then (p - c) @ right[b]
+    + c about the mean c of the box's points (right = box_rot.T rotates
+    the box forward), kept even for an identity rotation. The mean is
+    accumulated in float64 and rounded to float32 (the JAX package
+    accumulates in float32, in XLA's order), so that it, and the points,
+    are the same on the host and on a card."""
+    start = _as_f32(corners, device).reshape(-1, 3, 1)
+    axes = _linspace_f32(start, start + _f32(real_box_dim), box_dim)
+    B, d = axes.shape[0], int(box_dim)
+    pts = torch.stack([
+        axes[:, 0, :, None, None].expand(B, d, d, d),
+        axes[:, 1, None, :, None].expand(B, d, d, d),
+        axes[:, 2, None, None, :].expand(B, d, d, d)], dim=-1)
+    center = pts.reshape(B, -1, 3).double().mean(dim=1).float()[
+        :, None, None, None]
+    right = _as_f32(right, device).reshape(B, 1, 1, 1, 3, 3)
+    return _times(pts - center, right) + center
+
+
+def _transposed(mats):
+    """(B, 3, 3) host matrices, each transposed."""
+    return np.swapaxes(np.asarray(mats, np.float32).reshape(-1, 3, 3), 1, 2)
+
+
+def _box_rotate(pts, rot):
+    """Box points (B, d, d, d, 3) @ rot.T, for one (3, 3) rot (a tensor
+    or an array) or one per box (B, 3, 3), by `_times`."""
+    rot_t = torch.as_tensor(rot, dtype=torch.float32,
+                            device=pts.device).transpose(-1, -2)
+    if rot_t.dim() == 3:
+        rot_t = rot_t[:, None, None, None]
+    return _times(pts, rot_t)
+
+
+def sample_box_batch(volume, origin, spacing, rot, corners, real_box_dim,
+                     box_rots, box_dim, fill, method="linear",
+                     valid_shape=None):
+    """K isotropic boxes (K, d, d, d, C) of one volume (X, Y, Z, C): box k
+    has its corner at corners[k] (3,), spans real_box_dim and is rotated
+    by box_rots[k] (3, 3) about its center; the points are then rotated
+    by `rot` (scanner -> grid alignment) and sampled with
+    `grid_gather`."""
+    pts = _box_points(corners, _transposed(box_rots), real_box_dim, box_dim,
+                      volume.device)
+    return grid_gather(volume, origin, spacing, _box_rotate(pts, rot),
+                       method=method, fill=fill, valid_shape=valid_shape)
+
+
+def sample_box(volume, origin, spacing, rot, corner, real_box_dim, box_rot,
+               box_dim, fill, method="linear", valid_shape=None):
+    """One isotropic box (d, d, d, C): `sample_box_batch` of one box."""
+    return sample_box_batch(
+        volume, origin, spacing, rot, np.asarray(corner)[None],
+        real_box_dim, np.asarray(box_rot)[None], box_dim, fill,
+        method=method, valid_shape=valid_shape)[0]
+
+
+def sample_box_batch_pool(pool, slots, origins, spacings, rots, corners,
+                          box_rots, real_box_dim, box_dim, fills,
+                          method="linear", valid_shapes=None):
+    """B isotropic boxes (B, d, d, d, C) from B (possibly different) slots
+    of a (N, X, Y, Z, C) volume pool in one batched gather: box b has its
+    corner at corners[b], is rotated by box_rots[b] about its center and
+    by rots[b] (scanner -> grid alignment), and is read from slot
+    slots[b] with origins[b], spacings[b], fills[b] (C,) and
+    valid_shapes[b] (3,), all host arrays (the JAX package's vmapped
+    `sample_box_batch_pool`)."""
+    dev = pool.device
+    pts = _box_points(corners, _transposed(box_rots), real_box_dim, box_dim,
+                      dev)
+    return grid_gather_pool(pool, slots, origins, spacings,
+                            _box_rotate(pts, rots), method=method,
+                            fills=fills, valid_shapes=valid_shapes)
+
+
+def scatter_box_pred(pred_vol, preds, corners, real_box_dim, inv_box_rots,
+                     rot, origin, spacing, box_dim, valid_shape):
+    """Add B box predictions preds (B, d, d, d, C) onto the nearest voxels
+    of the accumulator pred_vol (X, Y, Z, C) float32, in place, and return
+    it (the JAX package's `scatter_box_pred`, box after box).
+
+    Box b was sampled at its grid rotated forward by box_rot about its
+    center, so sample (i, j, k) lies at (p - c) @ inv_box_rots[b] + c
+    (inv = box_rot.T for a rotation), then rot.T (scanner -> grid); its
+    voxel is round((p - origin) / spacing), half to even as jnp.round;
+    voxels outside [0, valid_shape) are dropped. One index_add_ over the
+    flat (X*Y*Z, C) accumulator, the boxes' voxels in box order (summed in
+    that order on the host; by atomics, in no fixed order, on a card)."""
+    X, Y, Z, C = pred_vol.shape
+    dev = pred_vol.device
+    pts = _box_points(corners, inv_box_rots, real_box_dim, box_dim, dev)
+    idx = torch.round((_box_rotate(pts, rot) - _as_f32(origin, dev))
+                      / _as_f32(spacing, dev)).to(torch.int64)
+    n = torch.as_tensor(np.asarray(valid_shape, np.int64), device=dev)
+    inb = ((idx >= 0) & (idx < n)).all(dim=-1).reshape(-1)
+    flat = ((idx[..., 0] * Y + idx[..., 1]) * Z + idx[..., 2]).reshape(-1)
+    pred_vol.view(-1, C).index_add_(
+        0, flat[inb], preds.reshape(-1, C)[inb].to(pred_vol.dtype))
+    return pred_vol
 
 
 # --------------------------------------------------------- packed-corner path

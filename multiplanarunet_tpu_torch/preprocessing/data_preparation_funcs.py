@@ -2,15 +2,16 @@
 sequences.
 
 Port of `multiplanarunet_tpu/preprocessing/data_preparation_funcs.py` for
-the 2D UNet: the train/val ImagePairLoaders, the Auditor's fill of the
-hparams the YAML leaves Null, the aug-data merge with its sample weight,
+the 2D UNet and the UNet3D: the train/val ImagePairLoaders, the
+Auditor's fill of the hparams the YAML leaves Null, the aug-data merge with its sample weight,
 --just_one / --no_val, the queues (`get_data_queues`: a LimitationQueue
 for training when fit.max_loaded is set, cycling images every
 fit.num_access accesses, else eager; eager for validation), the views
 (sampled with the 60-degree restriction and weighted by the median voxel
 size, saved to views.npz; reloaded on --continue_training) and the
-train/val sequences on the training device. The 3D and multi-task
-preparations are not ported.
+train/val sequences on the training device (for the UNet3D no views: its
+samplers draw boxes or patches). The multi-task preparation is not
+ported.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def _base_loader_func(hparams, just_one, no_val, logger, mtype):
         [str(p) for p in list(train_data.image_paths)
          + list(val_data.image_paths)],
         nii_lab_paths=[str(p) for p in lab_paths] or None,
-        logger=logger, hparams=hparams)
+        logger=logger, dim_3d=hparams.get_from_anywhere("dim") or 64,
+        hparams=hparams)
     auditor.fill(hparams, mtype)
 
     aug_data = hparams.get("aug_data")
@@ -138,4 +140,13 @@ def prepare_for_multi_view_unet(hparams, just_one=False, no_val=False,
     return get_sequencers(train_queue, val_queue, logger, hparams, device)
 
 
-PREPARATION_FUNCS = {"UNet": prepare_for_multi_view_unet}
+def prepare_for_3d_unet(hparams, just_one=False, no_val=False,
+                        continue_training=False, logger=None,
+                        base_path="./", device=None):
+    train_queue, val_queue, logger, _ = _base_loader_func(
+        hparams, just_one, no_val, logger, "3d")
+    return get_sequencers(train_queue, val_queue, logger, hparams, device)
+
+
+PREPARATION_FUNCS = {"UNet": prepare_for_multi_view_unet,
+                     "UNet3D": prepare_for_3d_unet}

@@ -1,20 +1,29 @@
-"""Batch samplers: the multi-planar training sequence and its factory."""
+"""Batch samplers and their factory: the multi-planar slice sampler
+(iso_live), the isotropic 3D box sampler (iso_live_3d) and the voxel-space
+patch samplers (patches_3d, sliding_patches_3d)."""
 
 from multiplanarunet_tpu_torch.augmentation.augmenters import build_augmenters
 from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
 from multiplanarunet_tpu_torch.image.queue.queues import LazyQueue
+from multiplanarunet_tpu_torch.sequences.iso_3d import (
+    IsotrophicLiveViewSequence3D,
+)
 from multiplanarunet_tpu_torch.sequences.multi_planar import (
     IsotrophicLiveViewSequence2D,
 )
+from multiplanarunet_tpu_torch.sequences.patches_3d import (
+    PatchSequence3D,
+    SlidingPatchSequence3D,
+)
 
-
-class SequenceNotPortedError(ValueError):
-    """An intrp_style whose sampler the port does not have."""
-
-
-_STYLES = {"iso_live": IsotrophicLiveViewSequence2D}
-# The JAX package's other samplers (3D boxes, patches)
-_NOT_PORTED = ("iso_live_3d", "patches_3d", "sliding_patches_3d")
+_STYLES = {
+    "iso_live": IsotrophicLiveViewSequence2D,
+    "iso_live_3d": IsotrophicLiveViewSequence3D,
+    "patches_3d": PatchSequence3D,
+    "sliding_patches_3d": SlidingPatchSequence3D,
+}
+# styles whose sampler takes no augmenters
+_PATCH_STYLES = ("patches_3d", "sliding_patches_3d")
 
 
 def get_sequence(data_queue, intrp_style, augmenters=None, logger=None,
@@ -23,19 +32,15 @@ def get_sequence(data_queue, intrp_style, augmenters=None, logger=None,
     `multiplanarunet_tpu/sequences/utils.py:get_sequence`), sampling on
     `device` (the card by default, which raises without one). A bare
     ImagePairLoader is wrapped in a LazyQueue; augmenter config dicts are
-    instantiated here."""
+    instantiated here (the patch samplers take none)."""
     style = intrp_style.lower()
-    if style in _NOT_PORTED:
-        raise SequenceNotPortedError(
-            f"intrp_style {intrp_style!r} is not ported to PyTorch yet "
-            f"(ported: {sorted(_STYLES)})")
     if style not in _STYLES:
         raise ValueError(f"Unknown intrp_style '{intrp_style}'; valid: "
-                         f"{sorted(_STYLES) + list(_NOT_PORTED)}")
+                         f"{sorted(_STYLES)}")
     if isinstance(data_queue, ImagePairLoader):
         data_queue = LazyQueue(data_queue, logger=logger)
     kwargs.pop("list_of_augmenters", None)
-    aug_list = build_augmenters(augmenters) if augmenters else None
-    return _STYLES[style](data_queue, logger=logger,
-                          list_of_augmenters=aug_list, device=device,
-                          **kwargs)
+    if style not in _PATCH_STYLES:
+        kwargs["list_of_augmenters"] = (build_augmenters(augmenters)
+                                        if augmenters else None)
+    return _STYLES[style](data_queue, logger=logger, device=device, **kwargs)

@@ -101,7 +101,13 @@ def pool_candidate_labels(label_pool, params, bases, offsets, span, dim,
 
 
 class IsotrophicLiveViewSequence(BaseSequence):
-    """Shared batch logic: fg quotas, label crop, augment, reshape."""
+    """Shared batch logic: fg quotas, the path choice and the volume pool,
+    label crop, augment, reshape. Subclasses name what they sample
+    (`samples`) and implement `_start_pooled_batch` /
+    `_finish_pooled_batch` (the pooled path) and `_sample_one`, the
+    per-image path's draw of one batch element."""
+
+    samples = None
 
     def __init__(self, image_pair_queue, dim, batch_size, n_classes,
                  real_space_span=None, noise_sd=0.0, force_all_fg="auto",
@@ -127,6 +133,11 @@ class IsotrophicLiveViewSequence(BaseSequence):
         self.label_crop = (np.array([[0, 0], [0, 0]])
                            if label_crop is None else np.asarray(label_crop))
         self.device = resolve_device(device)
+        # True: the pooled path unless the first batch's path choice rules
+        # it out; False: the per-image path
+        self.use_pool = True
+        self._path_chosen = False
+        self._pool = None
 
     # ------------------------------------------------------------ fg quotas
     @property
@@ -203,84 +214,7 @@ class IsotrophicLiveViewSequence(BaseSequence):
                                           has_fg_count, b)
         return chosen_t
 
-    # ------------------------------------------------------- batch assembly
-    def augment(self, batch_x, batch_y, batch_w, bg_values):
-        if self.list_of_augmenters:
-            for aug in self.list_of_augmenters:
-                batch_x, batch_y, batch_w = aug(
-                    batch_x, batch_y, batch_w=batch_w, bg_values=bg_values)
-        return batch_x, batch_y, batch_w
-
-    def prepare_batches(self, batch_x, batch_y, batch_w):
-        batch_w = np.asarray(batch_w, np.float32)
-        (l0, h0), (l1, h1) = self.label_crop
-        if self.label_crop.sum() != 0:
-            batch_y = batch_y[:, l0:batch_y.shape[1] - h0,
-                              l1:batch_y.shape[2] - h1]
-        if self.flatten_y:
-            batch_y = batch_y.reshape(batch_y.shape[0], -1, 1)
-        elif batch_y.shape[-1] != 1:
-            batch_y = batch_y[..., None]
-        return batch_x, batch_y, batch_w
-
-
-class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
-    """Training batches of oblique 2D slices."""
-
-    def __init__(self, image_pair_queue, views, no_log=False, **kwargs):
-        super().__init__(image_pair_queue, **kwargs)
-        self.views = np.asarray(views)
-        # True: the pooled path unless the first batch's path choice rules
-        # it out; False: the per-image path
-        self.use_pool = True
-        self._path_chosen = False
-        self._pool = None
-        if not no_log:
-            self.log()
-
-    def log(self):
-        self.logger(f"\nIs validation:               {self.is_validation}")
-        self.logger(f"Using real space span:       {self.real_space_span}")
-        self.logger(f"Using sample dim:            {self.sample_dim}")
-        self.logger(f"Using real space sample res: "
-                    f"{self.real_space_span / self.sample_dim}")
-        self.logger(f"N fg slices:                 {self.n_fg_slices}")
-        self.logger(f"Batch size:                  {self.batch_size}")
-        self.logger(f"Force all FG:                {self.force_all_fg}")
-        self.logger(f"Noise SD:                    {self.noise_sd}")
-        self.logger(f"Augmenters:                  {self.list_of_augmenters}")
-        self.logger(f"Device:                      {self.device}")
-
-    def _sample_slice_from(self, image, has_fg_vec, has_fg_count, cur_bs):
-        """The reference's 10-try slice loop with the candidates gathered
-        at once. Returns (im (d, d, C), lab (d, d) int32, has_fg_vec,
-        has_fg_count)."""
-        sampler = image.interpolator
-        dev = self.device
-        span = float(self.real_space_span)
-        half = span // 2
-
-        view_idx = np.random.randint(0, len(self.views), MAX_TRIES)
-        bases = geometry.plane_basis_batch(self.views[view_idx],
-                                           noise_sd=self.noise_sd)
-        offsets = np.random.uniform(-half, half, MAX_TRIES).astype(np.float32)
-
-        valid = tuple(int(s) for s in sampler.valid_shape)
-        rot = sampler.device_rot(dev)
-        labs, presence = candidate_label_slices(
-            sampler.device_labels(dev), sampler.origin, sampler.spacing, rot,
-            bases, offsets, span, self.sample_dim, image.bg_class,
-            self.n_classes, valid)
-        j, has_fg_vec, has_fg_count = self.select_candidate(
-            presence, has_fg_vec, has_fg_count, cur_bs)
-        im = sample_plane(
-            sampler.device_volume_unpacked(dev, dtype=torch.float32),
-            sampler.origin, sampler.spacing, rot, bases[j], float(offsets[j]),
-            span, self.sample_dim, sampler.scaled_bg_value,
-            valid_shape=valid)
-        return im, labs[j], has_fg_vec, has_fg_count
-
-    # -------------------------------------------------------- pooled batches
+    # ------------------------------------------------------- the pooled path
     def pool_capacity(self):
         """Slots of the volume pool: the queue's max_loaded (a
         LimitationQueue's bound), else the dataset size."""
@@ -311,8 +245,9 @@ class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
             self.use_pool = False
             self.logger(f"Sampler: per-image path ({reason})")
         else:
-            self.logger(f"Sampler: pooled path (DeviceVolumePool of "
-                        f"{capacity} slots on {self.device})")
+            self.logger(f"Sampler: pooled path ({self.samples}; "
+                        f"DeviceVolumePool of {capacity} slots on "
+                        f"{self.device})")
 
     def _get_pool(self):
         """The DeviceVolumePool over the queue's dataset, built at first
@@ -324,6 +259,147 @@ class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
                 dataset.images[0].n_channels, self.pool_capacity(),
                 self.device)
         return self._pool
+
+    def _finish_pooled_batch(self, st):
+        """Fetch the depth-0 presence, gather and fetch the deeper
+        candidates of the rows the rules may reject (the rules provably
+        accept a first candidate holding every fg class under
+        force_all_fg, or any fg class without), walk the candidates on the
+        host, gather the chosen images, select the chosen labels, augment
+        and prepare the batch (the JAX package's host-walk finish).
+        st["cands"] holds the candidates' (B, K, ...) host arrays, the
+        arguments of `_pool_labels` / `_pool_images` after the params."""
+        pool, params, labs0 = st["pool"], st["params"], st["labs0"]
+        cands = st["cands"]
+        B, K = cands[0].shape[:2]
+        pres0 = st["pres0"].cpu().numpy()
+        fg = pres0[:, self.fg_classes]
+        maybe_rejected = ~fg.all(1) if self.force_all_fg else ~fg.any(1)
+        S = np.nonzero(maybe_rejected)[0]
+        s_pos = np.full(B, -1, np.int64)
+        labs_rest = pres_rest = None
+        if len(S) and K > 1:
+            rep = np.repeat(S, K - 1)
+            labs_rest, pres_rest = self._pool_labels(
+                pool.labels, {k: v[rep] for k, v in params.items()},
+                *(c[S, 1:].reshape((-1,) + c.shape[2:]) for c in cands))
+            pres_rest = pres_rest.cpu().numpy().reshape(len(S), K - 1, -1)
+            s_pos[S] = np.arange(len(S))
+        chosen_t = self.walk_candidates(pres0, pres_rest, s_pos)
+
+        rows = np.arange(B)
+        batch_x = self._pool_images(pool, params,
+                                    *(c[rows, chosen_t] for c in cands))
+        pool.mark_read()
+        # Chosen labels: depth-0 rows from labs0, deeper ones from the
+        # phase-2 block (its row s_pos[b] * (K-1) + t - 1)
+        if labs_rest is None:
+            batch_y = labs0
+        else:
+            sel_idx = np.where(chosen_t == 0, rows,
+                               B + s_pos * (K - 1) + chosen_t - 1)
+            batch_y = torch.cat([labs0, labs_rest]).index_select(
+                0, torch.as_tensor(sel_idx, device=labs0.device))
+        batch_x, batch_y, batch_w = self.augment(
+            batch_x, batch_y, np.asarray(st["weights"], np.float32),
+            params["fills"])
+        return self.prepare_batches(batch_x, batch_y, batch_w)
+
+    def __getitem__(self, idx):
+        self.seed()
+        if not self._path_chosen:
+            self._choose_path()
+        if self.use_pool:
+            return self._finish_pooled_batch(self._start_pooled_batch())
+        has_fg_count = 0
+        has_fg_vec = np.zeros(len(self.fg_classes), bool)
+        xs, ys, ws, bgs = [], [], [], []
+        for _ in range(self.batch_size):
+            with self.image_pair_queue.get_random_image() as image:
+                im, lab, has_fg_vec, has_fg_count = self._sample_one(
+                    image, has_fg_vec, has_fg_count, len(ys))
+                xs.append(im)
+                ys.append(lab)
+                ws.append(image.sample_weight)
+                bgs.append(np.asarray(image.interpolator.scaled_bg_value))
+        batch_x, batch_y, batch_w = self.augment(
+            torch.stack(xs), torch.stack(ys), np.asarray(ws, np.float32),
+            np.stack(bgs))
+        return self.prepare_batches(batch_x, batch_y, batch_w)
+
+    # ------------------------------------------------------- batch assembly
+    def augment(self, batch_x, batch_y, batch_w, bg_values):
+        if self.list_of_augmenters:
+            for aug in self.list_of_augmenters:
+                batch_x, batch_y, batch_w = aug(
+                    batch_x, batch_y, batch_w=batch_w, bg_values=bg_values)
+        return batch_x, batch_y, batch_w
+
+    def prepare_batches(self, batch_x, batch_y, batch_w):
+        batch_w = np.asarray(batch_w, np.float32)
+        (l0, h0), (l1, h1) = self.label_crop
+        if self.label_crop.sum() != 0:
+            batch_y = batch_y[:, l0:batch_y.shape[1] - h0,
+                              l1:batch_y.shape[2] - h1]
+        if self.flatten_y:
+            batch_y = batch_y.reshape(batch_y.shape[0], -1, 1)
+        elif batch_y.shape[-1] != 1:
+            batch_y = batch_y[..., None]
+        return batch_x, batch_y, batch_w
+
+
+class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
+    """Training batches of oblique 2D slices."""
+
+    samples = "oblique 2D planes"
+
+    def __init__(self, image_pair_queue, views, no_log=False, **kwargs):
+        super().__init__(image_pair_queue, **kwargs)
+        self.views = np.asarray(views)
+        if not no_log:
+            self.log()
+
+    def log(self):
+        self.logger(f"\nIs validation:               {self.is_validation}")
+        self.logger(f"Using real space span:       {self.real_space_span}")
+        self.logger(f"Using sample dim:            {self.sample_dim}")
+        self.logger(f"Using real space sample res: "
+                    f"{self.real_space_span / self.sample_dim}")
+        self.logger(f"N fg slices:                 {self.n_fg_slices}")
+        self.logger(f"Batch size:                  {self.batch_size}")
+        self.logger(f"Force all FG:                {self.force_all_fg}")
+        self.logger(f"Noise SD:                    {self.noise_sd}")
+        self.logger(f"Augmenters:                  {self.list_of_augmenters}")
+        self.logger(f"Device:                      {self.device}")
+
+    def _sample_one(self, image, has_fg_vec, has_fg_count, cur_bs):
+        """The reference's 10-try slice loop with the candidates gathered
+        at once. Returns (im (d, d, C), lab (d, d) int32, has_fg_vec,
+        has_fg_count)."""
+        sampler = image.interpolator
+        dev = self.device
+        span = float(self.real_space_span)
+        half = span // 2
+
+        view_idx = np.random.randint(0, len(self.views), MAX_TRIES)
+        bases = geometry.plane_basis_batch(self.views[view_idx],
+                                           noise_sd=self.noise_sd)
+        offsets = np.random.uniform(-half, half, MAX_TRIES).astype(np.float32)
+
+        valid = tuple(int(s) for s in sampler.valid_shape)
+        rot = sampler.device_rot(dev)
+        labs, presence = candidate_label_slices(
+            sampler.device_labels(dev), sampler.origin, sampler.spacing, rot,
+            bases, offsets, span, self.sample_dim, image.bg_class,
+            self.n_classes, valid)
+        j, has_fg_vec, has_fg_count = self.select_candidate(
+            presence, has_fg_vec, has_fg_count, cur_bs)
+        im = sample_plane(
+            sampler.device_volume_unpacked(dev, dtype=torch.float32),
+            sampler.origin, sampler.spacing, rot, bases[j], float(offsets[j]),
+            span, self.sample_dim, sampler.scaled_bg_value,
+            valid_shape=valid)
+        return im, labs[j], has_fg_vec, has_fg_count
 
     def _start_pooled_batch(self):
         """Draw one batch's images and randomness, stage the images in the
@@ -349,79 +425,23 @@ class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
         offsets = np.random.uniform(-half, half, B * K).astype(
             np.float32).reshape(B, K)
         params = pool.params_for(slots)
-        labs0, pres0 = pool_candidate_labels(
-            pool.labels, params, bases[:, 0], offsets[:, 0], span,
+        labs0, pres0 = self._pool_labels(pool.labels, params, bases[:, 0],
+                                         offsets[:, 0])
+        return dict(pool=pool, params=params, weights=weights,
+                    cands=(bases, offsets), labs0=labs0, pres0=pres0)
+
+    def _pool_labels(self, label_pool, params, bases, offsets):
+        """Nearest-gathered candidate label planes of R pool rows (params
+        of those rows, bases (R, 3, 3), offsets (R,)) and their class
+        presence, on the pool's device."""
+        return pool_candidate_labels(
+            label_pool, params, bases, offsets, float(self.real_space_span),
             self.sample_dim, self.n_classes)
-        return dict(pool=pool, params=params, weights=weights, bases=bases,
-                    offsets=offsets, labs0=labs0, pres0=pres0, span=span)
 
-    def _finish_pooled_batch(self, st):
-        """Fetch the depth-0 presence, gather and fetch the deeper
-        candidates of the rows the rules may reject (the rules provably
-        accept a first candidate holding every fg class under
-        force_all_fg, or any fg class without), walk the candidates on the
-        host, gather the chosen image planes, select the chosen labels,
-        augment and prepare the batch (the JAX package's host-walk
-        finish)."""
-        pool, params = st["pool"], st["params"]
-        bases, offsets, labs0 = st["bases"], st["offsets"], st["labs0"]
-        B, K = bases.shape[:2]
-        pres0 = st["pres0"].cpu().numpy()
-        fg = pres0[:, self.fg_classes]
-        maybe_rejected = ~fg.all(1) if self.force_all_fg else ~fg.any(1)
-        S = np.nonzero(maybe_rejected)[0]
-        s_pos = np.full(B, -1, np.int64)
-        labs_rest = pres_rest = None
-        if len(S) and K > 1:
-            rep = np.repeat(S, K - 1)
-            labs_rest, pres_rest = pool_candidate_labels(
-                pool.labels, {k: v[rep] for k, v in params.items()},
-                bases[S, 1:].reshape(-1, 3, 3), offsets[S, 1:].reshape(-1),
-                st["span"], self.sample_dim, self.n_classes)
-            pres_rest = pres_rest.cpu().numpy().reshape(len(S), K - 1, -1)
-            s_pos[S] = np.arange(len(S))
-        chosen_t = self.walk_candidates(pres0, pres_rest, s_pos)
-
-        rows = np.arange(B)
-        batch_x = sample_plane_batch_pool(
+    def _pool_images(self, pool, params, bases, offsets):
+        """The B chosen image planes, linear-gathered from the pool."""
+        return sample_plane_batch_pool(
             pool.volumes, params["slots"], params["origins"],
-            params["spacings"], params["rots"], bases[rows, chosen_t],
-            offsets[rows, chosen_t], st["span"], self.sample_dim,
-            params["fills"], valid_shapes=params["valid_shapes"])
-        pool.mark_read()
-        # Chosen label planes: depth-0 rows from labs0, deeper ones from
-        # the phase-2 block (its row s_pos[b] * (K-1) + t - 1)
-        if labs_rest is None:
-            batch_y = labs0
-        else:
-            sel_idx = np.where(chosen_t == 0, rows,
-                               B + s_pos * (K - 1) + chosen_t - 1)
-            batch_y = torch.cat([labs0, labs_rest]).index_select(
-                0, torch.as_tensor(sel_idx, device=labs0.device))
-        batch_x, batch_y, batch_w = self.augment(
-            batch_x, batch_y, np.asarray(st["weights"], np.float32),
-            params["fills"])
-        return self.prepare_batches(batch_x, batch_y, batch_w)
-
-    # ---------------------------------------------------- per-image batches
-    def __getitem__(self, idx):
-        self.seed()
-        if not self._path_chosen:
-            self._choose_path()
-        if self.use_pool:
-            return self._finish_pooled_batch(self._start_pooled_batch())
-        has_fg_count = 0
-        has_fg_vec = np.zeros(len(self.fg_classes), bool)
-        xs, ys, ws, bgs = [], [], [], []
-        for _ in range(self.batch_size):
-            with self.image_pair_queue.get_random_image() as image:
-                im, lab, has_fg_vec, has_fg_count = self._sample_slice_from(
-                    image, has_fg_vec, has_fg_count, len(ys))
-                xs.append(im)
-                ys.append(lab)
-                ws.append(image.sample_weight)
-                bgs.append(np.asarray(image.interpolator.scaled_bg_value))
-        batch_x, batch_y, batch_w = self.augment(
-            torch.stack(xs), torch.stack(ys), np.asarray(ws, np.float32),
-            np.stack(bgs))
-        return self.prepare_batches(batch_x, batch_y, batch_w)
+            params["spacings"], params["rots"], bases, offsets,
+            float(self.real_space_span), self.sample_dim, params["fills"],
+            valid_shapes=params["valid_shapes"])

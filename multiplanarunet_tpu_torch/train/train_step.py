@@ -9,8 +9,9 @@ parameters and statistics and runs its convolutions in bf16, its
 BatchNorm reductions and out conv in float32, as the JAX model does; bf16
 needs no loss scaling, and none is used.
 
-Batches come from the sequences in the JAX package's layout: images
-(B, H, W, C), integer labels (B, H, W, 1), sample weights (B,). The steps
+Batches come from the sequences in the JAX package's channels-last
+layout: images (B, *spatial, C), integer labels (B, *spatial, 1), sample
+weights (B,), for 2D slices and 3D boxes alike. The steps
 return their logs as 0-d tensors on the device, so the caller decides
 when to fetch them. The eval step also returns the int32 per-class
 (tp, rel = |y == c|, sel = |pred == c|) counts of the batch.
@@ -36,9 +37,10 @@ def reg_penalty(params, l1_reg=0.0, l2_reg=0.0):
     return penalty
 
 
-def _forward_nhwc(model, x):
-    """model over an NHWC batch; probabilities with classes last."""
-    return model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def _forward_channels_last(model, x):
+    """model (channels first) over a channels-last batch (B, *spatial,
+    C) of any spatial rank; probabilities with classes last."""
+    return model(x.movedim(-1, 1)).movedim(1, -1)
 
 
 def _weights(w, device):
@@ -61,7 +63,7 @@ class TrainStep:
 
     def __call__(self, x, y, w):
         self.model.train()
-        out = _forward_nhwc(self.model, x)
+        out = _forward_channels_last(self.model, x)
         loss = self.loss_obj(y, out, sample_weight=_weights(w, out.device))
         loss = loss + reg_penalty(self._params, self.l1_reg, self.l2_reg)
         self.optimizer.zero_grad()
@@ -103,7 +105,7 @@ class EvalStep:
     @torch.no_grad()
     def __call__(self, x, y, w):
         self.model.eval()
-        out = _forward_nhwc(self.model, x)
+        out = _forward_channels_last(self.model, x)
         logs = {"loss": self.loss_obj(y, out,
                                       sample_weight=_weights(w, out.device))}
         for name, fn in self.metric_fns.items():

@@ -27,6 +27,13 @@ within the guard and falls back to gather for the whole image otherwise.
 Fusion training (`mp train_fusion`) reads each view's mapped probabilities
 through `predict_views_mapped` / `predict_views_points`, which always take
 the exact gather path, as the JAX package's do.
+
+The 3D model's inference (`mp predict_3D`) is `pred_3D_iso` (isotropic
+scanner-space boxes: the base tiling, then extra random boxes, each
+sampled, predicted and scatter-added onto its nearest voxels) and
+`predict_3D_patches(_binary)` (voxel-space patches added slice-wise), as
+plain loops on the device over chunks of boxes in the JAX scans' box
+order, with the volume staged once.
 """
 
 from __future__ import annotations
@@ -40,7 +47,9 @@ from multiplanarunet_tpu_torch.ops import geometry
 from multiplanarunet_tpu_torch.ops.interp import (
     accum_view_pred_affine,
     map_view_pred_affine,
+    sample_box_batch,
     sample_plane_stack_packed,
+    scatter_box_pred,
 )
 from multiplanarunet_tpu_torch.ops.shear import shear_resample
 from multiplanarunet_tpu_torch.ops.shear_plan import (
@@ -551,3 +560,172 @@ class MultiViewPredictor:
             points[:, v] = flat if idx is None else flat[idx]
             del mapped, flat
         return points, targets.to(torch.int32)
+
+
+# ------------------------------------------------------------------ 3D paths
+# Boxes or patches per U-Net call of the 3D paths (the training batch)
+BOX_CHUNK = 16
+
+
+def unet_predict_fn(model, device):
+    """The predict_fn of the 3D paths: a channels-last batch (B, *spatial,
+    C) -> float32 probabilities (B, *spatial, n_classes) of `model` (eval
+    mode, on `device`), under inference mode."""
+    @torch.inference_mode()
+    def predict(x):
+        return model(x.to(device).movedim(-1, 1)).movedim(1, -1).float()
+    return predict
+
+
+def _class_map_or_volume(v, want_argmax):
+    """The uint8 argmax class map of a (X, Y, Z, C) tensor, or the tensor,
+    fetched as numpy."""
+    if want_argmax:
+        return v.argmax(dim=-1).to(torch.uint8).cpu().numpy()
+    return v.cpu().numpy()
+
+
+def _coverage_fraction(v):
+    """Fraction of voxels any box touched: not all channels close to 0
+    (torch.isclose's defaults are jnp.isclose's), one scalar fetch."""
+    untouched = torch.isclose(v, v.new_zeros(())).all(dim=-1)
+    return float((~untouched).float().mean())
+
+
+def pred_3D_iso(predict_fn, sequence, image, extra_boxes, min_coverage=None,
+                logger=None, want_argmax=False):
+    """Scanner-space box inference of the JAX package's `pred_3D_iso`:
+    the base tiling of the image's scanner space, then `extra_boxes`
+    random boxes (an int, or 'Nx' times the base count; each drawn as its
+    placement, then its rotation, from np.random), then rounds of
+    base/4 random boxes until the covered share reaches min_coverage.
+    Each box is sampled from the staged volume (`sample_box_batch`), run
+    through predict_fn in chunks and scatter-added onto its nearest
+    voxels of a float32 (X, Y, Z, n_classes) accumulator on the
+    sequence's device, boxes in order. Returns the un-normalised sums, or
+    with want_argmax only their uint8 class map (the only transfer off
+    the device)."""
+    n_classes = sequence.n_classes
+    dev = sequence.device
+    sampler = image.interpolator
+    true_shape = tuple(int(s) for s in image.shape[:3])
+    pred_vol = torch.zeros(true_shape + (n_classes,), dtype=torch.float32,
+                           device=dev)
+    vol = sampler.device_volume_unpacked(dev, dtype=torch.float32)
+    rot = sampler.device_rot(dev)
+    valid = tuple(int(s) for s in sampler.valid_shape)
+    real_box_dim, d = float(sequence.real_box_dim), sequence.sample_dim
+
+    base_corners = np.asarray(sequence.base_placements(image), np.float32)
+    total_base = len(base_corners)
+    if isinstance(extra_boxes, str):
+        total_extra = int(float(extra_boxes.rstrip("x")) * total_base)
+    else:
+        total_extra = int(extra_boxes)
+    eye = np.eye(3, dtype=np.float32)
+
+    def run_boxes(corners, rots, inv_rots, label):
+        if logger:
+            logger(f"   {len(corners)} {label} boxes in chunks of "
+                   f"{BOX_CHUNK}", print_calling_method=False)
+        for s in range(0, len(corners), BOX_CHUNK):
+            sl = slice(s, s + BOX_CHUNK)
+            ims = sample_box_batch(vol, sampler.origin, sampler.spacing, rot,
+                                   corners[sl], real_box_dim, rots[sl], d,
+                                   sampler.scaled_bg_value,
+                                   valid_shape=valid)
+            scatter_box_pred(pred_vol, predict_fn(ims), corners[sl],
+                             real_box_dim, inv_rots[sl], rot, sampler.origin,
+                             sampler.spacing, d, true_shape)
+
+    def draw_random(n):
+        corners, rots, invs = [], [], []
+        for _ in range(int(n)):
+            corners.append(geometry.random_box_placement(
+                image.real_shape, real_box_dim).astype(np.float32))
+            rot_b = (geometry.random_box_rotation(sequence.noise_sd)
+                     .astype(np.float32) if sequence.noise_sd else eye)
+            rots.append(rot_b)
+            invs.append(np.linalg.inv(
+                rot_b.astype(np.float64)).astype(np.float32))
+        return np.stack(corners), np.stack(rots), np.stack(invs)
+
+    eyes = np.repeat(eye[None], total_base, axis=0)
+    run_boxes(base_corners, eyes, eyes, "base")
+    if total_extra:
+        run_boxes(*draw_random(total_extra), "extra")
+    if min_coverage:
+        coverage = _coverage_fraction(pred_vol)
+        while coverage < min_coverage:
+            run_boxes(*draw_random(max(1, total_base // 4)), "coverage")
+            coverage = _coverage_fraction(pred_vol)
+    return _class_map_or_volume(pred_vol, want_argmax)
+
+
+def predict_3D_patches(predict_fn, patches, image, n_extra=0, n_classes=None,
+                       logger=None, want_argmax=False):
+    """Voxel-space patch inference of the JAX package's
+    `predict_3D_patches`: the base corners, then n_extra random corners
+    (np.random), each patch cut from the staged volume, run through
+    predict_fn in chunks and added onto its slice of a float32 recon on
+    the patches' device, patches in order; returns the recon normalised
+    to unit sum per voxel, or with want_argmax its uint8 class map. A
+    volume smaller than a patch on some axis takes the host loop over
+    `patches.get_patches_from` (center_expand padding), as in the JAX
+    package."""
+    i1, i2, i3 = (int(s) for s in image.shape[:3])
+    n_classes = n_classes or patches.n_classes
+    d = patches.dim
+    dev = patches.device
+    sampler = getattr(image, "interpolator", None)
+    if min(i1, i2, i3) < d or sampler is None:
+        recon = np.zeros((i1, i2, i3, n_classes), np.float32)
+        for patch, (i, k, v), _ in patches.get_patches_from(image, n_extra):
+            pred = predict_fn(torch.from_numpy(
+                np.asarray(patch, np.float32)[None]))[0].cpu().numpy()
+            recon[i:i + d, k:k + d, v:v + d] += pred[
+                : min(d, i1 - i), : min(d, i2 - k), : min(d, i3 - v)]
+        if want_argmax:
+            return recon.argmax(-1).astype(np.uint8)
+        return recon / np.maximum(recon.sum(-1, keepdims=True), 1e-8)
+
+    corners = np.asarray(patches.base_corners(image), np.int64)
+    if n_extra:
+        extra = np.asarray([patches._random_corner(image.image.shape)
+                            for _ in range(int(n_extra))], np.int64)
+        corners = np.concatenate([corners, extra.reshape(-1, 3)])
+    if logger:
+        logger(f"   {len(corners)} patches in chunks of {BOX_CHUNK}")
+    vol = sampler.device_volume_unpacked(dev, dtype=torch.float32)
+    recon = torch.zeros((i1, i2, i3, n_classes), dtype=torch.float32,
+                        device=dev)
+    for s in range(0, len(corners), BOX_CHUNK):
+        block = corners[s:s + BOX_CHUNK]
+        preds = predict_fn(torch.stack([vol[a:a + d, b:b + d, c:c + d]
+                                        for a, b, c in block]))
+        for (a, b, c), pred in zip(block, preds):
+            recon[a:a + d, b:b + d, c:c + d] += pred
+    if not want_argmax:
+        recon = recon / torch.clamp(recon.sum(dim=-1, keepdim=True),
+                                    min=1e-8)
+    return _class_map_or_volume(recon, want_argmax)
+
+
+def predict_3D_patches_binary(predict_fn, patches, image, n_extra=0,
+                              logger=None, threshold=0.20):
+    """Binary vote recon of a one-output model (the JAX package's
+    `predict_3D_patches_binary`): per voxel the patches voting > 0.5 and
+    the rest; 1 where the first exceed threshold x all votes. Host
+    loop."""
+    i1, i2, i3 = image.shape[:3]
+    d = patches.dim
+    recon = np.zeros((i1, i2, i3, 2), np.uint32)
+    for patch, (i, k, v), _ in patches.get_patches_from(image, n_extra):
+        pred = predict_fn(torch.from_numpy(
+            np.asarray(patch, np.float32)[None]))[0].cpu().numpy().squeeze()
+        mask = pred > 0.5
+        sl = np.s_[i:i + d, k:k + d, v:v + d]
+        recon[sl + (0,)] += ~mask[: i1 - i, : i2 - k, : i3 - v]
+        recon[sl + (1,)] += mask[: i1 - i, : i2 - k, : i3 - v]
+    total = recon.sum(-1)
+    return (recon[..., 1] > threshold * total).astype(np.uint8)

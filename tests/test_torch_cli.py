@@ -248,7 +248,8 @@ def test_build_model_honours_unet_fields(tmp_path, extra):
 
 def test_build_model_named_errors():
     base = dict(model_class_name="UNet", n_classes=2, dim=16, depth=2)
-    for bad, err in ((dict(model_class_name="UNet3D"), UnsupportedModelError),
+    for bad, err in ((dict(model_class_name="MultiTaskUNet2D"),
+                      UnsupportedModelError),
                      (dict(padding="valid"), UnsupportedModelError),
                      (dict(flatten_output=True), UnsupportedModelError),
                      (dict(activation="mish"), UnsupportedActivationError),
@@ -256,11 +257,13 @@ def test_build_model_named_errors():
                       UnsupportedActivationError)):
         with pytest.raises(err):
             build_model({**base, **bad})
+    # the 3D model builds from the same group
+    assert build_model({**base, "model_class_name": "UNet3D"}).ndim == 3
 
 
 def test_mp_dispatch_and_device_errors(tmp_path, monkeypatch):
-    with pytest.raises(t_mp.ScriptNotPortedError, match="predict_3D"):
-        t_mp.entry_func(["predict_3D", "--project_dir", str(tmp_path)])
+    with pytest.raises(t_mp.ScriptNotPortedError, match="branch"):
+        t_mp.entry_func(["branch", "--project_dir", str(tmp_path)])
     with pytest.raises(t_predict.MultiDeviceNotPortedError):
         t_mp.entry_func(["predict", "--num_devices", "2"])
     # The default device is CUDA: with no card visible it raises, and never

@@ -72,6 +72,10 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.parallel",
     "multiplanarunet_tpu_torch.parallel.volume_pool",
     "multiplanarunet_tpu_torch.image.queue",
+    "multiplanarunet_tpu_torch.models.unet3d",
+    "multiplanarunet_tpu_torch.sequences.iso_3d",
+    "multiplanarunet_tpu_torch.sequences.patches_3d",
+    "multiplanarunet_tpu_torch.bin.predict_3D",
 ]
 BANNED = ("jax", "flax", "optax", "yaml", "pandas", "sklearn", "nibabel",
           "matplotlib", "multiplanarunet_tpu")
@@ -112,7 +116,7 @@ def test_port_runs_with_banned_packages_blocked():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from multiplanarunet_tpu_torch.bin.mp import PORTED\n"
-        "assert len(PORTED) == 9, PORTED\n"
+        "assert len(PORTED) == 10, PORTED\n"
         "for script in PORTED:\n"
         "    sys.argv = ['mp', script, '--help']\n"
         "    try:\n"
@@ -129,9 +133,9 @@ def test_port_runs_with_banned_packages_blocked():
     assert "--continue_training" in proc.stdout
     for flag in ("--images_per_round", "--model", "--N_channels",
                  "--CV_dir", "--validation_fraction", "--checkout",
-                 "--max_loaded_images"):
+                 "--max_loaded_images", "--extra_boxes", "--strides"):
         assert flag in proc.stdout, flag
-    assert proc.stdout.count("helped ") == 9
+    assert proc.stdout.count("helped ") == 10
     assert proc.stdout.strip().endswith("ran")
 
 

@@ -21,8 +21,8 @@ from multiplanarunet_tpu.ops import geometry as jgeo
 from multiplanarunet_tpu.ops import interp as jinterp
 from multiplanarunet_tpu.sequences import get_sequence as j_get_sequence
 from multiplanarunet_tpu_torch.augmentation.augmenters import (
-    AugmenterNotPortedError,
     Elastic2D,
+    Elastic3D,
     build_augmenters,
 )
 from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
@@ -31,9 +31,13 @@ from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.ops import elastic as telastic
 from multiplanarunet_tpu_torch.ops import geometry as tgeo
 from multiplanarunet_tpu_torch.ops import interp as tinterp
-from multiplanarunet_tpu_torch.sequences import (
-    SequenceNotPortedError,
-    get_sequence,
+from multiplanarunet_tpu_torch.sequences import get_sequence
+from multiplanarunet_tpu_torch.sequences.iso_3d import (
+    IsotrophicLiveViewSequence3D,
+)
+from multiplanarunet_tpu_torch.sequences.patches_3d import (
+    PatchSequence3D,
+    SlidingPatchSequence3D,
 )
 
 torch.set_num_threads(2)
@@ -104,13 +108,33 @@ def test_batches_match_jax_per_image_path(queues, fraction, force):
 
 
 def test_sequence_named_errors(queues):
-    with pytest.raises(SequenceNotPortedError):
-        get_sequence(queues["port"], intrp_style="iso_live_3d", dim=16,
-                     batch_size=2, n_classes=4)
-    with pytest.raises(AugmenterNotPortedError):
-        build_augmenters([{"cls_name": "Elastic3D",
-                           "kwargs": {"alpha": 1, "sigma": 1,
-                                      "apply_prob": 1}}])
+    """The three 3D styles build (the patch styles without augmenters),
+    Elastic3D builds, and an unknown style or augmenter raises
+    ValueError."""
+    aug = [{"cls_name": "Elastic3D",
+            "kwargs": {"alpha": 1, "sigma": 1, "apply_prob": 1}}]
+    for style, cls, kw in (
+            ("iso_live_3d", IsotrophicLiveViewSequence3D,
+             dict(real_box_dim=20.0, augmenters=aug)),
+            ("patches_3d", PatchSequence3D, dict(augmenters=aug)),
+            ("sliding_patches_3d", SlidingPatchSequence3D,
+             dict(strides=8))):
+        seq = get_sequence(queues["port"], intrp_style=style, dim=16,
+                           batch_size=2, n_classes=4, no_log=True,
+                           device="cpu", **kw)
+        assert type(seq) is cls
+    assert isinstance(seq.strides, int) and seq.strides == 8
+    augs = get_sequence(queues["port"], intrp_style="iso_live_3d", dim=16,
+                        batch_size=2, n_classes=4, real_box_dim=20.0,
+                        augmenters=aug, no_log=True,
+                        device="cpu").list_of_augmenters
+    assert [type(a) for a in augs] == [Elastic3D]
+    assert type(build_augmenters(aug)[0]) is Elastic3D
+    with pytest.raises(ValueError, match="intrp_style"):
+        get_sequence(queues["port"], intrp_style="iso_live_4d", dim=16,
+                     batch_size=2, n_classes=4, device="cpu")
+    with pytest.raises(ValueError, match="augmenter"):
+        build_augmenters([{**aug[0], "cls_name": "Elastic4D"}])
 
 
 def test_plane_basis_batch_and_plane_gathers_match_jax():
