@@ -31,13 +31,22 @@ epochs of 10 steps, Elastic3D, the pooled box sampler), the step and
 sampler times, a float32 step and forward on the card against the host,
 a pooled box batch card vs CPU, `pred_3D_iso` and `predict_3D_patches`
 with the one-hot oracle, and `mp predict_3D` (a subprocess) on the 256^3
-val subject. Last, the
+val subject. Then multi-task training at the MultiTask preset's full
+width (the shared encoder and two heads, cf 2, depth 4, bf16, batch 16
+per task): a project from `mp init_project --model MultiTask` with task 1
+on the same subjects and task 2 on 3 + 1 structured 192^3 subjects of 4
+classes, `mp train` (a subprocess, 2 epochs of 10 steps, then one more
+with --continue_training), the parameter count against the layer shapes,
+the step's times, TFLOP/s, peak memory and device-busy share, a float32
+multi-task step on the card against the host, and `mp branch
+--copy_weights` (a subprocess). Last, the
 workflow on the trained project: `mp train_fusion` (a subprocess), the
 fused probabilities of its points path against predict_image's with the
 learned weights, `mp predict` with the learned fusion and `mp summary`
 over its results. Each path's shear-pass launches are counted from 0 just
 before it and gated against what its plans and remap modes say (the
-training, 3D and fusion-training paths themselves launch none).
+training, 3D, multi-task and fusion-training paths themselves launch
+none).
 
 Run from the repository root with no arguments:
 
@@ -77,6 +86,7 @@ from multiplanarunet_tpu_torch.evaluate.metrics import (
     dice_from_counts,
 )
 from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
+from multiplanarunet_tpu_torch.hyperparameters.yaml_reader import safe_load
 from multiplanarunet_tpu_torch.image.image_pair import ImagePair
 from multiplanarunet_tpu_torch.image.queue.queues import LimitationQueue
 from multiplanarunet_tpu_torch.image.volume_sampler import VolumeSampler
@@ -91,6 +101,7 @@ from multiplanarunet_tpu_torch.models.model_init import (
     build_model,
     load_unet_weights,
 )
+from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.ops import _build, geometry
@@ -110,6 +121,7 @@ from multiplanarunet_tpu_torch.ops.shear_plan import (
 )
 from multiplanarunet_tpu_torch.preprocessing.data_preparation_funcs import (
     prepare_for_3d_unet,
+    prepare_for_multi_task_2d,
     prepare_for_multi_view_unet,
 )
 from multiplanarunet_tpu_torch.sequences import multi_planar
@@ -117,7 +129,10 @@ from multiplanarunet_tpu_torch.sequences.iso_3d import (
     IsotrophicLiveViewSequence3D,
 )
 from multiplanarunet_tpu_torch.sequences.patches_3d import PatchSequence3D
-from multiplanarunet_tpu_torch.train.train_step import TrainStep
+from multiplanarunet_tpu_torch.train.train_step import (
+    MultiTaskTrainStep,
+    TrainStep,
+)
 from multiplanarunet_tpu_torch.train.trainer import Trainer
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
@@ -272,9 +287,10 @@ def jax_format_unet_weights(path, n_classes, n_channels, depth, cf, seed,
     np.savez(path, **entries)
 
 
-def unet_flops_per_plane(model, dev):
-    """Forward FLOPs of one DIM x DIM plane: 2 * MACs of every convolution,
-    counted with forward hooks on one plane."""
+def unet_flops_per_plane(model, dev, planes=None):
+    """Forward FLOPs of one DIM x DIM plane (or of `planes`, the model's
+    input: one plane per task for a multi-task model): 2 * MACs of every
+    convolution, counted with forward hooks."""
     flops = []
 
     def hook(mod, _, out):
@@ -285,7 +301,8 @@ def unet_flops_per_plane(model, dev):
     hooks = [m.register_forward_hook(hook) for m in model.modules()
              if isinstance(m, nn.Conv2d)]
     with torch.inference_mode():
-        model(torch.zeros(1, N_CHANNELS, DIM, DIM, device=dev))
+        model(torch.zeros(1, N_CHANNELS, DIM, DIM, device=dev)
+              if planes is None else planes)
     for h in hooks:
         h.remove()
     return sum(flops)
@@ -995,22 +1012,23 @@ def phase_u8(dev):
         raise AssertionError("u8 staging changes the oracle's class map")
 
 
-def structured_subject(dev, seed):
-    """A (DIM,)*3 float32 image and uint8 labels shaped like a scan, made
+def structured_subject(dev, seed, size=DIM, n_classes=N_CLASSES):
+    """A (size,)*3 float32 image and uint8 labels shaped like a scan, made
     on the card: zero background around an ellipsoid that holds a smoothed
-    random field (intensity 100 + 40 * field, at least 1), and labels 1..N_CLASSES-1
-    as equal-volume bands of that field inside it (0 outside)."""
+    random field (intensity 100 + 40 * field, at least 1), and labels
+    1..n_classes-1 as equal-volume bands of that field inside it (0
+    outside)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    field = torch.randn((1, 1, DIM, DIM, DIM), generator=gen, device=dev)
+    field = torch.randn((1, 1, size, size, size), generator=gen, device=dev)
     for _ in range(3):
         field = torch.nn.functional.avg_pool3d(field, 9, stride=1, padding=4)
     field = field[0, 0]
     field = (field - field.mean()) / field.std()
-    ax = ((torch.arange(DIM, device=dev, dtype=torch.float32) - (DIM - 1) / 2)
-          / (0.42 * DIM))
+    ax = ((torch.arange(size, device=dev, dtype=torch.float32)
+           - (size - 1) / 2) / (0.42 * size))
     fg = (ax[:, None, None] ** 2 + (ax[None, :, None] / 0.9) ** 2
           + (ax[None, None, :] / 0.8) ** 2) <= 1.0
-    q = torch.arange(1, N_CLASSES - 1, device=dev) / (N_CLASSES - 1.0)
+    q = torch.arange(1, n_classes - 1, device=dev) / (n_classes - 1.0)
     bounds = torch.quantile(field[fg], q)
     vol = torch.where(fg, (100.0 + 40.0 * field).clamp_min(1.0), 0.0)
     lab = torch.where(fg, 1 + torch.bucketize(field, bounds), 0)
@@ -1453,35 +1471,51 @@ def profile_steps(step, batches, n=3):
     return busy, events.table(sort_by="self_device_time_total", row_limit=12)
 
 
-def fresh_step(dtype, dev, lr, seed=0, three_d=False):
+def fresh_step(dtype, dev, lr, seed=0, three_d=False, multitask=False):
     """A glorot-initialised (from `seed`) full-width UNet (the 3D preset's
-    UNet3D with three_d) in train mode on `dev` with its Adam TrainStep
-    (the default loss and metric)."""
-    model = (UNet3D(N_CLASSES, N_CHANNELS, DEPTH_3D, CF_3D, dtype=dtype)
-             if three_d else UNet(N_CLASSES, N_CHANNELS, DEPTH, CF,
-                                  dtype=dtype))
+    UNet3D with three_d, the MultiTask preset's two-task model with
+    multitask) in train mode on `dev` with its Adam train step (the
+    default loss and metric)."""
+    if multitask:
+        model = MultiTaskUNet2D(MT_TASKS, MT_CLASSES, [N_CHANNELS] * 2,
+                                MT_DIMS, DEPTH, CF, dtype=dtype)
+    elif three_d:
+        model = UNet3D(N_CLASSES, N_CHANNELS, DEPTH_3D, CF_3D, dtype=dtype)
+    else:
+        model = UNet(N_CLASSES, N_CHANNELS, DEPTH, CF, dtype=dtype)
     model = glorot_init(model, seed).to(dev).train()
     opt = init_optimizer("Adam", model.parameters(), lr=lr, epsilon=1e-8)
-    step = TrainStep(model, opt, SparseCategoricalCrossentropy(),
-                     {"sparse_categorical_accuracy":
-                      METRICS["sparse_categorical_accuracy"]})
+    step = (MultiTaskTrainStep if multitask else TrainStep)(
+        model, opt, SparseCategoricalCrossentropy(),
+        {"sparse_categorical_accuracy":
+         METRICS["sparse_categorical_accuracy"]})
     return model, opt, step
 
 
-def compare_f32_step(batch, dev, n=F32_BATCH, three_d=False):
-    """One float32 step on the first n elements of `batch` on the card
-    (TF32 off) and on the host from the same weights and batch: loss
-    within 1e-4 relative, BN running statistics within 1e-5, parameters
-    within PARAM_TOL * lr for at least PARAM_SHARE of them and within 2 lr
-    (opposite signs; 1e-3 of it for the rounding of p + u - p) for all."""
-    X, y, w = (t[:n] for t in batch)
+def _batch_part(part, fn):
+    """fn over a batch part: a tensor or array, or a list of them per
+    task."""
+    return [fn(p) for p in part] if isinstance(part, list) else fn(part)
+
+
+def compare_f32_step(batch, dev, n=F32_BATCH, three_d=False,
+                     multitask=False):
+    """One float32 step on the first n elements of `batch` (of each task's
+    batch with multitask) on the card (TF32 off) and on the host from the
+    same weights and batch: loss within 1e-4 relative, BN running
+    statistics within 1e-5, parameters within PARAM_TOL * lr for at least
+    PARAM_SHARE of them and within 2 lr (opposite signs; 1e-3 of it for
+    the rounding of p + u - p) for all."""
+    X, y, w = (_batch_part(t, lambda p: p[:n]) for t in batch)
     lr = 5e-5
     out = {}
     for name, d in (("card", dev), ("host", torch.device("cpu"))):
-        model, opt, step = fresh_step(torch.float32, d, lr, three_d=three_d)
+        model, opt, step = fresh_step(torch.float32, d, lr, three_d=three_d,
+                                      multitask=multitask)
         before = opt.packed.data.detach().cpu().clone()
         t0 = time.perf_counter()
-        loss = step(X.to(d), y.to(d), w)["loss"].item()
+        loss = step(_batch_part(X, lambda p: p.to(d)),
+                    _batch_part(y, lambda p: p.to(d)), w)["loss"].item()
         secs = time.perf_counter() - t0
         stats = {k: v.cpu() for k, v in model.state_dict().items()
                  if k.endswith(("running_mean", "running_var"))}
@@ -1492,8 +1526,9 @@ def compare_f32_step(batch, dev, n=F32_BATCH, three_d=False):
     stat_err = max((s_c[k] - s_h[k]).abs().max().item() for k in s_c)
     diff = (d_c - d_h).abs()
     share = (diff <= PARAM_TOL * lr).float().mean().item()
-    log(f"f32 {'3D ' if three_d else ''}train step, batch {n}, card vs "
-        f"host: loss "
+    what = "3D " if three_d else "multi-task " if multitask else ""
+    log(f"f32 {what}train step, batch {n}{' per task' if multitask else ''}"
+        f", card vs host: loss "
         f"{l_c:.7f} vs {l_h:.7f} (rel {rel:.3g} <= 1e-4); BN running stats "
         f"max abs err {stat_err:.3g} (<= 1e-5); parameter updates within "
         f"{PARAM_TOL} lr: {100 * share:.4f}% (>= {100 * PARAM_SHARE}%), max "
@@ -2266,6 +2301,285 @@ def phase_3d(dev, tmp, data, dirs, card):
     return launches
 
 
+# ---------------------------------------------------------------- multi-task
+# multitask-256: `mp train` of the MultiTask preset at full width (the
+# shared encoder and two heads at cf 2, depth 4, bf16, Elastic2D, the pooled
+# sampler, Adam 5e-5, batch 16 per task): task 1 on the training phase's
+# 3 + 1 structured 256^3 subjects (7 classes, dim 256 given, as train-256),
+# task 2 on 3 + 1 structured 192^3 subjects (4 classes, dim and classes left
+# for the Auditor); 2 epochs of 10 steps and 2 validation steps, then one
+# more epoch with --continue_training
+MT_TASKS, DIM_T2, N_CLASSES_T2 = ["task_1", "task_2"], 192, 4
+MT_CLASSES, MT_DIMS = [N_CLASSES, N_CLASSES_T2], [DIM, DIM_T2]
+MT_EPOCHS, MT_IMAGES, MT_VAL_IMAGES = 2, 160, 32
+
+
+def multitask_param_counts(n_classes, cf=CF, depth=DEPTH, init_filters=64,
+                           k=3):
+    """(shared encoder, [each task's head]) parameter counts of the
+    MultiTaskUNet2D from its layer shapes: a k x k conv holds k^2 cin cout
+    + cout, a BatchNorm 2 c (scale, bias), the 2 x 2 up conv 4 cin cout +
+    cout, the 1 x 1 out conv cin n + n."""
+    s = float(np.sqrt(cf))
+
+    def block(cin, f):
+        return k * k * cin * f + f + k * k * f * f + f + 2 * f
+
+    encoder, cin, filters = 0, N_CHANNELS, init_filters
+    for _ in range(depth):
+        f = int(filters * s)
+        encoder += block(cin, f)
+        cin, filters = f, filters * 2
+    heads = []
+    for nc in n_classes:
+        fl, c = filters, cin
+        f = int(fl * s)
+        n, c = block(c, f), f
+        for _ in range(depth):
+            fl //= 2
+            f = int(fl * s)
+            n += 4 * c * f + f + 2 * f + block(2 * f, f)
+            c = f
+        heads.append(n + c * nc + nc)
+    return encoder, heads
+
+
+def write_multitask_project(root, dev, dirs):
+    """The second task's 3 + 1 structured 192^3 subjects, and a project
+    from the port's `mp init_project --model MultiTask` over the training
+    phase's data folder (gate: both task YAMLs hold the folders passed
+    in); task 1's test set is its val subject and its n_classes and dim
+    are given; task 2 points at its own data, its dim and n_classes left
+    for the Auditor. The main YAML is the preset's (gated)."""
+    data2 = root / "data_t2"
+    seed = 200
+    for split, n in (("train", N_TRAIN_SUBJECTS), ("val", N_VAL_SUBJECTS)):
+        for sub in ("images", "labels"):
+            (data2 / split / sub).mkdir(parents=True)
+        for i in range(n):
+            vol, lab = structured_subject(dev, seed, DIM_T2, N_CLASSES_T2)
+            seed += 1
+            nifti.save(vol, data2 / split / "images" / f"t2_{split}_{i}.nii.gz",
+                       np.eye(4))
+            nifti.save(lab, data2 / split / "labels" / f"t2_{split}_{i}.nii.gz",
+                       np.eye(4))
+    data = dirs["train"].parent
+    port_mp.entry_func(["init_project", "--name", "mt_project", "--root",
+                        str(root), "--model", "MultiTask", "--data_dir",
+                        str(data)])
+    proj = root / "mt_project"
+    main = (proj / "train_hparams.yaml").read_text()
+    for want in ('model_class_name: "MultiTaskUNet2D"', "complexity_factor: 2",
+                 "depth: 4", "batch_size: 16", "mixed_precision: True",
+                 "Elastic2D", "lr: 5.0e-05", "intrp_style: 'iso_live'"):
+        if want not in main:
+            raise AssertionError(f"the MultiTask preset lacks {want!r}")
+    edits = {
+        "task_1": ((f"base_dir: {data}/test", f"base_dir: {dirs['val']}"),
+                   ("n_classes: Null", f"n_classes: {N_CLASSES}"),
+                   ("dim: Null", f"dim: {DIM}")),
+        "task_2": ((f"base_dir: {data}/train", f"base_dir: {data2}/train"),
+                   (f"base_dir: {data}/val", f"base_dir: {data2}/val"),
+                   (f"base_dir: {data}/test", f"base_dir: {data2}/val"))}
+    for task, pairs in edits.items():
+        path = proj / f"{task}.yaml"
+        hp = YAMLHParams(path, no_log=True, no_version_control=True)
+        for split in ("train", "val", "test"):
+            got = hp[f"{split}_data"]["base_dir"]
+            if got != f"{data}/{split}":
+                raise AssertionError(f"mp init_project wrote {task} "
+                                     f"{split}_data base_dir {got!r}")
+        text = hp.string_rep
+        for old, new in pairs:
+            if old not in text:
+                raise AssertionError(f"{task}.yaml lacks {old!r}")
+            text = text.replace(old, new)
+        path.write_text(text)
+    log(f"mp init_project --model MultiTask wrote {proj} with the data "
+        f"folders passed in; task 2 on {data2}")
+    return proj
+
+
+def check_multitask_project(proj, tmp, n_epochs):
+    """Gates on what the multi-task `mp train` wrote: n_epochs CSV rows
+    with every loss and dice finite and the per-task columns; the
+    checkpoints' top level (encoder, task_task_1, task_task_2) and their
+    keys and shapes those of the build; the build group's per-task lists;
+    both views_<task>.npz with 6 unit vectors. Returns the build group."""
+    lines = (proj / "logs" / "training.csv").read_text().splitlines()
+    head = lines[0].split(",")
+    rows = [dict(zip(head, r.split(","))) for r in lines[1:]]
+    if len(rows) != n_epochs:
+        raise AssertionError(f"training.csv has {len(rows)} rows")
+    for key in ("task_0/loss", "task_1/loss", "val_task_0/dice",
+                "val_task_1/dice", "val_dice", "val_loss", "lr"):
+        if key not in head:
+            raise AssertionError(f"training.csv lacks {key}: {head}")
+    for row in rows:
+        for key, value in row.items():
+            if ("loss" in key or "dice" in key) and \
+                    not np.isfinite(float(value)):
+                raise AssertionError(f"training.csv {key} = {value}")
+    build = safe_load((proj / "train_hparams.yaml").read_text())["build"]
+    if build["n_classes"] != MT_CLASSES or len(build["dim"]) != 2 \
+            or build["dim"][0] != DIM or build["task_names"] != MT_TASKS:
+        raise AssertionError(f"build group {build}")
+    ref_path = Path(tmp) / "reference_multitask_build.npz"
+    checkpoint.save_unet_weights(ref_path, build_model(
+        build, logger=ScreenLogger(False)))
+    with np.load(ref_path) as ref:
+        want = {k: ref[k].shape for k in ref.files}
+    files = ([proj / "model" / "model_weights.npz"]
+             + sorted((proj / "model").glob("@epoch_*.npz"))[-1:])
+    if len(files) != 2 or not files[0].exists():
+        raise AssertionError(f"model files "
+                             f"{sorted((proj / 'model').iterdir())}")
+    for f in files:
+        p, _, _ = checkpoint.load_weights(f)
+        if set(p) != {"encoder", "task_task_1", "task_task_2"}:
+            raise AssertionError(f"{f.name}: top-level keys {sorted(p)}")
+        with np.load(f) as data:
+            got = {k: data[k].shape for k in data.files if k != "__meta__"}
+        if got != want:
+            raise AssertionError(f"{f.name}: keys/shapes differ from the "
+                                 f"build's")
+    for task in MT_TASKS:
+        views = np.load(proj / f"views_{task}.npz")["arr_0"]
+        if views.shape != (N_VIEWS, 3) or not np.allclose(
+                np.linalg.norm(views, axis=1), 1.0, atol=1e-6):
+            raise AssertionError(f"views_{task}.npz {views.shape}")
+    log(f"multi-task mp train wrote: training.csv rows "
+        f"{[r['epoch'] for r in rows]} (loss {[r['loss'] for r in rows]}, "
+        f"val_task_0/dice {[r['val_task_0/dice'] for r in rows]}, "
+        f"val_task_1/dice {[r['val_task_1/dice'] for r in rows]}); build "
+        f"n_classes {build['n_classes']}, dim {build['dim']}; "
+        f"{[f.name for f in files]} with the {len(want)} keys and shapes of "
+        f"the build (encoder, task_task_1, task_task_2); views_task_1.npz and "
+        f"views_task_2.npz ({N_VIEWS}, 3)")
+    return build
+
+
+def check_branches(proj, build):
+    """`mp branch --copy_weights` in a subprocess: a folder per task whose
+    YAML the port's reader reads as a UNet with its task's n_classes and
+    dim, and model/ copied."""
+    wall, _ = run_mp_script(["branch", "--project_dir", str(proj),
+                             "--copy_weights"], timeout=300)
+    branches = sorted(p.name for p in (proj / "branches").iterdir())
+    if branches != MT_TASKS:
+        raise AssertionError(f"mp branch wrote {branches}")
+    for t, task in enumerate(MT_TASKS):
+        hp = safe_load((proj / "branches" / task / "train_hparams.yaml")
+                       .read_text())
+        if (hp["build"]["model_class_name"] != "UNet"
+                or hp["build"]["n_classes"] != MT_CLASSES[t]
+                or hp["build"]["dim"] != build["dim"][t]):
+            raise AssertionError(f"branch {task} build {hp['build']}")
+        if not (proj / "branches" / task / "model" /
+                "model_weights.npz").exists():
+            raise AssertionError(f"branch {task} has no model/")
+    log(f"mp branch --copy_weights: {wall:.1f} s; branches {branches}, each "
+        f"a UNet with its task's n_classes {MT_CLASSES} and dim "
+        f"{build['dim']}, model/ copied")
+
+
+def phase_multitask(dev, tmp, dirs, card):
+    """The multi-task path at full width: the project from `mp
+    init_project --model MultiTask`, `mp train` in a subprocess, then
+    --continue_training (gates in check_multitask_project and
+    run_mp_train); in process the parameter count against the layer
+    shapes, the step's times, TFLOP/s, peak memory and device-busy share,
+    and a float32 multi-task step card vs host; `mp branch` in a
+    subprocess (check_branches). The in-process parts launch no shear
+    pass (gated). Returns 0, their shear-pass launches."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(tmp) / "multitask"
+    root.mkdir()
+    proj = write_multitask_project(root, dev, dirs)
+    wall, epochs = run_mp_train(proj, dev, MT_EPOCHS, MT_IMAGES,
+                                MT_VAL_IMAGES)
+    text = (proj / "logs" / "train.txt").read_text()
+    if text.count("Sampler: pooled path") < 2:
+        raise AssertionError("not every task's sampler took the pooled path")
+    check_multitask_project(proj, tmp, MT_EPOCHS)
+    c_wall, _ = run_mp_script(
+        ["train", "--project_dir", str(proj), "--device", str(dev),
+         "--continue_training", "--no_images", "--epochs",
+         str(MT_EPOCHS + 1), "--train_images_per_epoch", str(MT_IMAGES),
+         "--val_images_per_epoch", str(MT_VAL_IMAGES)], timeout=900)
+    build = check_multitask_project(proj, tmp, MT_EPOCHS + 1)
+    t_train = time.perf_counter() - t_phase
+    shear_pass.launches = 0
+
+    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
+    # One subject per task suffices for the step's batches
+    train_seq, _ = prepare_for_multi_task_2d(
+        hparams, just_one=True, no_val=True, continue_training=True,
+        logger=ScreenLogger(False), base_path=str(proj), device=dev)
+    train_seq.batch_size = BATCH
+    batches = [train_seq[i] for i in range(3)]
+    dims = [int(x.shape[1]) for x in batches[0][0]]
+    if dims != build["dim"] or any(x.shape[0] != BATCH
+                                   for x in batches[0][0]):
+        raise AssertionError(f"multi-task batch shapes "
+                             f"{[tuple(x.shape) for x in batches[0][0]]}")
+    compare_f32_step(batches[0], dev, multitask=True)
+
+    model, _, step = fresh_step(torch.bfloat16, dev, 5e-5, multitask=True)
+    encoder, heads = multitask_param_counts(MT_CLASSES)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_encoder = sum(p.numel() for p in model.encoder.parameters())
+    log(f"MultiTaskUNet2D (cf {CF}, depth {DEPTH}, tasks {MT_CLASSES} "
+        f"classes): {n_params:,} parameters, shared encoder {n_encoder:,}; "
+        f"from the layer shapes {encoder + sum(heads):,} (encoder "
+        f"{encoder:,}, heads {[f'{h:,}' for h in heads]})")
+    if n_params != encoder + sum(heads) or n_encoder != encoder:
+        raise AssertionError("the model's parameter count differs from its "
+                             "layer shapes'")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    med, q1, q3 = step_time_ms(step, batches, warmup=3, timed=12)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, table = profile_steps(step, batches)
+    model.eval()
+    fwd_flops = unet_flops_per_plane(
+        model, dev, [torch.zeros(1, N_CHANNELS, d, d, device=dev)
+                     for d in dims])
+    del step, model, batches
+    torch.cuda.empty_cache()
+    if shear_pass.launches != 0:
+        raise AssertionError(f"the multi-task path launched "
+                             f"{shear_pass.launches} shear passes")
+    launches = shear_pass.launches
+    tflops = 3 * fwd_flops * BATCH / (med * 1e-3) / 1e12
+    steps = MT_IMAGES // BATCH
+    steady = epochs[-1][0]
+    exposed = max(0.0, steady - steps * med / 1e3)
+    log(f"[{card}] multi-task train step (bf16, batch {BATCH} per task, "
+        f"dims {dims}, cf {CF}, depth {DEPTH}): median {med:.2f} ms "
+        f"(quartiles {q1:.2f} / {q3:.2f}) over 12 steps after 3 warm-up, "
+        f"CUDA events around the step alone; peak allocated "
+        f"{peak / 2**30:.2f} GiB; {fwd_flops / 1e9:.1f} GFLOP forward per "
+        f"plane pair, step at 3x forward = {tflops:.1f} TFLOP/s "
+        f"({100 * tflops / 989:.1f}% of 989 dense bf16 TFLOP/s); "
+        f"torch.profiler: device busy {busy:.2f} ms per step "
+        f"({100 * busy / med:.1f}%), kernels by self device time over 3 "
+        f"steps:\n{table}")
+    log(f"[{card}] multi-task mp train: {wall:.1f} s wall for {MT_EPOCHS} "
+        f"epochs, --continue_training {c_wall:.1f} s for one more; train "
+        f"loop per epoch {[round(e[0], 3) for e in epochs]} s, callbacks "
+        f"incl. validation {[round(e[1], 3) for e in epochs]} s; steady "
+        f"epoch {steady:.3f} s vs {steps} x step median = "
+        f"{steps * med / 1e3:.3f} s: {exposed:.3f} s exposed sampling "
+        f"({100 * exposed / steady:.1f}% of the epoch); "
+        f"{2 * steps * BATCH / steady:.1f} images/s (both tasks' images)")
+    check_branches(proj, build)
+    log(f"multi-task phase: {time.perf_counter() - t_phase:.1f} s (project "
+        f"+ mp train x2 {t_train:.1f} s)")
+    return launches
+
+
 # ------------------------------------------------------------------ workflow
 # `mp train_fusion` on the trained train-256 project: 4 images (the val
 # subject + 3 random train subjects) in 2 rounds of 2, at the script's
@@ -2495,6 +2809,8 @@ def main():
         proj, dirs = phase_training(dev, tmp, card)
         paths["3D (in-process)"] = phase_3d(dev, tmp, proj.parent / "data",
                                             dirs, card)
+        paths["multi-task (in-process)"] = phase_multitask(dev, tmp, dirs,
+                                                           card)
         paths["mp predict (learned fusion)"] = phase_workflow(dev, proj, dirs,
                                                              card)
     view0 = [times["stack"], times["remap"]]

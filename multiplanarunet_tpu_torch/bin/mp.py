@@ -2,9 +2,9 @@
 multiplanarunet_tpu_torch.bin.mp <script> [script args...]`` forwards the
 script's arguments to its `entry_func`, as `multiplanarunet_tpu/bin/mp.py`
 does. The port has the project workflow (toy_data, init_project, train,
-train_fusion, predict, predict_3D, summary), the CV tools (cv_split,
-cv_experiment) and version; the JAX package's other scripts raise
-`ScriptNotPortedError`."""
+train_fusion, predict, predict_3D, summary), branch (a MultiTask project
+into per-task projects), the CV tools (cv_split, cv_experiment) and
+version; the JAX package's other scripts raise `ScriptNotPortedError`."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import argparse
 import importlib
 import sys
 
-PORTED = ("cv_experiment", "cv_split", "init_project", "predict",
+PORTED = ("branch", "cv_experiment", "cv_split", "init_project", "predict",
           "predict_3D", "summary", "toy_data", "train", "train_fusion",
           "version")
 

@@ -6,16 +6,18 @@ preparation (Auditor fill of the YAML; for the 2D UNet views.npz; the
 queues: eager, or with --max_loaded_images N a LimitationQueue holding
 at most N training images, each swapped out after --num_access accesses;
 train/val sequences: oblique slices, or for the UNet3D the iso_live_3d
-boxes or the voxel patches, pooled by default), the model from the build
-group (UNet or UNet3D; glorot init, --continue_training,
---initialize_from, the class-frequency output bias), the Trainer over
-the default callbacks, and model/model_weights.npz at the end (JAX-format
-.npz files, which either package reads). Training runs on the card unless
---device cpu.
+boxes or the voxel patches, pooled by default; for the MultiTaskUNet2D
+one slice sampler per task YAML, with views_<task>.npz), the model from
+the build group (UNet, UNet3D or MultiTaskUNet2D; glorot init,
+--continue_training, --initialize_from, the class-frequency output bias,
+which a multi-task model skips, as the JAX package does), the Trainer
+over the default callbacks, and model/model_weights.npz at the end
+(JAX-format .npz files, which either package reads). Training runs on the
+card unless --device cpu.
 
 Not ported yet, each raising a named error: --num_devices > 1, a model
-class other than UNet and UNet3D; QuantileTransformer scaling raises when
-the images load.
+class other than UNet, UNet3D and MultiTaskUNet2D; QuantileTransformer
+scaling raises when the images load.
 
 Run as ``python -m multiplanarunet_tpu_torch.bin.mp train --project_dir
 <project> [--device cpu] ...``.
@@ -150,6 +152,10 @@ def get_model(project_dir, train_seq, hparams, logger, args):
         hparams=hparams, continue_training=args.continue_training,
         project_dir=project_dir, logger=logger,
         initialize_from=args.initialize_from)
+    if isinstance(hparams["build"].get("n_classes"), (list, tuple)):
+        # Multi-task: per-task output layers, which the shared class
+        # frequency estimate cannot bias
+        return model, init_epoch, restored_lr
     if not args.continue_training and \
             hparams["build"].get("biased_output_layer"):
         counts = estimate_class_frequencies(

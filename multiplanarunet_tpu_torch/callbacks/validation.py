@@ -1,13 +1,16 @@
 """Validation callback: epoch evaluation with exact per-class statistics.
 
 Port of `multiplanarunet_tpu/callbacks/validation.py:Validation` (single
-task, single device). At every epoch end it runs the eval step over
-`steps` validation batches (sampled one batch ahead), sums the batch
-logs and the int32 per-class (tp, rel, sel) counts on the device, fetches
-them once, and writes into the logs: val_<key> (the mean of each eval-step
-log: val_loss and the in-step metrics), and val_precision, val_recall and
+device). At every epoch end it runs the eval step over `steps`
+validation batches (sampled one batch ahead), sums the batch logs and the
+int32 per-class (tp, rel, sel) counts on the device, fetches them once,
+and writes into the logs: val_<key> (the mean of each eval-step log:
+val_loss and the in-step metrics), and val_precision, val_recall and
 val_dice (per-class values from the summed counts, averaged over the
-classes present in the labels, background left out).
+classes present in the labels, background left out). For a multi-task
+trainer the counts are per task: each task's mean dice goes to
+val_task_{t}/dice, and val_precision, val_recall and val_dice are the
+means over the tasks.
 """
 
 from __future__ import annotations
@@ -33,40 +36,58 @@ class Validation(Callback):
         return self.logger or self.trainer.logger
 
     def evaluate(self):
-        """(summed eval-step logs, (tp, rel, sel) int64 numpy) over the
-        validation batches, fetched once."""
+        """(summed eval-step logs, per task a (tp, rel, sel) triple of
+        int64 numpy) over the validation batches, fetched once."""
         trainer = self.trainer
         sums, counts = None, None
         for X, y, w in prefetched(self.sequence, self.steps, trainer.device):
             step_logs, step_counts = trainer.eval_step(X, y, w)
+            if not trainer.multitask:
+                step_counts = (step_counts,)
             if sums is None:
-                sums, counts = dict(step_logs), list(step_counts)
+                sums, counts = dict(step_logs), step_counts
             else:
                 sums = {k: sums[k] + v for k, v in step_logs.items()}
-                counts = [a + b for a, b in zip(counts, step_counts)]
+                counts = [[a + b for a, b in zip(task, step_task)]
+                          for task, step_task in zip(counts, step_counts)]
         keys = list(sums)
         fetched = torch.stack([sums[k].float() for k in keys]).cpu().numpy()
         return (dict(zip(keys, fetched)),
-                tuple(c.cpu().numpy().astype(np.int64) for c in counts))
+                [tuple(c.cpu().numpy().astype(np.int64) for c in task)
+                 for task in counts])
 
     def on_epoch_end(self, epoch, logs=None):
         logs = logs if logs is not None else {}
-        sums, (tp, rel, sel) = self.evaluate()
+        multitask = self.trainer.multitask
+        sums, task_counts = self.evaluate()
         for key, total in sums.items():
             logs[f"val_{key}"] = float(total) / self.steps
-        (precision, recall, dice), (mp, mr, md) = precision_recall_dice(
-            tp, rel, sel, ignore_bg=self.ignore_bg)
-        logs["val_precision"] = float(mp)
-        logs["val_recall"] = float(mr)
-        logs["val_dice"] = float(md)
+        tables, means = [], []
+        for t, (tp, rel, sel) in enumerate(task_counts):
+            table, mean = precision_recall_dice(tp, rel, sel,
+                                                ignore_bg=self.ignore_bg)
+            tables.append(table)
+            means.append(mean)
+            if multitask:
+                logs[f"val_task_{t}/dice"] = float(mean[2])
+        # Over tasks, each is the task mean (one task: its own value)
+        mp, mr, md = (float(np.mean(m)) for m in zip(*means))
+        logs["val_precision"] = mp
+        logs["val_recall"] = mr
+        logs["val_dice"] = md
         if self.verbose:
             log = self._log()
             log(f"\n--- Validation epoch {epoch} "
                 f"(loss={logs.get('val_loss', float('nan')):.4f}) ---")
-            classes = np.arange(1 if self.ignore_bg else 0, len(tp))
-            log(f"{'class':>8} {'precision':>10} {'recall':>10} "
-                f"{'dice':>10}")
-            for i, c in enumerate(classes):
-                log(f"{c:>8} {precision[i]:>10.4f} {recall[i]:>10.4f} "
-                    f"{dice[i]:>10.4f}")
-            log(f"{'mean':>8} {mp:>10.4f} {mr:>10.4f} {md:>10.4f}")
+            for t, ((precision, recall, dice), (tmp, tmr, tmd)) in \
+                    enumerate(zip(tables, means)):
+                if multitask:
+                    log(f"[task {t}]")
+                classes = np.arange(1 if self.ignore_bg else 0,
+                                    len(task_counts[t][0]))
+                log(f"{'class':>8} {'precision':>10} {'recall':>10} "
+                    f"{'dice':>10}")
+                for i, c in enumerate(classes):
+                    log(f"{c:>8} {precision[i]:>10.4f} {recall[i]:>10.4f} "
+                        f"{dice[i]:>10.4f}")
+                log(f"{'mean':>8} {tmp:>10.4f} {tmr:>10.4f} {tmd:>10.4f}")

@@ -9,8 +9,8 @@ would under-resolve it), real_space_span (75th percentile of the
 physical axis sizes), and for the 3D model the box: sample_dim_3D =
 dim_3d voxels spanning real_box_span = dim_3d * sample_res (the 25th
 percentile voxel size); and `fill` writes the values of a model type
-('2d' or '3d') into the YAML where the file has Null. The JAX Auditor's
-multi-task values are not ported.
+('2d', '3d', or 'multi_task_2d', whose 2D values go to a task YAML's
+task_specifics group) into the YAML where the file has Null.
 """
 
 from __future__ import annotations
@@ -95,6 +95,14 @@ class Auditor:
                 "real_box_span": (["fit"], ["real_box_dim"]),
                 "n_channels": (["build"], ["n_channels"]),
                 "n_classes": (["build"], ["n_classes"]),
+            },
+            # a multi-task project audits each task's own YAML
+            "multi_task_2d": {
+                "real_space_span_2D": (["task_specifics"],
+                                       ["real_space_span"]),
+                "sample_dim_2D": (["task_specifics"], ["dim"]),
+                "n_channels": (["task_specifics"], ["n_channels"]),
+                "n_classes": (["task_specifics"], ["n_classes"]),
             },
         }
         self.log()

@@ -3,8 +3,11 @@
 The format is that of `multiplanarunet_tpu/models/checkpoint.py`: one
 numpy .npz whose keys are "params/<module>/<leaf>" and
 "batch_stats/<module>/<leaf>", with an optional "__meta__" entry holding
-json bytes. `unet_state_dict_from_jax` carries such a tree onto a torch
-UNet or UNet3D (conv kernels HWIO -> OIHW, DHWIO -> OIDHW),
+json bytes; <module> is a path of any depth (a MultiTaskUNet2D's tree
+nests `encoder/encoder_L0/...` and `task_<name>/decoder_L0/...`).
+`unet_state_dict_from_jax` carries such a tree onto a torch UNet, UNet3D
+or MultiTaskUNet2D (conv kernels HWIO -> OIHW, DHWIO -> OIDHW; a torch
+module path 'a.b.c' is the flax path a/b/c),
 `unet_variables_from_model` is its inverse, `save_weights` writes a
 tree, and `restore_by_name` overlays a file onto a model wherever names
 and shapes match (the JAX package's by-name restore). Each package reads
@@ -97,7 +100,9 @@ def _kernel_to_flax(arr):
 
 def _flax_key(torch_key):
     """'encoder_L0.conv1.weight' -> ('params', ('encoder_L0', 'conv1',
-    'kernel')); None for buffers with no flax counterpart."""
+    'kernel')), at any nesting ('task_t1.decoder_L0_bn_up.running_var' ->
+    ('batch_stats', ('task_t1', 'decoder_L0_bn_up', 'var'))); None for
+    buffers with no flax counterpart."""
     *mods, leaf = torch_key.split(".")
     if leaf == "num_batches_tracked":
         return None
@@ -107,7 +112,8 @@ def _flax_key(torch_key):
 
 
 def unet_state_dict_from_jax(params, batch_stats, model):
-    """Map a flax UNet variable tree onto `model`'s state dict.
+    """Map a flax UNet, UNet3D or MultiTaskUNet2D variable tree onto
+    `model`'s state dict.
 
     Conv kernels go HWIO -> OIHW (DHWIO -> OIDHW in 3D); BatchNorm
     scale/bias/mean/var go to weight/bias/running_mean/running_var.

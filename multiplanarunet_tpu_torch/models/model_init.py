@@ -1,13 +1,13 @@
 """Model construction from a project's hyperparameters, and the
 continue-training restore.
 
-Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet` and
-the `UNet3D`: the model from the build group, its weights from the JAX
-package's checkpoint files, and `model_initializer` for `mp train` (a fresh
-glorot-uniform init from a seed, `--continue_training` from the last
-'@epoch_NN' checkpoint with the epoch and learning rate of
-logs/training.csv, or `--initialize_from` a weight file, restored by
-name).
+Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet`,
+the `UNet3D` and the `MultiTaskUNet2D`: the model from the build group,
+its weights from the JAX package's checkpoint files, and
+`model_initializer` for `mp train` (a fresh glorot-uniform init from a
+seed, `--continue_training` from the last '@epoch_NN' checkpoint with the
+epoch and learning rate of logs/training.csv, or `--initialize_from` a
+weight file, restored by name).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
+from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.utils.utils import (
@@ -26,15 +27,19 @@ from multiplanarunet_tpu_torch.utils.utils import (
     get_lr_at_epoch,
 )
 
-MODELS = {"UNet": UNet, "UNet3D": UNet3D}
-# build-group fields the U-Nets take; the JAX models' other fields (dim,
-# img_rows/img_cols, l1_reg/l2_reg, and the exact inference restructurings
-# dilated_upconv / subpixel_decoder) do not change what they compute, and
-# keys that are not model fields are ignored, as the JAX package ignores
-# them
+MODELS = {"UNet": UNet, "UNet3D": UNet3D,
+          "MultiTaskUNet2D": MultiTaskUNet2D}
+# build-group fields the U-Nets take; the JAX models' other fields (the
+# single-task dim, img_rows/img_cols, l1_reg/l2_reg, and the exact
+# inference restructurings dilated_upconv / subpixel_decoder) do not
+# change what they compute, and keys that are not model fields are
+# ignored, as the JAX package ignores them
 _UNET_FIELDS = ("n_classes", "n_channels", "depth", "complexity_factor",
                 "init_filters", "kernel_size", "activation",
                 "out_activation")
+# the multi-task model's per-task lists come with the task names and dims
+_FIELDS = {"UNet": _UNET_FIELDS, "UNet3D": _UNET_FIELDS,
+           "MultiTaskUNet2D": ("task_names", "dim") + _UNET_FIELDS}
 
 
 class UnsupportedModelError(ValueError):
@@ -42,8 +47,8 @@ class UnsupportedModelError(ValueError):
 
 
 def build_model(build_hparams, mixed_precision=False, logger=None):
-    """A UNet or UNet3D (eval mode, on the CPU) from the 'build' group;
-    bf16 compute when mixed_precision."""
+    """A UNet, UNet3D or MultiTaskUNet2D (eval mode, on the CPU) from the
+    'build' group; bf16 compute when mixed_precision."""
     logger = logger or ScreenLogger()
     build = dict(build_hparams)
     name = build.get("model_class_name")
@@ -57,7 +62,8 @@ def build_model(build_hparams, mixed_precision=False, logger=None):
     if build.get("flatten_output"):
         raise UnsupportedModelError(
             "flatten_output: the port's U-Nets return (B, C, *spatial)")
-    kwargs = {k: build[k] for k in _UNET_FIELDS if build.get(k) is not None}
+    kwargs = {k: build[k] for k in _FIELDS[name]
+              if build.get(k) is not None}
     if mixed_precision:
         kwargs["dtype"] = torch.bfloat16
     model = MODELS[name](**kwargs).eval()
@@ -66,7 +72,8 @@ def build_model(build_hparams, mixed_precision=False, logger=None):
 
 
 def load_unet_weights(model, path):
-    """Load a JAX-format UNet or UNet3D checkpoint (.npz) into `model`."""
+    """Load a JAX-format UNet, UNet3D or MultiTaskUNet2D checkpoint (.npz)
+    into `model`."""
     params, batch_stats, _ = checkpoint.load_weights(path)
     model.load_state_dict(
         checkpoint.unet_state_dict_from_jax(params, batch_stats, model))
@@ -75,8 +82,9 @@ def load_unet_weights(model, path):
 
 def model_initializer(hparams, continue_training=False, project_dir=None,
                       logger=None, initialize_from=None):
-    """Build a UNet or UNet3D from hparams and initialise it: glorot-uniform
-    from seed 0 (the JAX package initialises from PRNGKey(0)), then, with
+    """Build a model from hparams (`build_model`) and initialise it:
+    glorot-uniform from seed 0 (the JAX package initialises from
+    PRNGKey(0)), then, with
     continue_training, the last '@epoch_NN' checkpoint of
     <project_dir>/model restored by name, the rows of
     logs/training.csv past its epoch dropped and its learning rate

@@ -2,7 +2,8 @@
 sequences.
 
 Port of `multiplanarunet_tpu/preprocessing/data_preparation_funcs.py` for
-the 2D UNet and the UNet3D: the train/val ImagePairLoaders, the
+the 2D UNet, the UNet3D and the MultiTaskUNet2D: the train/val
+ImagePairLoaders, the
 Auditor's fill of the hparams the YAML leaves Null, the aug-data merge with its sample weight,
 --just_one / --no_val, the queues (`get_data_queues`: a LimitationQueue
 for training when fit.max_loaded is set, cycling images every
@@ -10,8 +11,9 @@ fit.num_access accesses, else eager; eager for validation), the views
 (sampled with the 60-degree restriction and weighted by the median voxel
 size, saved to views.npz; reloaded on --continue_training) and the
 train/val sequences on the training device (for the UNet3D no views: its
-samplers draw boxes or patches). The multi-task preparation is not
-ported.
+samplers draw boxes or patches). A multi-task project does all of this
+once per task YAML (`prepare_for_multi_task_2d`), with views_<task>.npz
+per task, and writes the per-task lists into the main build group.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 
 import numpy as np
 
+from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
 from multiplanarunet_tpu_torch.image.auditor import Auditor
 from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
 from multiplanarunet_tpu_torch.image.queue.queues import get_data_queues
@@ -27,7 +30,7 @@ from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.ops.geometry import (
     sample_random_views_with_angle_restriction,
 )
-from multiplanarunet_tpu_torch.sequences import get_sequence
+from multiplanarunet_tpu_torch.sequences import MultiTaskSequence, get_sequence
 
 
 def _base_loader_func(hparams, just_one, no_val, logger, mtype):
@@ -87,17 +90,17 @@ def _base_loader_func(hparams, just_one, no_val, logger, mtype):
 
 
 def load_or_create_views(hparams, continue_training, logger, base_path,
-                         auditor=None):
-    """Resolve fit.views: an int -> freshly sampled restricted views, a
-    list -> those, continue_training -> views.npz reloaded; new views go to
-    views.npz. views.png is not drawn (the port has no matplotlib). The
-    JAX package's pre-noising of listed views for styles other than
-    iso_live is not needed: the port samples iso_live only."""
+                         auditor=None, name="views"):
+    """The views of fit.views: an int -> freshly sampled restricted views,
+    a list -> those, continue_training -> <name>.npz reloaded; new views
+    go to <name>.npz (a multi-task project keeps views_<task>.npz per
+    task). views.png is not drawn (the port has no matplotlib). The JAX
+    package's pre-noising of listed views for styles other than iso_live
+    is not needed: the port samples iso_live only."""
     views = hparams["fit"]["views"]
-    view_path = os.path.join(base_path, "views.npz")
+    view_path = os.path.join(base_path, f"{name}.npz")
     if continue_training:
-        hparams["fit"]["views"] = np.load(view_path)["arr_0"]
-        return
+        return np.load(view_path)["arr_0"]
     if isinstance(views, (int, np.integer)):
         weights = None
         if auditor is not None:
@@ -108,11 +111,12 @@ def load_or_create_views(hparams, continue_training, logger, base_path,
     elif not isinstance(views, (list, tuple, np.ndarray)):
         raise ValueError(f"Invalid 'views' value {views!r}; must be an int "
                          f"or a list of vectors")
-    hparams["fit"]["views"] = np.asarray(views, np.float64)
+    views = np.asarray(views, np.float64)
     logger(f"View SD:     {hparams['fit'].get('noise_sd')}")
-    np.savez(os.path.join(base_path, "views"), hparams["fit"]["views"])
-    logger.warn("Could not plot views: matplotlib is not available to the "
-                "PyTorch port (views.npz holds them)")
+    np.savez(view_path, views)
+    logger.warn(f"Could not plot views: matplotlib is not available to the "
+                f"PyTorch port ({name}.npz holds them)")
+    return views
 
 
 def get_sequencers(train_queue, val_queue, logger, hparams, device=None):
@@ -135,8 +139,8 @@ def prepare_for_multi_view_unet(hparams, just_one=False, no_val=False,
                                 base_path="./", device=None):
     train_queue, val_queue, logger, auditor = _base_loader_func(
         hparams, just_one, no_val, logger, "2d")
-    load_or_create_views(hparams, continue_training, logger, base_path,
-                         auditor)
+    hparams["fit"]["views"] = load_or_create_views(
+        hparams, continue_training, logger, base_path, auditor)
     return get_sequencers(train_queue, val_queue, logger, hparams, device)
 
 
@@ -148,5 +152,72 @@ def prepare_for_3d_unet(hparams, just_one=False, no_val=False,
     return get_sequencers(train_queue, val_queue, logger, hparams, device)
 
 
+def prepare_for_multi_task_2d(hparams, just_one=False, no_val=False,
+                              continue_training=False, logger=None,
+                              base_path="./", device=None):
+    """Per task of the 'tasks' group: its YAML (read without version
+    stamps, the main fit group grafted on in memory), the audited
+    loaders and queues, its views and its train/val sequences; the task
+    names and per-task n_classes, n_channels and dim written into the main
+    build group (and file). Returns (train, val) MultiTaskSequences (val
+    None with no_val or a task without validation data)."""
+    logger = logger or ScreenLogger()
+    tasks = hparams.get("tasks")
+    if not tasks or "task_names" not in tasks:
+        raise ValueError(
+            "MultiTask training needs a 'tasks' group with 'task_names' and "
+            "'hparam_files' in train_hparams.yaml (see the MultiTask "
+            "preset).")
+    names = list(tasks["task_names"])
+    files = list(tasks["hparam_files"])
+    if len(names) != len(files):
+        raise ValueError("tasks.task_names and tasks.hparam_files must have "
+                         "equal length")
+
+    train_seqs, val_seqs = [], []
+    n_classes, n_channels, dims = [], [], []
+    for name, fname in zip(names, files):
+        logger(f"\n[*] Preparing task '{name}' ({fname})")
+        task_hp = YAMLHParams(os.path.join(base_path, fname), logger=logger,
+                              no_version_control=True)
+        # The shared fit settings (bg_value, scaler, max_loaded, ...) come
+        # from the main file; the task file's text is not touched
+        task_hp["fit"] = dict(hparams["fit"])
+        train_queue, val_queue, logger, auditor = _base_loader_func(
+            task_hp, just_one, no_val, logger, "multi_task_2d")
+        spec = task_hp["task_specifics"]
+        fit_kwargs = dict(hparams["fit"])
+        fit_kwargs["views"] = load_or_create_views(
+            hparams, continue_training, logger, base_path, auditor,
+            name=f"views_{name}")
+        fit_kwargs["real_space_span"] = spec["real_space_span"]
+        for queue, is_val, out in ((train_queue, False, train_seqs),
+                                   (val_queue, True, val_seqs)):
+            if not queue:
+                out.append(None)
+                continue
+            out.append(get_sequence(
+                data_queue=queue, is_validation=is_val, logger=logger,
+                dim=spec["dim"], n_classes=spec["n_classes"], device=device,
+                **fit_kwargs))
+        n_classes.append(int(spec["n_classes"]))
+        n_channels.append(int(spec["n_channels"]))
+        dims.append(int(spec["dim"]))
+
+    # The per-task lists MultiTaskUNet2D is built from
+    for key, value in (("task_names", names), ("n_classes", n_classes),
+                       ("n_channels", n_channels), ("dim", dims)):
+        hparams.set_value(subdir="build", name=key, value=value,
+                          overwrite=True, log=False)
+    hparams.save_current()
+
+    train = MultiTaskSequence(train_seqs, names, logger=logger)
+    val = None
+    if not no_val and all(s is not None for s in val_seqs):
+        val = MultiTaskSequence(val_seqs, names, logger=logger, no_log=True)
+    return train, val
+
+
 PREPARATION_FUNCS = {"UNet": prepare_for_multi_view_unet,
-                     "UNet3D": prepare_for_3d_unet}
+                     "UNet3D": prepare_for_3d_unet,
+                     "MultiTaskUNet2D": prepare_for_multi_task_2d}

@@ -1,6 +1,7 @@
 """Batch samplers and their factory: the multi-planar slice sampler
-(iso_live), the isotropic 3D box sampler (iso_live_3d) and the voxel-space
-patch samplers (patches_3d, sliding_patches_3d)."""
+(iso_live), the isotropic 3D box sampler (iso_live_3d), the voxel-space
+patch samplers (patches_3d, sliding_patches_3d), and MultiTaskSequence,
+one sampler per task."""
 
 from multiplanarunet_tpu_torch.augmentation.augmenters import build_augmenters
 from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
@@ -11,6 +12,7 @@ from multiplanarunet_tpu_torch.sequences.iso_3d import (
 from multiplanarunet_tpu_torch.sequences.multi_planar import (
     IsotrophicLiveViewSequence2D,
 )
+from multiplanarunet_tpu_torch.sequences.multi_task import MultiTaskSequence
 from multiplanarunet_tpu_torch.sequences.patches_3d import (
     PatchSequence3D,
     SlidingPatchSequence3D,

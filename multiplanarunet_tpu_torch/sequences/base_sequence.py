@@ -41,6 +41,11 @@ class BaseSequence:
         self._batch_size = int(value)
 
 
+def _tensors(part):
+    """The tensors of a batch part: one, or a list of them per task."""
+    return list(part) if isinstance(part, (list, tuple)) else [part]
+
+
 def prefetched(sequence, n_batches, device):
     """Yield sequence[0 .. n_batches-1], each sampled in a worker thread
     while the caller works on the one before (one-deep prefetch).
@@ -48,8 +53,9 @@ def prefetched(sequence, n_batches, device):
     On a CUDA device the worker samples on a stream of its own, so its
     gathers and host fetches do not wait behind the caller's queued
     work; the caller's stream waits for an event recorded after each
-    batch, and the batch tensors are marked as used on the caller's
-    stream (`record_stream`) before the allocator may reuse them."""
+    batch, and the batch tensors (every task's, for a multi-task batch of
+    lists) are marked as used on the caller's stream (`record_stream`)
+    before the allocator may reuse them."""
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
@@ -71,6 +77,6 @@ def prefetched(sequence, n_batches, device):
             if done is not None:
                 current = torch.cuda.current_stream(device)
                 current.wait_event(done)
-                for t in (X, y):
+                for t in _tensors(X) + _tensors(y):
                     t.record_stream(current)
             yield X, y, w

@@ -15,6 +15,13 @@ weights (B,), for 2D slices and 3D boxes alike. The steps
 return their logs as 0-d tensors on the device, so the caller decides
 when to fetch them. The eval step also returns the int32 per-class
 (tp, rel = |y == c|, sel = |pred == c|) counts of the batch.
+
+The multi-task steps (`make_multitask_train_step` / `_eval_step` of the
+JAX package) take lists with one batch per task, whose shapes may differ,
+through a MultiTaskUNet2D: the loss is the mean of the per-task losses
+(plus the penalty), so each step updates the shared encoder from every
+task; the logs add task_{t}/loss and task_{t}/<metric>, and the eval step
+returns a tuple of per-task (tp, rel, sel) counts.
 """
 
 from __future__ import annotations
@@ -111,3 +118,60 @@ class EvalStep:
         for name, fn in self.metric_fns.items():
             logs[name] = fn(y, out)
         return logs, class_counts(y, out, self.n_classes)
+
+
+def _forward_tasks(model, xs):
+    """A multi-task model over channels-last batches, one per task."""
+    return [o.movedim(1, -1)
+            for o in model([x.movedim(-1, 1) for x in xs])]
+
+
+def _task_logs(metric_fns, ys, outs, losses):
+    logs = {}
+    for t, (y, out, loss) in enumerate(zip(ys, outs, losses)):
+        logs[f"task_{t}/loss"] = loss.detach()
+        for name, fn in metric_fns.items():
+            logs[f"task_{t}/{name}"] = fn(y, out)
+    return logs
+
+
+class MultiTaskTrainStep(TrainStep):
+    """(xs, ys, ws) lists per task -> logs: one optimisation step of a
+    MultiTaskUNet2D."""
+
+    def __call__(self, xs, ys, ws):
+        self.model.train()
+        outs = _forward_tasks(self.model, xs)
+        losses = [self.loss_obj(y, out, sample_weight=_weights(w, out.device))
+                  for y, out, w in zip(ys, outs, ws)]
+        loss = sum(losses) / len(losses)
+        loss = loss + reg_penalty(self._params, self.l1_reg, self.l2_reg)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        with torch.no_grad():
+            return {"loss": loss.detach(),
+                    **_task_logs(self.metric_fns, ys,
+                                 [o.detach() for o in outs], losses)}
+
+
+class MultiTaskEvalStep:
+    """(xs, ys, ws) lists per task -> (logs, ((tp, rel, sel), ...) per
+    task) of a MultiTaskUNet2D in eval mode."""
+
+    def __init__(self, model, loss_obj, metric_fns, n_classes_per_task):
+        self.model = model
+        self.loss_obj = loss_obj
+        self.metric_fns = dict(metric_fns)
+        self.n_classes = [int(n) for n in n_classes_per_task]
+
+    @torch.no_grad()
+    def __call__(self, xs, ys, ws):
+        self.model.eval()
+        outs = _forward_tasks(self.model, xs)
+        losses = [self.loss_obj(y, out, sample_weight=_weights(w, out.device))
+                  for y, out, w in zip(ys, outs, ws)]
+        logs = {"loss": sum(losses) / len(losses),
+                **_task_logs(self.metric_fns, ys, outs, losses)}
+        return logs, tuple(class_counts(y, out, n)
+                           for y, out, n in zip(ys, outs, self.n_classes))

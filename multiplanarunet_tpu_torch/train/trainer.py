@@ -7,7 +7,9 @@ Validation callback first, the next batch sampled one step ahead,
 per-epoch means of the step logs plus `lr`) and retries with the batch
 size lowered by 2 on torch.cuda.OutOfMemoryError, after freeing the
 allocator's cached blocks. The step logs stay on the device through an
-epoch and are fetched once at its end. Sample images are not saved: the
+epoch and are fetched once at its end. A MultiTaskUNet2D (`multitask`:
+its n_classes is a list) trains on the multi-task steps over a
+MultiTaskSequence's per-task batch lists. Sample images are not saved: the
 port has no matplotlib, and `fit` logs one warning instead, as the JAX
 package does when saving fails.
 """
@@ -25,7 +27,12 @@ from multiplanarunet_tpu_torch.callbacks.validation import Validation
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
 from multiplanarunet_tpu_torch.sequences.base_sequence import prefetched
-from multiplanarunet_tpu_torch.train.train_step import EvalStep, TrainStep
+from multiplanarunet_tpu_torch.train.train_step import (
+    EvalStep,
+    MultiTaskEvalStep,
+    MultiTaskTrainStep,
+    TrainStep,
+)
 from multiplanarunet_tpu_torch.train.utils import (
     ensure_sparse,
     init_losses,
@@ -60,14 +67,27 @@ class Trainer:
         loss_obj = init_losses(loss, logger=self.logger,
                                **(loss_kwargs or {}))[0]
         metric_fns = init_metrics(metrics, logger=self.logger)
-        self.train_step = TrainStep(self.model, self.optimizer, loss_obj,
+        train_cls, eval_cls = ((MultiTaskTrainStep, MultiTaskEvalStep)
+                               if self.multitask else (TrainStep, EvalStep))
+        self.train_step = train_cls(self.model, self.optimizer, loss_obj,
                                     metric_fns, l1_reg=l1_reg, l2_reg=l2_reg)
-        self.eval_step = EvalStep(self.model, loss_obj, metric_fns,
-                                  self.model.n_classes)
+        self.eval_step = eval_cls(self.model, loss_obj, metric_fns,
+                                  self.n_classes)
         self.logger("Trainer compiled.")
         return self
 
     # --------------------------------------------------------------- state
+    @property
+    def multitask(self):
+        """True for a model taking per-task input lists
+        (MultiTaskUNet2D)."""
+        return isinstance(getattr(self.model, "n_classes", None),
+                          (list, tuple))
+
+    @property
+    def n_classes(self):
+        return self.model.n_classes
+
     @property
     def learning_rate(self):
         return self.optimizer.learning_rate
@@ -165,8 +185,12 @@ class Trainer:
     @staticmethod
     def _stop_queues(train, val):
         """De-register the datasets of LimitationQueues from their loading
-        pool (its daemon threads end with the process)."""
+        pool (its daemon threads end with the process), every task's for
+        a MultiTaskSequence."""
+        seqs = []
         for seq in (train, val):
+            seqs += getattr(seq, "sequences", None) or [seq]
+        for seq in seqs:
             queue = getattr(seq, "image_pair_queue", None)
             pool = getattr(queue, "loading_pool", None)
             if pool is not None:

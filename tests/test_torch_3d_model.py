@@ -289,5 +289,10 @@ def test_build_model_and_initializer_build_unet3d(tmp_path):
     want = _port(params, stats).state_dict()
     for k, v in restored.state_dict().items():
         assert torch.equal(v, want[k]), k
+    multi = build_model({**build, "model_class_name": "MultiTaskUNet2D",
+                         "task_names": ["a", "b"], "n_classes": [3, 4],
+                         "n_channels": [1, 1], "dim": [16, 32]})
+    assert type(multi).__name__ == "MultiTaskUNet2D"
+    assert multi.n_classes == [3, 4] and multi.depth == 2
     with pytest.raises(UnsupportedModelError):
-        build_model({**build, "model_class_name": "MultiTaskUNet2D"})
+        build_model({**build, "model_class_name": "FusionModel"})

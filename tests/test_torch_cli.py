@@ -248,7 +248,7 @@ def test_build_model_honours_unet_fields(tmp_path, extra):
 
 def test_build_model_named_errors():
     base = dict(model_class_name="UNet", n_classes=2, dim=16, depth=2)
-    for bad, err in ((dict(model_class_name="MultiTaskUNet2D"),
+    for bad, err in ((dict(model_class_name="NoSuchUNet"),
                       UnsupportedModelError),
                      (dict(padding="valid"), UnsupportedModelError),
                      (dict(flatten_output=True), UnsupportedModelError),
@@ -262,8 +262,8 @@ def test_build_model_named_errors():
 
 
 def test_mp_dispatch_and_device_errors(tmp_path, monkeypatch):
-    with pytest.raises(t_mp.ScriptNotPortedError, match="branch"):
-        t_mp.entry_func(["branch", "--project_dir", str(tmp_path)])
+    with pytest.raises(t_mp.ScriptNotPortedError, match="trim_channels"):
+        t_mp.entry_func(["trim_channels", "--folder", str(tmp_path)])
     with pytest.raises(t_predict.MultiDeviceNotPortedError):
         t_mp.entry_func(["predict", "--num_devices", "2"])
     # The default device is CUDA: with no card visible it raises, and never

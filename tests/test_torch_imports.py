@@ -76,6 +76,11 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.sequences.iso_3d",
     "multiplanarunet_tpu_torch.sequences.patches_3d",
     "multiplanarunet_tpu_torch.bin.predict_3D",
+    "multiplanarunet_tpu_torch.models",
+    "multiplanarunet_tpu_torch.models.multitask_unet",
+    "multiplanarunet_tpu_torch.sequences.multi_task",
+    "multiplanarunet_tpu_torch.hyperparameters.yaml_writer",
+    "multiplanarunet_tpu_torch.bin.branch",
 ]
 BANNED = ("jax", "flax", "optax", "yaml", "pandas", "sklearn", "nibabel",
           "matplotlib", "multiplanarunet_tpu")
@@ -116,7 +121,7 @@ def test_port_runs_with_banned_packages_blocked():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from multiplanarunet_tpu_torch.bin.mp import PORTED\n"
-        "assert len(PORTED) == 10, PORTED\n"
+        "assert len(PORTED) == 11, PORTED\n"
         "for script in PORTED:\n"
         "    sys.argv = ['mp', script, '--help']\n"
         "    try:\n"
@@ -133,9 +138,10 @@ def test_port_runs_with_banned_packages_blocked():
     assert "--continue_training" in proc.stdout
     for flag in ("--images_per_round", "--model", "--N_channels",
                  "--CV_dir", "--validation_fraction", "--checkout",
-                 "--max_loaded_images", "--extra_boxes", "--strides"):
+                 "--max_loaded_images", "--extra_boxes", "--strides",
+                 "--copy_weights"):
         assert flag in proc.stdout, flag
-    assert proc.stdout.count("helped ") == 10
+    assert proc.stdout.count("helped ") == 11
     assert proc.stdout.strip().endswith("ran")
 
 

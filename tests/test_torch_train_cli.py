@@ -190,8 +190,8 @@ def test_named_errors(trained, tmp_path, monkeypatch):
         _run(t_mp.entry_func, "train", "--project_dir", str(tmp_path),
              "--device", "cpu")
     for name, extra, err in (
-            ("multitask", [('model_class_name: "UNet"',
-                            'model_class_name: "MultiTaskUNet2D"')],
+            ("unknown_model", [('model_class_name: "UNet"',
+                                'model_class_name: "NoSuchUNet"')],
              UnsupportedModelError),
             ("quantile", [('scaler: "RobustScaler"',
                            'scaler: "QuantileTransformer"')],
