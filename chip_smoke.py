@@ -23,7 +23,16 @@ validation times; the pooled sampler against the per-image path in
 alternating rounds, its parts, its batches on the card against the CPU's
 and its pool's bytes; the pooled path with LRU eviction over a
 LimitationQueue, and `mp train --max_loaded_images 2` (a subprocess, the
-per-image path over a LimitationQueue). Then the 3D path at the 3D
+per-image path over a LimitationQueue). Then the callbacks and tools: `mp
+train` (a subprocess, 2 epochs of 10 steps) of a copy of that project
+with the QuantileTransformer scaler and every callback configurable by
+name (the Profiler's trace of epoch 1 read for its CUDA kernels),
+Trainer.predict_batch against the eval-mode forward, ValDiceScores,
+DeviceMonitor and describe_devices, the analytic U-Net FLOPs against the
+hook count, the scaler's host seconds per 256^3 subject, `mp predict` of
+the val subject on the trained copy, `mp trim_channels`, and `mp
+export_weights` -> `mp convert_weights` (or, without h5py, the error
+that names it). Then the 3D path at the 3D
 preset's full width (UNet3D cf 1, depth 3, 64 filters, 64^3 boxes, batch
 16): a project from `mp init_project --model 3D` over the same subjects
 (the Auditor fills dim and real_box_dim), `mp train` (a subprocess, 2
@@ -1317,14 +1326,16 @@ def write_train_project(root, dev):
 
 
 def run_mp_train(proj, dev, n_epochs=TRAIN_EPOCHS, images=TRAIN_IMAGES,
-                 val_images=VAL_IMAGES, sampler="Sampler: pooled path"):
+                 val_images=VAL_IMAGES, sampler="Sampler: pooled path",
+                 no_images=True):
     """`python -m multiplanarunet_tpu_torch.bin.mp train` in a subprocess;
     returns (wall seconds, the per-epoch (train loop s, callbacks s) its
     log reports). Fails on a non-zero exit, or when its log does not name
     the pooled sampler (`sampler` begins its log line)."""
     wall, _ = run_mp_script(
         ["train", "--project_dir", str(proj), "--device", str(dev),
-         "--overwrite", "--no_images", "--epochs", str(n_epochs),
+         "--overwrite", *(["--no_images"] if no_images else []),
+         "--epochs", str(n_epochs),
          "--train_images_per_epoch", str(images),
          "--val_images_per_epoch", str(val_images)], timeout=900)
     epochs = []
@@ -2037,7 +2048,338 @@ def phase_training(dev, tmp, card):
     phase_pooled_eviction(proj, dev, card)
     run_bounded_mp_train(proj, dev, root, card)
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
-    return proj, dirs
+    return proj, dirs, epochs
+
+
+# ----------------------------------------------------- callbacks and tools
+# `mp train` of a copy of train-256's project with the QuantileTransformer
+# scaler and the callbacks configured by name (MemoryConsumption before
+# the CSVLogger, so that memory_gib is a CSV column; Profiler on epoch 1):
+# 2 epochs of 10 steps of 16 and 2 validation steps
+CB_EPOCHS, CB_IMAGES, CB_VAL_IMAGES = 2, 160, 32
+CB_CALLBACKS = (
+    "{class_name: MemoryConsumption}, {class_name: DividerLine}, "
+    "{class_name: LearningCurve}, {class_name: FGBatchBalancer}, "
+    "{class_name: MeanReduceLogArrays}, "
+    "{class_name: PrintLayerWeights, kwargs: {layer: encoder_L0}}, "
+    "{class_name: SavePredictionImages}, {class_name: SaveOutputAs2DImage}, "
+    "{class_name: Profiler, kwargs: {log_dir: logs/profile, epochs: [1]}}")
+# What each plotting step warns where matplotlib cannot be imported, and
+# the files it writes where it can
+PLOT_WARNINGS = ("Could not save sample images", "Could not plot views",
+                 "LearningCurve failed", "SavePredictionImages failed",
+                 "SaveOutputAs2DImage failed")
+PLOT_FILES = ("images/train_images.png", "views.png", "logs/curve.png",
+              "images/epoch_001.png", "images/outputs/output_epoch_001.png")
+SCALER_REPS = 3
+
+
+def importable(name):
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def write_callbacks_project(proj, root):
+    """A copy of the trained train-256 project's YAML (its data, the
+    Auditor's values) with scaler QuantileTransformer and CB_CALLBACKS
+    inserted before the CSVLogger."""
+    out = root / "callbacks_project"
+    out.mkdir()
+    text = (proj / "train_hparams.yaml").read_text()
+    for old, new in (('scaler: "RobustScaler"',
+                      'scaler: "QuantileTransformer"'),
+                     ("callbacks: [*RLOP, *MCP_CLEAN, *ES, *TIMER, *CSV]",
+                      f"callbacks: [*RLOP, *MCP_CLEAN, *ES, *TIMER, "
+                      f"{CB_CALLBACKS}, *CSV]")):
+        if old not in text:
+            raise AssertionError(f"train-256's YAML lacks {old!r}")
+        text = text.replace(old, new)
+    (out / "train_hparams.yaml").write_text(text)
+    return out
+
+
+def trace_kernels(path):
+    """{kernel name: (total device us, launches)} of the CUDA kernel
+    events of a torch.profiler Chrome trace."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            us, n = out.get(e["name"], (0.0, 0))
+            out[e["name"]] = (us + float(e.get("dur", 0.0)), n + 1)
+    return out
+
+
+def check_callbacks_training(proj, card):
+    """Gates on the callbacks project's `mp train`: memory_gib in the CSV,
+    the DividerLine, PrintLayerWeights (finite mean and std) and
+    FGBalancer lines in the log, the Profiler's trace with CUDA kernel
+    events, and per plotting step its PNG where matplotlib imports or its
+    warning where it does not. Prints the trace's top five kernels and
+    the epoch walls beside train-256's."""
+    head = (proj / "logs" / "training.csv").read_text().splitlines()[0]
+    if "memory_gib" not in head.split(","):
+        raise AssertionError(f"training.csv lacks memory_gib: {head}")
+    text = (proj / "logs" / "train.txt").read_text()
+    weights = [line for line in text.splitlines()
+               if line.startswith("[Weights/encoder_L0] mean=")]
+    stats = [float(w.split("=")[1].split()[0]) for line in weights
+             for w in line.split()[1:3]]
+    if (text.count("-" * 60) < CB_EPOCHS or len(weights) != CB_EPOCHS
+            or not np.all(np.isfinite(stats))
+            or "[FGBalancer] fg_batch_fraction -> " not in text):
+        raise AssertionError("mp train's log lacks the DividerLine, "
+                             "PrintLayerWeights or FGBalancer lines")
+    trace = proj / "logs" / "profile" / "trace_epoch_1.json"
+    kernels = trace_kernels(trace)
+    if not kernels:
+        raise AssertionError(f"{trace} holds no CUDA kernel events")
+    total = sum(us for us, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"[{card}] Profiler trace of epoch 1 ({trace.stat().st_size / 2**20:.1f}"
+        f" MiB, {sum(n for _, n in kernels.values())} kernel launches, "
+        f"{total / 1e3:.1f} ms of kernels), top five by total time:\n"
+        + "\n".join(f"  {us / 1e3:9.2f} ms {n:6d}x  {name[:100]}"
+                    for name, (us, n) in top))
+    warnings = (proj / "logs" / "warnings.txt").read_text() if (
+        proj / "logs" / "warnings.txt").exists() else ""
+    if importable("matplotlib"):
+        missing = [f for f in PLOT_FILES if not (proj / f).exists()]
+        if missing:
+            raise AssertionError(f"matplotlib imports, yet no {missing}")
+        log(f"matplotlib imports here: {list(PLOT_FILES)} written")
+    else:
+        missing = [w for w in PLOT_WARNINGS if w not in warnings]
+        if missing:
+            raise AssertionError(f"no matplotlib, and no warning {missing}")
+        log(f"matplotlib cannot be imported here: each plotting step logged "
+            f"its warning ({', '.join(PLOT_WARNINGS)}) and training "
+            f"finished")
+    return weights
+
+
+def check_predict_batch(trainer, dev, card):
+    """Trainer.predict_batch on one batch of BATCH planes of DIM^2 against
+    the eval-mode model's forward, its time over 10 calls and its peak;
+    ValDiceScores on that batch against dice_all of the host argmax. Runs
+    under a DeviceMonitor(interval_s=0.5), whose samples must lie between
+    the bytes allocated when it started and the peak of the window."""
+    from multiplanarunet_tpu_torch.callbacks.validation import ValDiceScores
+    from multiplanarunet_tpu_torch.evaluate.metrics import dice_all
+    from multiplanarunet_tpu_torch.utils.system import DeviceMonitor
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    X = torch.rand((BATCH, DIM, DIM, N_CHANNELS), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    floor = torch.cuda.memory_allocated(dev)
+    lines = []
+    monitor = DeviceMonitor(logger=lines.append, interval_s=0.5)
+    t_start = time.perf_counter()
+    probs = trainer.predict_batch(X)
+    with torch.no_grad():
+        trainer.model.eval()
+        ref = trainer.model(X.movedim(-1, 1)).movedim(1, -1)
+    diff = float((probs - ref).abs().max())
+    base = torch.cuda.memory_allocated(dev)
+    first_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(lambda: trainer.predict_batch(X), 10)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    # labels: the model's own classes on half the planes, random elsewhere
+    host_cls = probs.argmax(-1).cpu().numpy()
+    y = np.random.RandomState(4).randint(0, N_CLASSES, host_cls.shape)
+    y[: BATCH // 2] = host_cls[: BATCH // 2]
+    # one chunk of the whole batch: the argmax of the same forward as probs
+    vds = ValDiceScores((X, y[..., None]), N_CLASSES, batch_size=BATCH)
+    vds.set_trainer(trainer)
+    got = float(vds.eval())
+    want = float(np.nanmean(dice_all(y, host_cls, n_classes=N_CLASSES,
+                                     ignore_zero=True)))
+    while len(monitor.samples) < 2 and time.perf_counter() - t_start < 5:
+        time.sleep(0.1)
+    monitor.stop()
+    top = max(first_peak, torch.cuda.max_memory_allocated(dev))
+    log(f"[{card}] Trainer.predict_batch ({BATCH} planes of {DIM}^2, bf16 "
+        f"U-Net, eval mode): {ms:.2f} ms per call (10 calls, CUDA events), "
+        f"peak {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+        f"allocated; vs the eval-mode forward: max abs diff {diff:.3g}")
+    log(f"ValDiceScores on that batch: {got:.6f}; dice_all of the host "
+        f"argmax: {want:.6f}")
+    log(f"DeviceMonitor(interval_s=0.5): {len(monitor.samples)} samples, "
+        f"first line {lines[0] if lines else None!r}; allocated "
+        f"{floor} bytes at its start, peak {top} in the window")
+    if diff > 1e-6 or abs(got - want) > 1e-6:
+        raise AssertionError("predict_batch or ValDiceScores disagrees")
+    if not monitor.samples or not all(
+            floor <= n <= top for _, _, n in monitor.samples):
+        raise AssertionError(f"DeviceMonitor samples {monitor.samples} "
+                             f"outside [{floor}, {top}]")
+    return ms
+
+
+def scaler_seconds(vol):
+    """Host seconds of fit + transform of one volume per scaler
+    (SCALER_REPS repetitions each, the numpy stream seeded), and gates on
+    the QuantileTransformer's output: in [0, 1] and monotone in the
+    input."""
+    from multiplanarunet_tpu_torch.preprocessing.scaling import get_scaler
+
+    out, secs = None, {}
+    for name in ("QuantileTransformer", "RobustScaler"):
+        secs[name] = []
+        for _ in range(SCALER_REPS):
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            scaled = get_scaler(name).fit_transform(vol)
+            secs[name].append(time.perf_counter() - t0)
+            if name == "QuantileTransformer":
+                out = scaled
+    x = vol.reshape(-1)
+    y = out.reshape(-1)
+    idx = np.random.RandomState(5).choice(x.size, 2 ** 20, replace=False)
+    order = np.argsort(x[idx], kind="stable")
+    if (y.min() < 0 or y.max() > 1
+            or np.any(np.diff(y[idx][order]) < 0)):
+        raise AssertionError("QuantileTransformer output outside [0, 1] or "
+                             "not monotone in the input")
+    return secs
+
+
+def phase_callbacks_tools(dev, tmp, proj, dirs, epochs_256, card):
+    """The callbacks, the QuantileTransformer scaler and the tools at the
+    bench model's full width: `mp train` of a copy of train-256's project
+    (QuantileTransformer, the callbacks of CB_CALLBACKS; gates in
+    check_callbacks_training), predict_batch, ValDiceScores, DeviceMonitor
+    and describe_devices in-process, the analytic FLOPs against the hook
+    count, the scaler's host seconds, `mp predict` of the val subject on
+    the trained copy (shear path, 72 launches from 0), `mp trim_channels`
+    on a 2-channel NIfTI, and `mp export_weights` -> `mp convert_weights`
+    of the trained model where h5py imports (else both must raise an
+    error naming h5py). Returns the shear-pass launches of the mp predict
+    run."""
+    from multiplanarunet_tpu_torch.utils.conv_arithmetics import (
+        unet_forward_flops,
+    )
+    from multiplanarunet_tpu_torch.utils.system import describe_devices
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = Path(tmp) / "callbacks"
+    root.mkdir()
+    cproj = write_callbacks_project(proj, root)
+    wall, epochs = run_mp_train(cproj, dev, n_epochs=CB_EPOCHS,
+                                images=CB_IMAGES, val_images=CB_VAL_IMAGES,
+                                no_images=False)
+    weights = check_callbacks_training(cproj, card)
+    steps = CB_IMAGES // BATCH
+    steps_256 = TRAIN_IMAGES // BATCH
+    log(f"[{card}] mp train with QuantileTransformer and the callbacks: "
+        f"{wall:.1f} s wall for {CB_EPOCHS} epochs of {steps} steps; train "
+        f"loop per epoch {[round(e[0], 3) for e in epochs]} s "
+        f"({[round(1e3 * e[0] / steps, 1) for e in epochs]} ms per step; "
+        f"epoch 1 profiled), callbacks incl. validation "
+        f"{[round(e[1], 3) for e in epochs]} s; train-256's epochs "
+        f"{[round(e[0], 3) for e in epochs_256]} s of {steps_256} steps "
+        f"({[round(1e3 * e[0] / steps_256, 1) for e in epochs_256]} ms per "
+        f"step), callbacks {[round(e[1], 3) for e in epochs_256]} s; "
+        f"{weights[-1]}")
+
+    # In-process: predict_batch, ValDiceScores, DeviceMonitor, devices
+    hparams = YAMLHParams(cproj / "train_hparams.yaml", no_log=True)
+    model = load_unet_weights(
+        build_model(hparams["build"], mixed_precision=True,
+                    logger=ScreenLogger(False)),
+        cproj / "model" / "model_weights.npz")
+    trainer = Trainer(model, logger=ScreenLogger(False), device=dev)
+    check_predict_batch(trainer, dev, card)
+    described = describe_devices()
+    if torch.cuda.get_device_name(0) not in described:
+        raise AssertionError(f"describe_devices() {described!r}")
+    log(f"describe_devices(): {described!r}")
+    analytic = unet_forward_flops(DIM, N_CLASSES, depth=DEPTH,
+                                  complexity_factor=CF)
+    hooked = unet_flops_per_plane(model, dev)
+    log(f"unet_forward_flops({DIM}, {N_CLASSES}, depth={DEPTH}, "
+        f"complexity_factor={CF}) = {analytic:.0f}; hook count "
+        f"{hooked}; difference {hooked - analytic:.0f}")
+    if hooked != analytic:
+        raise AssertionError("the analytic FLOPs differ from the hook count")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # The scaler's host cost on one 256^3 subject
+    vol = nifti.load(dirs["val"] / "images" / "val_0.nii.gz").get_fdata()
+    secs = scaler_seconds(vol[..., None])
+    log(f"[{card}] host fit + transform of one {DIM}^3 subject "
+        f"({SCALER_REPS} repetitions): "
+        + "; ".join(f"{k} {[round(t, 3) for t in v]} s"
+                    for k, v in secs.items())
+        + "; the QuantileTransformer's output in [0, 1], monotone")
+
+    # mp predict of the val subject on the trained copy
+    views = np.load(cproj / "views.npz")["arr_0"]
+    planner = MultiViewPredictor(None, sample_dim=DIM,
+                                 real_space_span=float(
+                                     hparams["fit"]["real_space_span"]),
+                                 n_classes=N_CLASSES, device=dev)
+    plans = view_plans(planner, Image(vol[..., None], np.eye(4)), views)
+    timings, launches = run_mp_predict_counted(cproj, "pred_quantile", [],
+                                               plans)
+    if launches != 72 or len(timings) != 1:
+        raise AssertionError(f"mp predict: {launches} shear-pass launches "
+                             f"for {len(timings)} images (72 for one)")
+    for image_id, t in timings.items():
+        log(f"[{card}] mp predict (QuantileTransformer) {image_id}: host "
+            f"load (decode + scale) {t['load']:.3f} s, predict_image "
+            f"{t['predict']:.3f} s, save {t['save']:.3f} s; shear-pass "
+            f"launches {launches}")
+
+    # mp trim_channels on a 2-channel copy of the val image
+    trim_dir = root / "trim"
+    trim_dir.mkdir()
+    two = np.stack([vol, 2.0 * vol], axis=-1).astype(np.float32)
+    nifti.save(two, trim_dir / "val_0_2ch.nii", np.eye(4))
+    t0 = time.perf_counter()
+    port_mp.entry_func(["trim_channels", "--folder", str(trim_dir),
+                        "--channels", "1"])
+    kept = nifti.load(trim_dir / "val_0_2ch.nii").get_raw_data()
+    if kept.shape != vol.shape or not np.array_equal(kept, two[..., 1]):
+        raise AssertionError(f"trim_channels kept {kept.shape}")
+    log(f"mp trim_channels: {two.shape} -> {kept.shape}, channel 1 kept "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # mp export_weights -> mp convert_weights of the trained model
+    npz = cproj / "model" / "model_weights.npz"
+    h5, back = root / "weights.h5", root / "weights_back.npz"
+    if importable("h5py"):
+        port_mp.entry_func(["export_weights", "--weights", str(npz), "--out",
+                            str(h5)])
+        port_mp.entry_func(["convert_weights", "--h5", str(h5), "--out",
+                            str(back)])
+        with np.load(npz) as a, np.load(back) as b:
+            keys = [k for k in a.files if k != "__meta__"]
+            if sorted(keys) != sorted(k for k in b.files if k != "__meta__") \
+                    or any(not np.array_equal(a[k], b[k]) for k in keys):
+                raise AssertionError("export -> convert changed the weights")
+        log(f"mp export_weights -> mp convert_weights: {len(keys)} arrays "
+            f"back unchanged")
+    else:
+        for args in (["export_weights", "--weights", str(npz), "--out",
+                      str(h5)],
+                     ["convert_weights", "--h5", str(h5), "--out",
+                      str(back)]):
+            try:
+                port_mp.entry_func(args)
+            except ImportError as e:
+                if "h5py" not in str(e):
+                    raise
+                log(f"mp {args[0]} without h5py: {e}")
+            else:
+                raise AssertionError(f"mp {args[0]} ran without h5py")
+    log(f"callbacks and tools phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ------------------------------------------------------------------ 3D path
@@ -2806,7 +3148,9 @@ def main():
         e, paths[f"{DIM_LARGE}^3"] = phase_large(dev, predictor.model, views, fusion)
         err = max(err, e)
         del predictor
-        proj, dirs = phase_training(dev, tmp, card)
+        proj, dirs, epochs_256 = phase_training(dev, tmp, card)
+        paths["mp predict (QuantileTransformer)"] = phase_callbacks_tools(
+            dev, tmp, proj, dirs, epochs_256, card)
         paths["3D (in-process)"] = phase_3d(dev, tmp, proj.parent / "data",
                                             dirs, card)
         paths["multi-task (in-process)"] = phase_multitask(dev, tmp, dirs,

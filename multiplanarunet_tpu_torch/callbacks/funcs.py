@@ -1,22 +1,29 @@
 """Callback objects from YAML config dicts (as
 `multiplanarunet_tpu/callbacks/funcs.py`): each entry is {class_name,
 kwargs, nickname?, pass_logger?, start_from?}; `start_from` wraps the
-callback in DelayedCallback. A class name the port does not have raises
+callback in DelayedCallback. The registry holds the sixteen callback
+classes the JAX package resolves by name; any other name raises
 CallbackNotPortedError: a configured callback is never skipped."""
 
 from __future__ import annotations
 
 from multiplanarunet_tpu_torch.callbacks import callbacks as cb_mod
-from multiplanarunet_tpu_torch.callbacks.validation import Validation
+from multiplanarunet_tpu_torch.callbacks.validation import (
+    ValDiceScores,
+    Validation,
+)
 
 CALLBACKS = {cls.__name__: cls for cls in (
     cb_mod.ModelCheckPointClean, cb_mod.EarlyStopping,
     cb_mod.ReduceLROnPlateau, cb_mod.CSVLogger, cb_mod.TrainTimer,
-    Validation)}
+    cb_mod.MemoryConsumption, cb_mod.DividerLine, cb_mod.LearningCurve,
+    cb_mod.FGBatchBalancer, cb_mod.MeanReduceLogArrays,
+    cb_mod.PrintLayerWeights, cb_mod.SavePredictionImages, cb_mod.Profiler,
+    cb_mod.SaveOutputAs2DImage, Validation, ValDiceScores)}
 
 
 class CallbackNotPortedError(ValueError):
-    """A callback class the PyTorch port does not have."""
+    """A callback class name the registry does not hold."""
 
 
 def init_callback_objects(callbacks, logger=None):
@@ -31,9 +38,8 @@ def init_callback_objects(callbacks, logger=None):
         name = spec["class_name"]
         if name not in CALLBACKS:
             raise CallbackNotPortedError(
-                f"Callback {name!r} is not available in the PyTorch port "
-                f"(available: {sorted(CALLBACKS)}); remove it from the "
-                f"project's callbacks to train with the port")
+                f"Unknown callback class {name!r} (available: "
+                f"{sorted(CALLBACKS)})")
         kwargs = dict(spec.get("kwargs", {}))
         if spec.get("pass_logger"):
             kwargs["logger"] = logger

@@ -11,6 +11,11 @@ classes present in the labels, background left out). For a multi-task
 trainer the counts are per task: each task's mean dice goes to
 val_task_{t}/dice, and val_precision, val_recall and val_dice are the
 means over the tasks.
+
+`ValDiceScores` (`validation.py:ValDiceScores` of the JAX package) is the
+light epoch metric over fixed (X, y) arrays: the trainer's predict_batch
+in chunks, the argmax on the device, one fetch of class ids per chunk,
+and the mean foreground dice into logs["val_dice"].
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ import numpy as np
 import torch
 
 from multiplanarunet_tpu_torch.callbacks.callbacks import Callback
-from multiplanarunet_tpu_torch.evaluate.metrics import precision_recall_dice
+from multiplanarunet_tpu_torch.evaluate.metrics import (
+    dice_all,
+    precision_recall_dice,
+)
 from multiplanarunet_tpu_torch.sequences.base_sequence import prefetched
 
 
@@ -91,3 +99,34 @@ class Validation(Callback):
                     log(f"{c:>8} {precision[i]:>10.4f} {recall[i]:>10.4f} "
                         f"{dice[i]:>10.4f}")
                 log(f"{'mean':>8} {tmp:>10.4f} {tmr:>10.4f} {tmd:>10.4f}")
+
+
+class ValDiceScores(Callback):
+    """Mean foreground dice of the trainer's model over fixed validation
+    arrays (X, y), into logs["val_dice"]."""
+
+    def __init__(self, validation_data, n_classes, batch_size=2 ** 17,
+                 logger=None, **kwargs):
+        self.X_val, self.y_val = validation_data
+        self.n_classes = int(n_classes)
+        self.batch_size = int(batch_size)
+        self.logger = logger
+
+    def eval(self):
+        preds = []
+        for i in range(0, len(self.X_val), self.batch_size):
+            out = self.trainer.predict_batch(self.X_val[i:i + self.batch_size])
+            preds.append(torch.argmax(out, dim=-1).cpu().numpy())
+        pred = np.concatenate(preds)
+        y = self.y_val
+        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+        dices = dice_all(y.squeeze(), pred, n_classes=self.n_classes,
+                         ignore_zero=True)
+        return np.nanmean(dices)
+
+    def on_epoch_end(self, epoch, logs=None):
+        mean_dice = float(self.eval())
+        if logs is not None:
+            logs["val_dice"] = mean_dice
+        (self.logger or self.trainer.logger)(
+            f"[ValDiceScores] epoch {epoch}: val_dice={mean_dice:.5f}")

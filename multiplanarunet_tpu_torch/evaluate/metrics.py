@@ -6,7 +6,9 @@ the predictor takes on the device; `precision_recall_dice`, the
 Validation callback's epoch statistics from (tp, rel, sel) counts; and
 the in-step training metrics `METRICS` over integer targets and class
 probabilities (classes on the last axis), computed on the tensors'
-device without a host sync.
+device without a host sync; `class_wise_kappa` (Cohen's kappa per class,
+as sklearn's cohen_kappa_score computes it on the class masks) and
+`pred_to_class`.
 """
 
 from __future__ import annotations
@@ -41,6 +43,53 @@ def dice_all(y_true, y_pred, smooth=1.0, n_classes=None, ignore_zero=True,
         if s1.any() or s2.any():
             out[i] = dice(s1, s2, smooth=smooth)
     return out
+
+
+def _binary_kappa(s1, s2):
+    """sklearn.metrics.cohen_kappa_score of two boolean masks (NaN where
+    sklearn's is undefined: one label in common)."""
+    n = s1.size
+    tp = float(np.sum(s1 & s2))
+    fp = float(np.sum(~s1 & s2))
+    fn = float(np.sum(s1 & ~s2))
+    tn = n - tp - fp - fn
+    if (tp + fn == n and tp + fp == n) or (tn + fp == n and tn + fn == n):
+        return np.nan  # a single label: a 1x1 confusion matrix
+    rows = (tn + fp, fn + tp)  # y1 == False, True
+    cols = (tn + fn, fp + tp)  # y2 == False, True
+    expected = (cols[0] * rows[1] + cols[1] * rows[0]) / n
+    if expected == 0:
+        return np.nan
+    return float(1 - (fp + fn) / expected)
+
+
+def class_wise_kappa(true, pred, n_classes=None, ignore_zero=True):
+    """Cohen's kappa of each class's mask; NaN for classes absent from
+    both."""
+    if n_classes is None:
+        classes = np.unique(true)
+    else:
+        classes = np.arange(max(2, n_classes))
+    if ignore_zero:
+        classes = classes[classes != 0]
+    out = np.full(classes.shape, np.nan, np.float32)
+    t = np.asarray(true).ravel()
+    p = np.asarray(pred).ravel()
+    for i, c in enumerate(classes):
+        s1 = t == c
+        s2 = p == c
+        if s1.any() or s2.any():
+            out[i] = _binary_kappa(s1, s2)
+    return out
+
+
+def pred_to_class(pred, img_dims=None, threshold=0.5, has_batch_dim=False):
+    """Probability map -> integer class map (argmax; threshold if
+    binary)."""
+    pred = np.asarray(pred)
+    if pred.shape[-1] == 1:
+        return (pred[..., 0] >= threshold).astype(np.uint8)
+    return np.argmax(pred, axis=-1).astype(np.uint8)
 
 
 def dice_from_counts(counts, smooth=1.0, ignore_zero=True):

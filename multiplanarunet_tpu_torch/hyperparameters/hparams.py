@@ -162,6 +162,16 @@ class YAMLHParams(dict):
         self.string_rep = (self.string_rep.rstrip("\n") + "\n\n"
                            + yaml_string + "\n")
 
+    def delete_group(self, group_name):
+        """Remove one top-level group from the text and the dict."""
+        start, end = self._group_span(group_name)
+        self.string_rep = self.string_rep[:start] + self.string_rep[end:]
+        del self[group_name]
+
+    def log(self):
+        for key in self:
+            self.logger(f"{key}\t\t{self[key]}")
+
     def get_from_anywhere(self, key, default=None):
         """Search all groups for `key`; error-log if it appears in
         several, and return the first."""

@@ -1,1 +1,6 @@
 """Project loggers and evaluation result tables."""
+
+from multiplanarunet_tpu_torch.logging.loggers import (  # noqa: F401
+    Logger,
+    ScreenLogger,
+)

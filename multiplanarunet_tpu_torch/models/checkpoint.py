@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 
-def _unflatten(entries):
+def unflatten(entries):
+    """{'a/b/leaf': array} -> the nested dict {'a': {'b': {'leaf':
+    array}}}."""
     tree = {}
     for key, value in entries.items():
         node = tree
@@ -34,13 +36,16 @@ def _unflatten(entries):
     return tree
 
 
-def _flatten(tree, prefix):
+def flatten(tree, prefix=""):
+    """The inverse of `unflatten`: a nested dict -> {'<prefix>/a/b/leaf':
+    numpy array} (no prefix: 'a/b/leaf'), depth first in key order."""
     out = {}
     for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(value, dict):
-            out.update(_flatten(value, f"{prefix}/{key}"))
+            out.update(flatten(value, path))
         else:
-            out[f"{prefix}/{key}"] = np.asarray(value)
+            out[path] = np.asarray(value)
     return out
 
 
@@ -49,9 +54,9 @@ def save_weights(path, params, batch_stats=None, meta=None):
     creating its folder."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    entries = _flatten(params, "params")
+    entries = flatten(params, "params")
     if batch_stats:
-        entries.update(_flatten(batch_stats, "batch_stats"))
+        entries.update(flatten(batch_stats, "batch_stats"))
     if meta is not None:
         entries["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                             dtype=np.uint8)
@@ -66,11 +71,11 @@ def load_weights(path):
     meta = None
     if "__meta__" in entries:
         meta = json.loads(entries.pop("__meta__").tobytes().decode())
-    params = _unflatten({k[len("params/"):]: v for k, v in entries.items()
-                         if k.startswith("params/")})
-    batch_stats = _unflatten({k[len("batch_stats/"):]: v
-                              for k, v in entries.items()
-                              if k.startswith("batch_stats/")})
+    params = unflatten({k[len("params/"):]: v for k, v in entries.items()
+                        if k.startswith("params/")})
+    batch_stats = unflatten({k[len("batch_stats/"):]: v
+                             for k, v in entries.items()
+                             if k.startswith("batch_stats/")})
     return params, batch_stats, meta
 
 

@@ -31,6 +31,7 @@ from multiplanarunet_tpu_torch.models.unet import (
     BATCH_NORM,
     CONV,
     ConvBNBlock,
+    count_params,
     crop_to_match,
     get_activation,
     output_activation,
@@ -130,6 +131,9 @@ class MultiTaskUNet2D(nn.Module):
     @property
     def n_tasks(self):
         return len(self.task_names)
+
+    def count_params(self):
+        return count_params(self)
 
     def forward(self, inputs):
         if len(inputs) != self.n_tasks:

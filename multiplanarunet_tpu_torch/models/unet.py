@@ -221,7 +221,7 @@ class UNet(nn.Module):
         self.act = get_activation(activation)
         self.out_act = output_activation(out_activation)
         cf = float(np.sqrt(complexity_factor))
-        k = int(kernel_size)
+        k = self.kernel_size = int(kernel_size)
 
         n = self.ndim
         cin, filters = self.n_channels, init_filters
@@ -267,6 +267,26 @@ class UNet(nn.Module):
         self.label_crop = label_crop
         # The out conv runs in float32 whatever the compute dtype
         return self.out_act(self.out_conv(x.float()))
+
+    @property
+    def receptive_field(self):
+        """Receptive field of the deepest encoder feature (conv
+        arithmetic)."""
+        from multiplanarunet_tpu_torch.utils.conv_arithmetics import (
+            unet_encoder_receptive_field,
+        )
+
+        return unet_encoder_receptive_field(self.depth, self.kernel_size)
+
+    def count_params(self):
+        return count_params(self)
+
+
+def count_params(model):
+    """The number of parameter values of `model` (BatchNorm running
+    statistics not counted), the count the JAX models take over their
+    params tree."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def glorot_init(model, seed=0):

@@ -94,9 +94,11 @@ def load_or_create_views(hparams, continue_training, logger, base_path,
     """The views of fit.views: an int -> freshly sampled restricted views,
     a list -> those, continue_training -> <name>.npz reloaded; new views
     go to <name>.npz (a multi-task project keeps views_<task>.npz per
-    task). views.png is not drawn (the port has no matplotlib). The JAX
-    package's pre-noising of listed views for styles other than iso_live
-    is not needed: the port samples iso_live only."""
+    task) and are drawn to views.png, where matplotlib is there (a
+    plotting failure logs one warning). Listed views are kept as given:
+    the JAX package pre-noises them only for an intrp_style other than
+    iso_live, and the 2D and multi-task paths that call this sample
+    iso_live."""
     views = hparams["fit"]["views"]
     view_path = os.path.join(base_path, f"{name}.npz")
     if continue_training:
@@ -114,8 +116,12 @@ def load_or_create_views(hparams, continue_training, logger, base_path,
     views = np.asarray(views, np.float64)
     logger(f"View SD:     {hparams['fit'].get('noise_sd')}")
     np.savez(view_path, views)
-    logger.warn(f"Could not plot views: matplotlib is not available to the "
-                f"PyTorch port ({name}.npz holds them)")
+    try:
+        from multiplanarunet_tpu_torch.utils.plotting import plot_views
+
+        plot_views(views, os.path.join(base_path, "views.png"))
+    except Exception as e:  # plotting must not block training
+        logger.warn(f"Could not plot views: {e}")
     return views
 
 

@@ -5,7 +5,10 @@ the four affine scalers the JAX package takes from sklearn
 (StandardScaler, MinMaxScaler, MaxAbsScaler, RobustScaler) are fitted
 here with the statistics sklearn computes at its defaults, so a channel
 transforms as x -> (x - center) / scale with the same (center, scale).
-Other sklearn scaler names (QuantileTransformer and the rest) raise
+QuantileTransformer is sklearn's at its defaults (1000 quantiles, a
+uniform output, a subsample of 10,000 drawn from numpy's global random
+stream): the same quantiles, the same transform, and the global stream
+left as sklearn leaves it. Other sklearn scaler names raise
 `UnsupportedScalerError`.
 """
 
@@ -15,6 +18,9 @@ import numpy as np
 
 AFFINE_SCALERS = ("StandardScaler", "MinMaxScaler", "MaxAbsScaler",
                   "RobustScaler")
+SCALERS = AFFINE_SCALERS + ("QuantileTransformer",)
+# sklearn.preprocessing.QuantileTransformer's defaults
+N_QUANTILES, QUANTILE_SUBSAMPLE = 1000, 10_000
 
 
 class UnsupportedScalerError(ValueError):
@@ -59,24 +65,88 @@ def _fit_center_scale(name, x):
     return 0.0, float(_handle_zeros_in_scale(np.atleast_1d(max_abs))[0])
 
 
+def _as_float(x):
+    """sklearn's input check: float16/32/64 kept, anything else float64."""
+    x = np.asarray(x)
+    if x.dtype in (np.float64, np.float32, np.float16):
+        return x
+    return x.astype(np.float64)
+
+
+class QuantileChannel:
+    """sklearn's QuantileTransformer() on one channel (a 1-D sample)."""
+
+    def __init__(self):
+        self.quantiles_ = None
+        self.references_ = None
+
+    def fit(self, x):
+        x = _as_float(x).reshape(-1, 1)
+        n = x.shape[0]
+        if n < 1:
+            raise ValueError("QuantileTransformer: a channel has no "
+                             "samples to fit")
+        self.references_ = np.linspace(0, 1, max(1, min(N_QUANTILES, n)),
+                                       endpoint=True)
+        if QUANTILE_SUBSAMPLE < n:
+            # sklearn.utils.resample(replace=False) on the global stream
+            idx = np.arange(n)
+            np.random.shuffle(idx)
+            x = x[idx[:QUANTILE_SUBSAMPLE]]
+        self.quantiles_ = np.nanpercentile(x, self.references_ * 100,
+                                           axis=0)[:, 0]
+        return self
+
+    def transform(self, x):
+        """Uniform output in [0, 1] of an array of any shape, in x's
+        float dtype (NaN stays NaN)."""
+        q, r = self.quantiles_, self.references_
+        x = np.array(_as_float(x), copy=True)
+        lower = x == q[0]
+        upper = x == q[-1]
+        finite = ~np.isnan(x)
+        xf = x[finite]
+        x[finite] = 0.5 * (np.interp(xf, q, r)
+                           - np.interp(-xf, -q[::-1], -r[::-1]))
+        x[upper] = 1
+        x[lower] = 0
+        return x
+
+
+def assert_scaler(scaler):
+    """True if the port implements the scaler `scaler` names (the JAX
+    package accepts any sklearn.preprocessing class name)."""
+    return str(scaler) in SCALERS
+
+
 def get_scaler(scaler, ignore_less_eq=None):
     return MultiChannelScaler(str(scaler), ignore_less_eq=ignore_less_eq)
 
 
+def apply_scaling(X, scaler, ignore_less_eq=None):
+    """Fit a fresh scaler to X and return the transformed volume."""
+    return get_scaler(scaler, ignore_less_eq=ignore_less_eq).fit_transform(X)
+
+
 class MultiChannelScaler:
-    """Fits one affine scaler per channel of a rank-4 (X, Y, Z, C) volume,
+    """Fits one scaler per channel of a rank-4 (X, Y, Z, C) volume,
     optionally ignoring samples <= ignore_less_eq (per channel)."""
 
     def __init__(self, scaler_name, ignore_less_eq=None):
-        if scaler_name not in AFFINE_SCALERS:
+        if not assert_scaler(scaler_name):
             raise UnsupportedScalerError(
                 f"Scaler '{scaler_name}' is not available in the PyTorch "
-                f"port (supported: {', '.join(AFFINE_SCALERS)} or Null)")
+                f"port (supported: {', '.join(SCALERS)} or Null)")
         self.scaler_name = scaler_name
         self.ignore_less_eq = ignore_less_eq
         self.centers = None
         self.scales = None
+        self.quantile_channels = None
         self.n_channels = None
+
+    @property
+    def is_affine(self):
+        return self.scaler_name in AFFINE_SCALERS
 
     def __str__(self):
         return (f"MultiChannelScaler(scaler_class='{self.scaler_name}', "
@@ -96,30 +166,41 @@ class MultiChannelScaler:
             raise ValueError(
                 f"ignore_less_eq must have one entry per channel, got {ile}")
         self.ignore_less_eq = ile
-        centers, scales = [], []
+        channels = []
         for c in range(self.n_channels):
             xc = X[..., c]
             if ile is not None:
                 xc = xc[xc > ile[c]]
-            center, scale = _fit_center_scale(self.scaler_name,
-                                              xc.reshape(-1))
-            centers.append(center)
-            scales.append(scale)
-        self.centers = np.asarray(centers, np.float32)
-        self.scales = np.asarray(scales, np.float32)
+            if self.is_affine:
+                channels.append(_fit_center_scale(self.scaler_name,
+                                                  xc.reshape(-1)))
+            else:
+                channels.append(QuantileChannel().fit(xc))
+        if self.is_affine:
+            self.centers, self.scales = (np.asarray(v, np.float32)
+                                         for v in zip(*channels))
+        else:
+            self.quantile_channels = channels
         return self
 
     def transform(self, X):
         if X.shape[-1] != self.n_channels:
             raise ValueError(f"Input has {X.shape[-1]} channels, scaler fit "
                              f"to {self.n_channels}")
-        return ((X - self.centers) / self.scales).astype(X.dtype, copy=False)
+        if self.is_affine:
+            return ((X - self.centers) / self.scales).astype(X.dtype,
+                                                             copy=False)
+        out = np.empty_like(X)
+        for c, channel in enumerate(self.quantile_channels):
+            out[..., c] = channel.transform(X[..., c])
+        return out
 
     def fit_transform(self, X):
         return self.fit(X).transform(X)
 
     def affine_params(self):
-        """Per-channel (center, scale) float32 vectors."""
+        """Per-channel (center, scale) float32 vectors, or (None, None)
+        for the QuantileTransformer (not an affine transform)."""
         return self.centers, self.scales
 
 

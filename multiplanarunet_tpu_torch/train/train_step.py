@@ -44,7 +44,7 @@ def reg_penalty(params, l1_reg=0.0, l2_reg=0.0):
     return penalty
 
 
-def _forward_channels_last(model, x):
+def forward_channels_last(model, x):
     """model (channels first) over a channels-last batch (B, *spatial,
     C) of any spatial rank; probabilities with classes last."""
     return model(x.movedim(-1, 1)).movedim(1, -1)
@@ -70,7 +70,7 @@ class TrainStep:
 
     def __call__(self, x, y, w):
         self.model.train()
-        out = _forward_channels_last(self.model, x)
+        out = forward_channels_last(self.model, x)
         loss = self.loss_obj(y, out, sample_weight=_weights(w, out.device))
         loss = loss + reg_penalty(self._params, self.l1_reg, self.l2_reg)
         self.optimizer.zero_grad()
@@ -112,7 +112,7 @@ class EvalStep:
     @torch.no_grad()
     def __call__(self, x, y, w):
         self.model.eval()
-        out = _forward_channels_last(self.model, x)
+        out = forward_channels_last(self.model, x)
         logs = {"loss": self.loss_obj(y, out,
                                       sample_weight=_weights(w, out.device))}
         for name, fn in self.metric_fns.items():
@@ -120,7 +120,7 @@ class EvalStep:
         return logs, class_counts(y, out, self.n_classes)
 
 
-def _forward_tasks(model, xs):
+def forward_tasks(model, xs):
     """A multi-task model over channels-last batches, one per task."""
     return [o.movedim(1, -1)
             for o in model([x.movedim(-1, 1) for x in xs])]
@@ -141,7 +141,7 @@ class MultiTaskTrainStep(TrainStep):
 
     def __call__(self, xs, ys, ws):
         self.model.train()
-        outs = _forward_tasks(self.model, xs)
+        outs = forward_tasks(self.model, xs)
         losses = [self.loss_obj(y, out, sample_weight=_weights(w, out.device))
                   for y, out, w in zip(ys, outs, ws)]
         loss = sum(losses) / len(losses)
@@ -168,7 +168,7 @@ class MultiTaskEvalStep:
     @torch.no_grad()
     def __call__(self, xs, ys, ws):
         self.model.eval()
-        outs = _forward_tasks(self.model, xs)
+        outs = forward_tasks(self.model, xs)
         losses = [self.loss_obj(y, out, sample_weight=_weights(w, out.device))
                   for y, out, w in zip(ys, outs, ws)]
         logs = {"loss": sum(losses) / len(losses),

@@ -9,14 +9,17 @@ size lowered by 2 on torch.cuda.OutOfMemoryError, after freeing the
 allocator's cached blocks. The step logs stay on the device through an
 epoch and are fetched once at its end. A MultiTaskUNet2D (`multitask`:
 its n_classes is a list) trains on the multi-task steps over a
-MultiTaskSequence's per-task batch lists. Sample images are not saved: the
-port has no matplotlib, and `fit` logs one warning instead, as the JAX
-package does when saving fails.
+MultiTaskSequence's per-task batch lists. `fit` first saves sample
+images of a train and a val batch to images/ (unless no_im); where that
+fails, a missing matplotlib included, it logs one warning and trains on,
+as the JAX package does. `predict_batch` is the eval-mode forward the
+image and dice callbacks call.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,6 +35,8 @@ from multiplanarunet_tpu_torch.train.train_step import (
     MultiTaskEvalStep,
     MultiTaskTrainStep,
     TrainStep,
+    forward_channels_last,
+    forward_tasks,
 )
 from multiplanarunet_tpu_torch.train.utils import (
     ensure_sparse,
@@ -53,6 +58,8 @@ class Trainer:
         self.train_step = None
         self.eval_step = None
         self.stop_training = False
+        self.train_sequence = None
+        self.val_sequence = None
 
     # ------------------------------------------------------------- compile
     def compile_model(self, optimizer, optimizer_kwargs=None, loss=None,
@@ -100,16 +107,40 @@ class Trainer:
             path, self.model,
             meta={"epoch": epoch} if epoch is not None else None)
 
+    @torch.no_grad()
+    def predict_batch(self, X):
+        """The model's eval-mode forward over a channels-last batch (B,
+        *spatial, C), in its compute dtype on the trainer's device: the
+        probabilities (B, *spatial, n_classes), float32 on the device (a
+        list of such per task for a multi-task model, given a list)."""
+        self.model.eval()
+        if self.multitask:
+            return forward_tasks(self.model,
+                                 [torch.as_tensor(x, device=self.device)
+                                  for x in X])
+        return forward_channels_last(self.model,
+                                     torch.as_tensor(X, device=self.device))
+
     # ----------------------------------------------------------------- fit
     def fit(self, train, val=None, batch_size=16, n_epochs=10, callbacks=(),
             train_im_per_epoch=2500, val_im_per_epoch=3500, init_epoch=0,
             verbose=True, no_im=False):
         """Run the epoch loop; returns the list of per-epoch logs. Retries
         with batch_size - 2 on a device out-of-memory error."""
+        self.train_sequence = train
+        self.val_sequence = val
         if not no_im:
-            self.logger.warn("Could not save sample images: matplotlib is "
-                             "not available to the PyTorch port (pass "
-                             "--no_images)")
+            try:
+                from multiplanarunet_tpu_torch.utils import plotting
+
+                # Without matplotlib no batch is drawn, as in the JAX
+                # package, whose import of its plotting module fails first
+                plotting.require_matplotlib()
+                plotting.save_images(train[0],
+                                     val[0] if val is not None else None,
+                                     Path("images"), self.logger)
+            except Exception as e:
+                self.logger.warn(f"Could not save sample images: {e}")
         while True:
             try:
                 return self._fit(

@@ -562,6 +562,37 @@ class MultiViewPredictor:
         return points, targets.to(torch.int32)
 
 
+# ------------------------------------------------------- plane-stack helpers
+def predict_volume(predict_fn, X, batch_size=8, axis=2):
+    """predict_fn over a plane stack in chunks of batch_size planes (X: a
+    tensor with the planes on `axis`); the outputs concatenated with the
+    planes back on `axis`."""
+    X = torch.movedim(torch.as_tensor(X), axis, 0)
+    out = torch.cat([predict_fn(X[i:i + batch_size])
+                     for i in range(0, X.shape[0], batch_size)], dim=0)
+    return torch.movedim(out, 0, axis)
+
+
+def map_real_space_pred(pred, grid, inv_basis, affine, true_shape,
+                        method="nearest"):
+    """A (d, d, P, C) prediction stack (a tensor) mapped onto the
+    (X, Y, Z) voxel grid of an image with `affine`: (X, Y, Z, C) on
+    pred's device. `grid` is the (real_axis, real_axis, offsets) triple
+    of the view's plane grid."""
+    real_axis, _, offsets = grid
+    A = np.asarray(affine, np.float64)[:3, :3]
+    center = A @ ((np.asarray(true_shape[:3]) - 1) / 2.0)
+    inv_basis = np.asarray(inv_basis, np.float64)
+    M = (inv_basis @ A).astype(np.float32)
+    t = (-inv_basis @ center).astype(np.float32)
+    return map_view_pred_affine(
+        torch.as_tensor(pred), float(np.float32(real_axis[0])),
+        float(np.float32(real_axis[1] - real_axis[0])),
+        float(np.float32(offsets[0])),
+        float(np.float32(offsets[1] - offsets[0])), M, t,
+        tuple(int(s) for s in true_shape[:3]), len(offsets), method=method)
+
+
 # ------------------------------------------------------------------ 3D paths
 # Boxes or patches per U-Net call of the 3D paths (the training batch)
 BOX_CHUNK = 16

@@ -1,7 +1,7 @@
-"""Host utilities of `mp predict` and `mp train`: checkpoint selection,
-resume helpers over logs/training.csv, class-frequency estimates and the
-output-bias init, folders, PID waiting (the parts of
-`multiplanarunet_tpu/utils/utils.py` the two scripts use)."""
+"""Host utilities (port of `multiplanarunet_tpu/utils/utils.py`):
+checkpoint selection, resume helpers over logs/training.csv,
+class-frequency estimates and the output-bias init, folders, PID
+waiting, `highlighted`, `pred_to_class` and `random_split`."""
 
 from __future__ import annotations
 
@@ -17,6 +17,12 @@ import torch
 
 def ensure_list_or_tuple(obj):
     return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+def highlighted(string):
+    length = max(len(s) for s in str(string).split("\n"))
+    border = "-" * length
+    return f"{border}\n{string}\n{border}"
 
 
 def create_folders(folders, create_deep=False):
@@ -104,6 +110,38 @@ def clear_csv_after_epoch(epoch, csv_path):
     header, rows = lines[0], lines[1:]
     kept = [r for r in rows if r and int(float(r.split(",")[0])) <= epoch]
     csv_path.write_text("\n".join([header] + kept) + "\n")
+
+
+def get_last_epoch(csv_path):
+    """The epoch of the last row of a training.csv (0 without a file or
+    rows)."""
+    csv_path = Path(csv_path)
+    if not csv_path.exists():
+        return 0
+    lines = [l for l in csv_path.read_text().splitlines()[1:] if l.strip()]
+    if not lines:
+        return 0
+    return int(float(lines[-1].split(",")[0]))
+
+
+def pred_to_class(tensor, img_dims=3, has_batch_dim=False, threshold=0.5):
+    """Probability tensor -> integer class map (argmax / threshold); an
+    array without a class axis is returned as it is."""
+    tensor = np.asarray(tensor)
+    if tensor.ndim == img_dims + int(has_batch_dim):
+        return tensor
+    if tensor.shape[-1] == 1:
+        return (tensor[..., 0] >= threshold).astype(np.uint8)
+    return np.argmax(tensor, axis=-1).astype(np.uint8)
+
+
+def random_split(N, fractions, rng=None):
+    """A permutation of range(N) split at the cumulative `fractions`
+    (numpy's global stream unless `rng` is given)."""
+    rng = rng or np.random
+    idx = rng.permutation(N)
+    splits = (np.cumsum(fractions)[:-1] * N).astype(int)
+    return np.split(idx, splits)
 
 
 def estimate_class_frequencies(image_queue, n_classes, max_images=25,

@@ -152,8 +152,8 @@ def test_scalers_match_sklearn(name, ignore):
 
 
 def test_unsupported_scaler_and_noop():
-    with pytest.raises(UnsupportedScalerError, match="QuantileTransformer"):
-        get_scaler("QuantileTransformer")
+    with pytest.raises(UnsupportedScalerError, match="PowerTransformer"):
+        get_scaler("PowerTransformer")
     X = np.ones((3, 3, 3, 2), np.float32)
     noop = NoOpScaler().fit(X)
     assert noop.transform(X) is X
@@ -262,8 +262,10 @@ def test_build_model_named_errors():
 
 
 def test_mp_dispatch_and_device_errors(tmp_path, monkeypatch):
-    with pytest.raises(t_mp.ScriptNotPortedError, match="trim_channels"):
-        t_mp.entry_func(["trim_channels", "--folder", str(tmp_path)])
+    # an unknown script is argparse's exit 2, as in the JAX dispatcher
+    with pytest.raises(SystemExit) as exit_info:
+        t_mp.entry_func(["no_such_script", "--folder", str(tmp_path)])
+    assert exit_info.value.code == 2
     with pytest.raises(t_predict.MultiDeviceNotPortedError):
         t_mp.entry_func(["predict", "--num_devices", "2"])
     # The default device is CUDA: with no card visible it raises, and never

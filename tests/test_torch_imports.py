@@ -81,9 +81,32 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.sequences.multi_task",
     "multiplanarunet_tpu_torch.hyperparameters.yaml_writer",
     "multiplanarunet_tpu_torch.bin.branch",
+    "multiplanarunet_tpu_torch.utils.plotting",
+    "multiplanarunet_tpu_torch.utils.system",
+    "multiplanarunet_tpu_torch.utils.conv_arithmetics",
+    "multiplanarunet_tpu_torch.utils.decorators",
+    "multiplanarunet_tpu_torch.preprocessing.input_prep",
+    "multiplanarunet_tpu_torch.sequences.simple_sequences",
+    "multiplanarunet_tpu_torch.bin.trim_channels",
+    "multiplanarunet_tpu_torch.bin.convert_weights",
+    "multiplanarunet_tpu_torch.bin.export_weights",
+    "multiplanarunet_tpu_torch.bin.run_tests",
+    "multiplanarunet_tpu_torch.callbacks",
+    "multiplanarunet_tpu_torch.train",
+    "multiplanarunet_tpu_torch.preprocessing",
+    "multiplanarunet_tpu_torch.utils",
+    "multiplanarunet_tpu_torch.utils.fusion",
+    "multiplanarunet_tpu_torch.evaluate",
+    "multiplanarunet_tpu_torch.hyperparameters",
+    "multiplanarunet_tpu_torch.image",
+    "multiplanarunet_tpu_torch.io",
+    "multiplanarunet_tpu_torch.errors",
+    "multiplanarunet_tpu_torch.logging",
+    "multiplanarunet_tpu_torch.augmentation",
+    "multiplanarunet_tpu_torch.ops",
 ]
 BANNED = ("jax", "flax", "optax", "yaml", "pandas", "sklearn", "nibabel",
-          "matplotlib", "multiplanarunet_tpu")
+          "matplotlib", "h5py", "multiplanarunet_tpu")
 
 
 def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
@@ -106,11 +129,15 @@ def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
     assert proc.stdout.strip() == "clean"
 
 
-def test_port_runs_with_banned_packages_blocked():
-    """With jax, flax, optax, yaml, pandas, sklearn, nibabel, matplotlib
-    and the JAX package made unimportable (as on a machine that lacks
-    them), every port module imports and `mp <script> --help` runs for
-    every ported script."""
+def test_port_runs_with_banned_packages_blocked(tmp_path):
+    """With jax, flax, optax, yaml, pandas, sklearn, nibabel, matplotlib,
+    h5py and the JAX package made unimportable (as on a machine that
+    lacks them), every port module imports, `mp <script> --help` runs for
+    every script, and `mp trim_channels` trims a 2-channel NIfTI."""
+    from multiplanarunet_tpu_torch.io import nifti
+
+    vol = np.arange(4 * 5 * 3 * 2, dtype=np.float32).reshape(4, 5, 3, 2)
+    nifti.save(vol, tmp_path / "a.nii.gz", np.eye(4))
     code = (
         "import importlib, runpy, sys\n"
         "class Block:\n"
@@ -120,9 +147,12 @@ def test_port_runs_with_banned_packages_blocked():
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "from multiplanarunet_tpu_torch.bin.mp import PORTED\n"
-        "assert len(PORTED) == 11, PORTED\n"
-        "for script in PORTED:\n"
+        "from multiplanarunet_tpu_torch.bin.mp import get_scripts\n"
+        "assert len(get_scripts()) == 15, get_scripts()\n"
+        "from multiplanarunet_tpu_torch.bin import mp\n"
+        f"mp.entry_func(['trim_channels', '--folder', {str(tmp_path)!r},\n"
+        "               '--channels', '1'])\n"
+        "for script in get_scripts():\n"
         "    sys.argv = ['mp', script, '--help']\n"
         "    try:\n"
         "        runpy.run_module('multiplanarunet_tpu_torch.bin.mp',\n"
@@ -141,8 +171,12 @@ def test_port_runs_with_banned_packages_blocked():
                  "--max_loaded_images", "--extra_boxes", "--strides",
                  "--copy_weights"):
         assert flag in proc.stdout, flag
-    assert proc.stdout.count("helped ") == 11
+    for flag in ("--folder", "--h5", "--weights", "--tests"):
+        assert flag in proc.stdout, flag
+    assert proc.stdout.count("helped ") == 15
     assert proc.stdout.strip().endswith("ran")
+    trimmed = nifti.load(tmp_path / "a.nii.gz").get_raw_data()
+    np.testing.assert_array_equal(trimmed, vol[..., 1])
 
 
 def test_shear_pass_on_cpu_uses_plain_version_without_counting():

@@ -193,11 +193,12 @@ def test_named_errors(trained, tmp_path, monkeypatch):
             ("unknown_model", [('model_class_name: "UNet"',
                                 'model_class_name: "NoSuchUNet"')],
              UnsupportedModelError),
-            ("quantile", [('scaler: "RobustScaler"',
-                           'scaler: "QuantileTransformer"')],
+            ("power", [('scaler: "RobustScaler"',
+                        'scaler: "PowerTransformer"')],
              UnsupportedScalerError),
             ("callback", [("callbacks: [*RLOP,",
-                           "callbacks: [{class_name: Profiler}, *RLOP,")],
+                           "callbacks: [{class_name: NoSuchCallback}, "
+                           "*RLOP,")],
              CallbackNotPortedError)):
         proj = _write_project(root, name, extra)
         with pytest.raises(err):
