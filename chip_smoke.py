@@ -52,14 +52,27 @@ multi-task step on the card against the host, and `mp branch
 workflow on the trained project: `mp train_fusion` (a subprocess), the
 fused probabilities of its points path against predict_image's with the
 learned weights, `mp predict` with the learned fusion and `mp summary`
-over its results. Each path's shear-pass launches are counted from 0 just
-before it and gated against what its plans and remap modes say (the
-training, 3D, multi-task and fusion-training paths themselves launch
-none).
+over its results. Then multi-device and multi-process execution on the
+one card (`phase_multi_device`): two ranks sharing cuda:0 on a gloo group,
+started from the library layer (DistributedDataParallel and global-batch
+BatchNorm at full width, bf16, global batch 16: the loss stream and a
+parameter checksum bit-equal across the ranks, a float32 two-rank step
+against the one-process step), `mp train` as a 1-rank NCCL group, `mp
+predict` as two processes on cuda:0 against the one-process results,
+predict_image_sharded over [cuda:0, cuda:0] against predict_image, `mp
+train_fusion` as two processes against one, and the named error of `mp
+train --num_devices 2` on one card. Each path's shear-pass launches are
+counted from 0 just before it and gated against what its plans and remap
+modes say (the training, 3D, multi-task and fusion-training paths
+themselves launch none; the two-process `mp predict` reads its launches
+from the ranks' logs).
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
+
+(The data-parallel phase starts this script again as its ranks, with
+DP_WORKER_FLAG and an output folder.)
 
 Any failed check raises and the process exits non-zero. Without a CUDA
 device it raises before printing any result. The second-to-last line of
@@ -72,7 +85,9 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1122,7 +1137,8 @@ def phase_mp_predict(dev, predictor, views, fusion, plans, tmp):
     a PRED.nii.gz per image, uint8 of the image's shape with values <
     n_classes; the result CSVs; and the per-view eval counts equal to
     counts taken from the fetched per-view maps. Then the host load of one
-    image taken apart. Returns the launches of both runs."""
+    image taken apart. Returns (the launches of both runs, the
+    project)."""
     t0 = time.perf_counter()
     proj, data = write_project(Path(tmp), views, fusion, dev)
     log(f"mp predict project written in {time.perf_counter() - t0:.1f} s")
@@ -1190,7 +1206,7 @@ def phase_mp_predict(dev, predictor, views, fusion, plans, tmp):
     pair.unload()
     log(f"per-view eval counts on the card equal the counts of the fetched "
         f"per-view maps ({len(counts)} views) and the csv's per-view dice")
-    return total
+    return total, proj
 
 
 def phase_large(dev, model, views, fusion):
@@ -1353,14 +1369,16 @@ def run_mp_train(proj, dev, n_epochs=TRAIN_EPOCHS, images=TRAIN_IMAGES,
     return wall, epochs
 
 
-def run_mp_script(args, timeout):
+def run_mp_script(args, timeout, env=None):
     """`python -m multiplanarunet_tpu_torch.bin.mp <args>` in a
-    subprocess from the repository root; returns (wall seconds, stdout).
-    Fails on a non-zero exit."""
+    subprocess from the repository root (with `env` added to the
+    environment); returns (wall seconds, stdout). Fails on a non-zero
+    exit."""
     cmd = [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp", *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
-                          capture_output=True, text=True, timeout=timeout)
+                          capture_output=True, text=True, timeout=timeout,
+                          env=None if env is None else {**os.environ, **env})
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         log(proc.stdout[-4000:])
@@ -3121,6 +3139,424 @@ def phase_workflow(dev, proj, dirs, card):
     return launches
 
 
+# ------------------------------------------------------------ multi-device
+# Two ranks sharing cuda:0 on gloo (NCCL refuses two ranks on one card),
+# started from the library layer: the full-width bf16 model, global batch
+# 16 (8 per rank), DP_STEPS steps; then a float32 step at global batch
+# DP_F32_BATCH against the one-process step on the same batch
+DP_WORKER_FLAG = "--data-parallel-worker"
+DP_GLOBAL_BATCH, DP_STEPS, DP_F32_BATCH, DP_LR = 16, 3, 4, 5e-5
+# `mp train` as a 1-rank NCCL group: 2 epochs of 10 steps of 16
+NCCL_EPOCHS, NCCL_IMAGES, NCCL_VAL_IMAGES = 2, 160, 32
+# `mp train_fusion` in 1 and 2 processes: the 3 train subjects as the
+# fusion set (no random top-up, so both runs map the same images in the
+# same order), rounds of 2 (rank 1 idle in round 2)
+MD_FUSION_ARGS = ["--overwrite", "--images_per_round", "2",
+                  "--min_val_images", "3", "--epochs", "5",
+                  "--max_points_per_image", str(2 ** 20), "--seed", "0"]
+SHARDED_AGREEMENT = 0.9999
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(cmd, n, timeout, env=None):
+    """`cmd` as n ranks under the MPUNET_* launch markers (all on cuda:0
+    unless cmd says otherwise), from the repository root; returns (wall
+    seconds, each rank's stdout). Fails, ending the others, when a rank
+    fails or the time runs out."""
+    base = {**os.environ, **(env or {}),
+            "MPUNET_COORDINATOR_ADDRESS": f"localhost:{_free_port()}",
+            "MPUNET_NUM_PROCESSES": str(n)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        cmd, cwd=Path(__file__).resolve().parent, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**base, "MPUNET_PROCESS_ID": str(r)}) for r in range(n)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0))))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            log(out[-3000:])
+            log(err[-3000:])
+            raise AssertionError(f"rank {r} of {cmd[1:4]} exited "
+                                 f"{proc.returncode}")
+    return wall, [out for out, _ in outs]
+
+
+def dp_batch(n, seed):
+    """A seeded global batch of n full-width slices and random labels."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n, DIM, DIM, N_CHANNELS).astype(np.float32),
+            rng.randint(0, N_CLASSES, (n, DIM, DIM, 1)).astype(np.int32))
+
+
+def dp_trainer(dtype, dev):
+    """A Trainer of the glorot-initialised (seed 0) full-width UNet in
+    `dtype`, compiled with Adam at DP_LR; data-parallel when a process
+    group is active."""
+    model = glorot_init(UNet(N_CLASSES, N_CHANNELS, DEPTH, CF, dtype=dtype),
+                        0)
+    trainer = Trainer(model, logger=ScreenLogger(False), device=dev)
+    return trainer.compile_model("Adam", {"lr": DP_LR, "epsilon": 1e-8},
+                                 "SparseCategoricalCrossentropy", [])
+
+
+def f32_step_state(trainer, x, y):
+    """One float32 step of `trainer` on (x, y): (loss, the flat parameter
+    update, the BN running statistics)."""
+    params = list(trainer.model.parameters())
+    before = torch.cat([p.detach().flatten() for p in params]).cpu()
+    loss = float(trainer.train_step(
+        torch.from_numpy(x).to(trainer.device),
+        torch.from_numpy(y).to(trainer.device), np.ones(len(x)))["loss"])
+    update = torch.cat([p.detach().flatten() for p in params]).cpu() - before
+    stats = {k: v.cpu() for k, v in trainer.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return loss, update, stats
+
+
+def dp_worker(out):
+    """One rank of phase_multi_device's library-layer run (this script
+    started with DP_WORKER_FLAG under the MPUNET_* markers): a gloo group
+    on cuda:0; DP_STEPS bf16 steps on this rank's half of the global
+    batch, each timed between synchronisations; the gradient-sized
+    all-reduce alone; one float32 step on its half of the f32 batch.
+    Writes rank<r>.json (and rank 0 the f32 step's state) to `out`."""
+    import torch.distributed as dist
+
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        shutdown_distributed,
+    )
+
+    dev = require_cuda(0)
+    n, rank = maybe_initialize_distributed(device=dev, backend="gloo")
+    res = {"rank": rank, "world": n, "backend": dist.get_backend()}
+    trainer = dp_trainer(torch.bfloat16, dev)
+    x, y = dp_batch(DP_GLOBAL_BATCH, 1)
+    rows = slice(rank * DP_GLOBAL_BATCH // n, (rank + 1) * DP_GLOBAL_BATCH // n)
+    X, Y = (torch.from_numpy(a[rows]).to(dev) for a in (x, y))
+    losses, step_ms = [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(X, Y, np.ones(len(X)))["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    params = list(trainer.model.parameters())
+    res.update(losses=losses, step_ms=step_ms,
+               checksum=float(sum(p.double().abs().sum() for p in params)))
+    flat = torch.zeros(sum(p.numel() for p in params), device=dev)
+    ar_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+    res.update(allreduce_ms=ar_ms, allreduce_bytes=flat.numel() * 4)
+    del trainer, X, Y, flat, params
+    torch.cuda.empty_cache()
+    x, y = dp_batch(DP_F32_BATCH, 2)
+    rows = slice(rank * DP_F32_BATCH // n, (rank + 1) * DP_F32_BATCH // n)
+    loss, update, stats = f32_step_state(dp_trainer(torch.float32, dev),
+                                         x[rows], y[rows])
+    res["loss32"] = loss
+    if rank == 0:
+        torch.save({"update": update, "stats": stats}, out / "f32_step.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    shutdown_distributed()
+
+
+def md_library_layer(dev, tmp, card):
+    """a. Two ranks sharing cuda:0 on gloo, from the library layer (gates:
+    the loss stream and a parameter checksum bit-equal across the ranks;
+    the float32 two-rank step, TF32 off, against the one-process float32
+    step on the same global batch: loss within 1e-4 relative, BN running
+    statistics within 1e-5, parameter updates as in compare_f32_step)."""
+    out = Path(tmp) / "dp_library"
+    out.mkdir()
+    x, y = dp_batch(DP_F32_BATCH, 2)
+    one = f32_step_state(dp_trainer(torch.float32, dev), x, y)
+    torch.cuda.empty_cache()
+    wall, _ = launch_ranks([sys.executable, str(Path(__file__).resolve()),
+                            DP_WORKER_FLAG, str(out)], 2, timeout=600)
+    r0, r1 = (json.loads((out / f"rank{r}.json").read_text())
+              for r in range(2))
+    if (r0["losses"] != r1["losses"] or r0["checksum"] != r1["checksum"]
+            or r0["backend"] != "gloo"):
+        raise AssertionError(f"the ranks disagree: {r0} vs {r1}")
+    two = torch.load(out / "f32_step.pt")
+    l1, u1, s1 = one
+    rel = abs(r0["loss32"] - l1) / abs(l1)
+    stat_err = max((two["stats"][k] - s1[k]).abs().max().item() for k in s1)
+    diff = (two["update"] - u1).abs()
+    share = (diff <= PARAM_TOL * DP_LR).float().mean().item()
+    log(f"[{card}] data-parallel library layer: 2 ranks sharing cuda:0 on "
+        f"gloo (started in {wall:.1f} s wall in all), full width bf16, "
+        f"global batch {DP_GLOBAL_BATCH} (8 per rank), {DP_STEPS} steps: "
+        f"loss {r0['losses']} on both ranks, parameter checksum "
+        f"{r0['checksum']:.6f} on both (bit-equal); step ms (host clock, "
+        f"synchronised) rank 0 {[round(v, 1) for v in r0['step_ms']]}, "
+        f"rank 1 {[round(v, 1) for v in r1['step_ms']]}; gradient-sized "
+        f"all-reduce alone ({r0['allreduce_bytes'] / 2**20:.1f} MiB float32, "
+        f"gloo over CUDA tensors: staged through the host, not a figure for "
+        f"a link between cards) "
+        f"{[round(v, 1) for v in r0['allreduce_ms']]} ms")
+    log(f"f32 step, global batch {DP_F32_BATCH}: 2 ranks vs 1 process: loss "
+        f"{r0['loss32']:.7f} vs {l1:.7f} (rel {rel:.3g} <= 1e-4); BN running "
+        f"stats max abs err {stat_err:.3g} (<= 1e-5); parameter updates "
+        f"within {PARAM_TOL} lr: {100 * share:.4f}% (>= "
+        f"{100 * PARAM_SHARE}%), max diff {diff.max().item() / DP_LR:.4g} lr "
+        f"(<= 2)")
+    if not (rel <= 1e-4 and stat_err <= 1e-5 and share >= PARAM_SHARE
+            and diff.max().item() <= 2 * DP_LR * (1 + 1e-3)):
+        raise AssertionError("the two-rank f32 step disagrees with the "
+                             "one-process step")
+
+
+def md_nccl_train(dev, tmp, card, proj, epochs_256):
+    """b. `mp train` as a 1-rank NCCL group (the MPUNET_* markers with one
+    process) on a copy of the trained project: NCCL start-up, DDP and the
+    global-BatchNorm all-reduces on the card. Gates: the log names DDP
+    over the nccl group; every artefact written once (check_trained_
+    project's gates, one best checkpoint, no rank-suffixed log)."""
+    copy_dir = Path(tmp) / "nccl_project"
+    shutil.copytree(proj, copy_dir)
+    wall, _ = run_mp_script(
+        ["train", "--project_dir", str(copy_dir), "--device", "cuda",
+         "--overwrite", "--no_images", "--epochs", str(NCCL_EPOCHS),
+         "--train_images_per_epoch", str(NCCL_IMAGES),
+         "--val_images_per_epoch", str(NCCL_VAL_IMAGES)], timeout=900,
+        env={"MPUNET_COORDINATOR_ADDRESS": f"localhost:{_free_port()}",
+             "MPUNET_NUM_PROCESSES": "1", "MPUNET_PROCESS_ID": "0"})
+    check_trained_project(copy_dir, tmp, n_epochs=NCCL_EPOCHS)
+    text = (copy_dir / "logs" / "train.txt").read_text()
+    if "DistributedDataParallel over 1 process(es), nccl group" not in text:
+        raise AssertionError("mp train under a 1-process launch did not "
+                             "train through DDP on an nccl group")
+    extra = sorted(p.name for p in (copy_dir / "logs").glob("train_rank*"))
+    if extra or len(list((copy_dir / "model").glob("@epoch_*.npz"))) != 1:
+        raise AssertionError(f"artefacts written more than once: {extra}")
+    loops = [float(line.split()[line.split().index("loop") + 1])
+             for line in text.splitlines() if " wall: train loop " in line]
+    steps = NCCL_IMAGES // BATCH
+    dp_step = loops[-1] / steps * 1e3
+    plain_step = float(np.mean([e[0] for e in epochs_256[1:]])) / (
+        TRAIN_IMAGES // BATCH) * 1e3
+    log(f"[{card}] mp train as a 1-rank nccl group ({NCCL_EPOCHS} epochs of "
+        f"{steps} steps of {BATCH}, {wall:.1f} s wall): train loop per step "
+        f"{dp_step:.1f} ms in epoch {NCCL_EPOCHS} vs {plain_step:.1f} ms in "
+        f"the non-distributed mp train of the training phase (steady "
+        f"epochs): {dp_step - plain_step:+.1f} ms per step for DDP and the "
+        f"global-BatchNorm all-reduces at world size 1 (host clock, epoch "
+        f"walls over different runs)")
+
+
+def shear_launches_in_logs(out):
+    """{image id: shear-pass launches} from every rank's predict log."""
+    found = {}
+    for path in sorted(out.glob("predict_log*.txt")):
+        for line in path.read_text().splitlines():
+            if line.startswith("Shear-pass launches for "):
+                image_id, n = line[len("Shear-pass launches for "):].split(":")
+                if image_id in found:
+                    raise AssertionError(f"{image_id} predicted twice")
+                found[image_id] = int(n)
+    return found
+
+
+def md_two_process_predict(card, predict_proj, plans):
+    """c. `mp predict` as two processes on cuda:0 over the two-image 256^3
+    project. Gates: results.csv within 1e-6 of the one-process run's
+    (pred_eval of phase_mp_predict); each image's PRED.nii.gz once; no
+    .rank folder left; each image's shear-pass launches, read from the
+    ranks' logs, those of its plans. Returns the launches."""
+    wall, _ = launch_ranks(
+        [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp", "predict",
+         "--project_dir", str(predict_proj), "--out_dir", "pred_2proc",
+         "--device", "cuda:0", "--overwrite"], 2, timeout=600)
+    out = predict_proj / "pred_2proc"
+    one = ResultTable.read_csv(predict_proj / "pred_eval" / "csv" /
+                               "results.csv")
+    two = ResultTable.read_csv(out / "csv" / "results.csv")
+    err = float(np.abs(two.values - one.values).max())
+    if (two.index != one.index or two.columns != one.columns
+            or not np.isfinite(two.values).all() or err > 1e-6):
+        raise AssertionError(f"2-process results.csv differs by {err}")
+    preds = sorted(p.parent.name for p in
+                   (out / "nii_files").glob("*/PRED.nii.gz"))
+    if preds != sorted(one.index) or list(out.glob(".rank*")):
+        raise AssertionError(f"PRED files {preds}, rank folders "
+                             f"{list(out.glob('.rank*'))}")
+    launches = shear_launches_in_logs(out)
+    expected = expected_launches(plans, ["shear"] * N_VIEWS)
+    if sorted(launches) != preds or set(launches.values()) != {expected}:
+        raise AssertionError(f"shear-pass launches {launches} (expected "
+                             f"{expected} per image)")
+    log(f"[{card}] mp predict as 2 processes on cuda:0 (gloo host group): "
+        f"{wall:.1f} s wall for {len(preds)} 256^3 images; results.csv max "
+        f"abs diff to 1 process {err:.3g} (<= 1e-6); shear-pass launches "
+        f"per image from the rank logs {launches}")
+    return sum(launches.values())
+
+
+def md_sharded(dev, card, predict_proj, views, fusion, plans):
+    """d. predict_image_sharded over [cuda:0, cuda:0] against predict_image
+    on subject_1 (256^3, learned fusion). Gates: the class maps agree in
+    at least SHARDED_AGREEMENT of the voxels; the sharded call's
+    shear-pass launches those of its plans. Returns the launches."""
+    hparams = YAMLHParams(predict_proj / "train_hparams.yaml", no_log=True)
+    model = load_unet_weights(
+        build_model(hparams["build"], mixed_precision=True,
+                    logger=ScreenLogger(False)),
+        get_best_model(predict_proj / "model")).to(dev)
+    predictor = MultiViewPredictor(
+        model, sample_dim=DIM, real_space_span=hparams["fit"]["real_space_span"],
+        n_classes=N_CLASSES, device=dev)
+    data = Path(hparams["test_data"]["base_dir"])
+    pair = ImagePair(data / "images" / "subject_1.nii.gz")
+    pair.set_bg_value(hparams.get_from_anywhere("bg_value"))
+    pair.set_scaler(hparams.get_from_anywhere("scaler"))
+    pair.load()
+    want, _ = predictor.predict_image(pair, views, fusion_params=fusion,
+                                      return_per_view=False)
+    times = {}
+    for name in ("predict_image", "sharded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shear_pass.launches = 0
+        if name == "sharded":
+            got = predictor.predict_image_sharded(pair, views, [dev, dev],
+                                                  fusion_params=fusion)
+        else:
+            predictor.predict_image(pair, views, fusion_params=fusion,
+                                    return_per_view=False)
+        launches = shear_pass.launches
+        times[name] = time.perf_counter() - t0
+    modes = list(predictor.remap_modes)
+    expected = expected_launches(plans, modes)
+    agree = float((got == want).mean())
+    log(f"[{card}] predict_image_sharded over [cuda:0, cuda:0], 256^3, "
+        f"{N_VIEWS} views, learned fusion: class map agrees with "
+        f"predict_image in {agree:.7f} of voxels (>= {SHARDED_AGREEMENT}); "
+        f"remap modes {modes}; shear-pass launches {launches} (expected "
+        f"{expected}); {times['sharded']:.3f} s vs predict_image "
+        f"{times['predict_image']:.3f} s (host clock, one card: no overlap "
+        f"to gain)")
+    if agree < SHARDED_AGREEMENT or launches != expected or not launches:
+        raise AssertionError("predict_image_sharded disagrees")
+    pair.unload()
+    return launches
+
+
+def md_two_process_fusion(card, tmp, proj):
+    """e. `mp train_fusion` as 1 and as 2 processes on cuda:0 (a copy of the
+    trained project whose val set is its 3 train subjects). Gates: one
+    fusion checkpoint, W and b within 1e-6 of the 1-process fit;
+    .points_tmp removed; rank 1's log written."""
+    copy_dir = Path(tmp) / "fusion_project"
+    shutil.copytree(proj, copy_dir, ignore=shutil.ignore_patterns(
+        "pred*", "fusion_weights"))
+    hp = copy_dir / "train_hparams.yaml"
+    text = hp.read_text()
+    train_dir = YAMLHParams(hp, no_log=True)["train_data"]["base_dir"]
+    val_dir = YAMLHParams(hp, no_log=True)["val_data"]["base_dir"]
+    hp.write_text(text.replace(f"base_dir: {val_dir}",
+                               f"base_dir: {train_dir}"))
+    fusion_dir = copy_dir / "model" / "fusion_weights"
+    args = ["--project_dir", str(copy_dir), *MD_FUSION_ARGS]
+    one_wall, _ = run_mp_script(["train_fusion", *args, "--device", "cuda:0"],
+                                timeout=600)
+    (one_file,) = fusion_dir.glob("*_fusion_weights.npz")
+    one = checkpoint.load_weights(one_file)[0]["fusion"]
+    one_file.unlink()
+    two_wall, _ = launch_ranks(
+        [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp",
+         "train_fusion", *args, "--device", "cuda:0"], 2, timeout=600)
+    files = list(fusion_dir.glob("*_fusion_weights.npz"))
+    if len(files) != 1 or (fusion_dir / ".points_tmp").exists():
+        raise AssertionError(f"fusion files {files}, .points_tmp left: "
+                             f"{(fusion_dir / '.points_tmp').exists()}")
+    two = checkpoint.load_weights(files[0])[0]["fusion"]
+    err = max(float(np.abs(two[k] - one[k]).max()) for k in ("W", "b"))
+    if err > 1e-6 or not (copy_dir / "logs" /
+                          "train_fusion_rank1.txt").exists():
+        raise AssertionError(f"2-process fusion fit differs by {err}")
+    log(f"[{card}] mp train_fusion over the 3 train subjects (rounds of 2, "
+        f"rank 1 idle in round 2): 1 process {one_wall:.1f} s, 2 processes "
+        f"on cuda:0 {two_wall:.1f} s wall; fusion W, b max abs diff {err:.3g}"
+        f" (<= 1e-6); one checkpoint, .points_tmp removed")
+
+
+def md_too_few_cards(proj):
+    """f. `mp train --num_devices 2` on this one-card machine raises the
+    named error before it starts any process."""
+    from multiplanarunet_tpu_torch._device import TooFewDevicesError
+
+    started = []
+    original = subprocess.Popen
+
+    def counted(*args, **kwargs):
+        started.append(args)
+        return original(*args, **kwargs)
+
+    subprocess.Popen = counted
+    visible = torch.cuda.device_count()
+    try:
+        port_mp.entry_func(["train", "--project_dir", str(proj),
+                            "--num_devices", str(visible + 1)])
+    except TooFewDevicesError as e:
+        message = str(e)
+    else:
+        raise AssertionError("mp train --num_devices past the visible cards "
+                             "did not raise")
+    finally:
+        subprocess.Popen = original
+    want = f"{visible + 1} devices asked, {visible} visible"
+    if message != want or started:
+        raise AssertionError(f"'{message}' (want '{want}'), processes "
+                             f"started: {len(started)}")
+    log(f"mp train --num_devices {visible + 1}: TooFewDevicesError "
+        f"'{message}' before any process started")
+
+
+def phase_multi_device(dev, tmp, card, proj, epochs_256, predict_proj, views,
+                       fusion, plans):
+    """Multi-device and multi-process execution on this one card: a. the
+    library layer as two ranks on gloo; b. `mp train` as a 1-rank NCCL
+    group; c. `mp predict` as two processes; d. predict_image_sharded over
+    [cuda:0, cuda:0]; e. `mp train_fusion` as two processes; f. the named
+    error for more cards than visible. Returns the shear-pass launches of
+    its paths (the mapping of mp train_fusion takes the gather path and
+    launches none)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    md_library_layer(dev, tmp, card)
+    md_nccl_train(dev, tmp, card, proj, epochs_256)
+    paths = {"mp predict (2 processes)": md_two_process_predict(
+        card, predict_proj, plans)}
+    paths["predict_image_sharded"] = md_sharded(dev, card, predict_proj,
+                                                views, fusion, plans)
+    md_two_process_fusion(card, tmp, proj)
+    md_too_few_cards(proj)
+    log(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     dev = require_cuda()
     torch.manual_seed(0)
@@ -3143,8 +3579,8 @@ def main():
                                              views, fusion)
         del images
         phase_u8(dev)
-        paths["mp predict"] = phase_mp_predict(dev, predictor, views, fusion,
-                                               plans, tmp)
+        paths["mp predict"], predict_proj = phase_mp_predict(
+            dev, predictor, views, fusion, plans, tmp)
         e, paths[f"{DIM_LARGE}^3"] = phase_large(dev, predictor.model, views, fusion)
         err = max(err, e)
         del predictor
@@ -3157,6 +3593,8 @@ def main():
                                                            card)
         paths["mp predict (learned fusion)"] = phase_workflow(dev, proj, dirs,
                                                              card)
+        paths.update(phase_multi_device(dev, tmp, card, proj, epochs_256,
+                                        predict_proj, views, fusion, plans))
     view0 = [times["stack"], times["remap"]]
     log(f"shear-pass launches per path: {paths}")
     log(f"card: {card}")
@@ -3179,4 +3617,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [DP_WORKER_FLAG]:
+        dp_worker(Path(sys.argv[2]))
+    else:
+        main()

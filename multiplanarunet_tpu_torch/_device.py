@@ -16,6 +16,10 @@ class CudaUnavailableError(RuntimeError):
     """No CUDA device is visible to torch."""
 
 
+class TooFewDevicesError(RuntimeError):
+    """More cards were asked for than torch sees."""
+
+
 def require_cuda(index=0):
     """The torch.device of CUDA card `index`, with TF32 disabled."""
     if not torch.cuda.is_available():
@@ -25,6 +29,15 @@ def require_cuda(index=0):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", index)
+
+
+def require_devices(n):
+    """Raise TooFewDevicesError unless at least `n` cards are visible
+    (checked before any process or device work starts)."""
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible < int(n):
+        raise TooFewDevicesError(f"{int(n)} devices asked, {visible} "
+                                 f"visible")
 
 
 def resolve_device(device=None):

@@ -1,8 +1,8 @@
 """`mp predict` on the PyTorch port: multi-planar inference + evaluation
 over a test set.
 
-Port of `multiplanarunet_tpu/bin/predict.py` for one CUDA device: per-view
-whole-volume prediction through `MultiViewPredictor`, fusion (learned
+Port of `multiplanarunet_tpu/bin/predict.py`: per-view whole-volume
+prediction through `MultiViewPredictor`, fusion (learned
 fusion weights or --sum_fusion), per-view and fused dice written to the
 csv/txt result tables, PRED.nii.gz saving (optionally beside the input
 image/labels), --continue resume, single-file mode via -f/-l, --on_val
@@ -13,7 +13,24 @@ model/fusion_weights/*fusion_weights*.npz.
 The cohort runs as a three-stage pipeline: an input thread decodes,
 scales (and for --stage_dtype u8 quantises) the next image on the host,
 the main thread copies the current one to the device and predicts it,
-and an output thread fetches and saves the previous result.
+and an output thread fetches and saves the previous result. Each image's
+shear-pass kernel launches go to the log.
+
+Several devices and processes, as in the JAX package:
+
+  * --num_devices N runs the views of each image (not evaluated, argmax
+    output) over N devices in each process (`predict_image_sharded`):
+    cuda:0 .. cuda:N-1 for --device cuda (TooFewDevicesError when fewer
+    are visible), or N entries of one named device (--device cuda:K or
+    cpu);
+  * under a launch marker (MPUNET_* or torchrun's) each process is one
+    rank of a gloo group: it predicts a round-robin share of the cohort
+    on its card (cuda:LOCAL_RANK, or the --device named), writes its
+    partial result tables to <out_dir>/.rank<r>/ and logs to
+    predict_log_rank<r>.txt; after a barrier rank 0 merges them into the
+    one set of tables and removes the rank folders, and a last barrier
+    holds every rank until then. A rank with no image still meets every
+    barrier.
 
 Run as ``python -m multiplanarunet_tpu_torch.bin.mp predict
 --project_dir <project> [--device cpu] ...``.
@@ -30,10 +47,6 @@ from pathlib import Path
 import numpy as np
 
 
-class MultiDeviceNotPortedError(NotImplementedError):
-    """View-parallel inference over several devices is not ported yet."""
-
-
 def get_argparser():
     parser = ArgumentParser(
         description="Predict (and evaluate) using a trained project model")
@@ -45,8 +58,8 @@ def get_argparser():
     parser.add_argument("--out_dir", type=str, default="predictions")
     parser.add_argument("--num_devices", "--num_GPUs", dest="num_devices",
                         type=int, default=0,
-                        help="Devices to use: 0 or 1 (multi-device "
-                             "inference is not ported yet)")
+                        help="Run each image's views over N devices "
+                             "(view-parallel); 0 or 1: one device")
     parser.add_argument("--sum_fusion", action="store_true",
                         help="Average the per-view softmaxes instead of "
                              "applying the learned fusion model")
@@ -166,19 +179,49 @@ def save_nii_files(merged, image_pair, nii_res_dir, save_input_files,
     logger(f"Saved prediction for {image_pair.identifier} to {out_dir}")
 
 
+def merge_rank_results(results, pc_results, views, out_dir, n_procs,
+                       rank):
+    """Fold the other ranks' partial tables into this (the main) rank's
+    and write the one set of tables: ranks > 0 have written theirs to
+    <out_dir>/.rank<r>/, and their non-NaN entries win, aligned by view
+    (the files key the per-view tables by the float64 str(view))."""
+    import shutil
+
+    from multiplanarunet_tpu_torch.logging import log_results as lr
+
+    for r in range(1, n_procs):
+        rank_dir = os.path.join(out_dir, f".rank{r}")
+        r_res, r_pc = lr.load_result_dicts(os.path.join(rank_dir, "csv"),
+                                           views)
+        results.update(r_res)
+        for v in views:
+            pc_results[str(v)].update(r_pc[str(np.asarray(v, np.float64))])
+        pc_results["MJ"].update(r_pc["MJ"])
+        shutil.rmtree(rank_dir, ignore_errors=True)
+    lr.save_all(results, pc_results, out_dir)
+
+
 def run_predictions_and_eval(loader, predictor, views, fusion_params, args,
-                             out_dir, n_classes, logger):
-    """Predict (and evaluate) every image of the loader not yet done.
-    Returns one dict of wall seconds per predicted image: 'load' (decode,
-    scale and quantise on the input thread), 'predict' (predict_image:
-    device staging, views, fusion and the fetch of the class map; its
-    fetch is deferred to the output thread when not evaluating), 'save'
-    (writing the NIfTI files)."""
+                             out_dir, n_classes, logger, devices=None):
+    """Predict (and evaluate) every image of the loader not yet done: this
+    rank's round-robin share of them in a process group, and each image
+    not evaluated over `devices` (view-parallel) when more than one is
+    given. Returns one dict of wall seconds per predicted image: 'load'
+    (decode, scale and quantise on the input thread), 'predict'
+    (predict_image: device staging, views, fusion and the fetch of the
+    class map; its fetch is deferred to the output thread when not
+    evaluating), 'save' (writing the NIfTI files)."""
     from multiplanarunet_tpu_torch.evaluate.metrics import (
         dice_all,
         dice_from_counts,
     )
     from multiplanarunet_tpu_torch.logging import log_results as lr
+    from multiplanarunet_tpu_torch.ops.shear_pass import shear_pass
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        process_barrier,
+        process_count,
+        process_index,
+    )
 
     image_ids = sorted(loader.id_to_image)
     csv_dir = os.path.join(out_dir, "csv")
@@ -198,6 +241,15 @@ def run_predictions_and_eval(loader, predictor, views, fusion_params, args,
     for image_id in image_ids:
         if image_id in already_done:
             logger(f"Skipping {image_id} (already predicted)")
+    # Images are independent: each rank takes a round-robin share (the
+    # NIfTI outputs go to per-image folders, so shares never collide)
+    n_procs, rank = process_count(), process_index()
+    if n_procs > 1:
+        n_total = len(todo)
+        todo = todo[rank::n_procs]
+        logger(f"Multi-process predict: process {rank + 1}/{n_procs} "
+               f"handles {len(todo)}/{n_total} images")
+    sharded = devices is not None and len(devices) > 1
 
     timings = {i: {} for i in todo}
     io_pool = ThreadPoolExecutor(max_workers=1)
@@ -246,15 +298,25 @@ def run_predictions_and_eval(loader, predictor, views, fusion_params, args,
                 evaluate = (not args.no_eval and image.labels is not None
                             and rng.rand() <= args.eval_prob)
                 t0 = time.perf_counter()
-                fused, per_view = predictor.predict_image(
-                    image, views, fusion_params=fusion_params,
-                    n_planes=args.n_planes, return_per_view=evaluate,
-                    return_probs=args.no_argmax,
-                    defer_fetch=not evaluate and not args.no_argmax,
-                    # Per-view dice from on-device confusion counts: only
-                    # (3, n_classes) counts leave the device per view
-                    eval_labels=image.labels if evaluate else None)
+                launches = shear_pass.launches
+                if sharded and not evaluate and not args.no_argmax:
+                    fused_cls = predictor.predict_image_sharded(
+                        image, views, devices, fusion_params=fusion_params,
+                        n_planes=args.n_planes)
+                    fused = lambda cls=fused_cls: cls  # noqa: E731
+                else:
+                    fused, per_view = predictor.predict_image(
+                        image, views, fusion_params=fusion_params,
+                        n_planes=args.n_planes, return_per_view=evaluate,
+                        return_probs=args.no_argmax,
+                        defer_fetch=not evaluate and not args.no_argmax,
+                        # Per-view dice from on-device confusion counts:
+                        # only (3, n_classes) counts leave the device per
+                        # view
+                        eval_labels=image.labels if evaluate else None)
                 timings[image_id]["predict"] = time.perf_counter() - t0
+                logger(f"Shear-pass launches for {image_id}: "
+                       f"{shear_pass.launches - launches}")
                 if not evaluate and not args.no_argmax:
                     out_future = out_pool.submit(_finalize, image, fused)
                     continue
@@ -274,7 +336,8 @@ def run_predictions_and_eval(loader, predictor, views, fusion_params, args,
                     results.set(image_id, "MJ", np.nanmean(merged_dices))
                     logger(f"Fused: mean dice {np.nanmean(merged_dices):.4f} "
                            f"(per-class {np.round(merged_dices, 4)})")
-                    lr.save_all(results, pc_results, out_dir)
+                    if rank == 0:  # progress save; ranks merge below
+                        lr.save_all(results, pc_results, out_dir)
                 _save(image, fused if args.no_argmax else fused_cls)
             finally:
                 if out_future is None:
@@ -293,22 +356,60 @@ def run_predictions_and_eval(loader, predictor, views, fusion_params, args,
         io_pool.shutdown(wait=False)
         out_pool.shutdown(wait=True)
     if not args.no_eval:
-        lr.save_all(results, pc_results, out_dir)
+        if n_procs > 1:
+            # Ranks > 0 persist their share; after the barrier rank 0
+            # merges and writes the tables once
+            if rank:
+                rank_dir = os.path.join(out_dir, f".rank{rank}")
+                os.makedirs(rank_dir, exist_ok=True)
+                lr.save_all(results, pc_results, rank_dir)
+            process_barrier("mp-predict-results")
+            if rank == 0:
+                merge_rank_results(results, pc_results, views, out_dir,
+                                   n_procs, rank)
+        else:
+            lr.save_all(results, pc_results, out_dir)
+    # Every rank waits for the slowest, rank 0's merge included
+    process_barrier("mp-predict-done")
     for image_id, t in timings.items():
         logger(f"Timing {image_id}: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in t.items()))
     return timings
 
 
+def predict_devices(args):
+    """The devices of view-parallel inference for --num_devices N (None
+    for N <= 1): cuda:0 .. cuda:N-1 for --device cuda (TooFewDevicesError,
+    before any work, when fewer are visible), else N entries of the one
+    device named."""
+    import torch
+
+    from multiplanarunet_tpu_torch._device import require_devices
+    from multiplanarunet_tpu_torch.parallel.distributed import rank_device
+
+    n = args.num_devices
+    if n <= 1:
+        return None
+    named = torch.device(args.device)
+    if named.type == "cuda" and named.index is None:
+        require_devices(n)
+        return [rank_device(f"cuda:{i}") for i in range(n)]
+    return [rank_device(named)] * n
+
+
 def entry_func(args=None):
-    from multiplanarunet_tpu_torch._device import resolve_device
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        data_group_active,
+        is_main_process,
+        maybe_initialize_distributed,
+        process_index,
+        rank_device,
+        shutdown_distributed,
+    )
 
     args = get_argparser().parse_args(args)
-    if args.num_devices > 1:
-        raise MultiDeviceNotPortedError(
-            f"--num_devices {args.num_devices}: view-parallel inference "
-            f"over several GPUs is not ported yet; use 0 or 1")
-    device = resolve_device(args.device)
+    devices = predict_devices(args)
+    device = devices[0] if devices else rank_device(args.device)
     if args.wait_for:
         from multiplanarunet_tpu_torch.utils.utils import await_PIDs
 
@@ -329,7 +430,12 @@ def entry_func(args=None):
     )
     from multiplanarunet_tpu_torch.utils.utils import get_best_model
 
-    logger = Logger(out_dir, active_file="predict_log",
+    # Host coordination only: a gloo group, never NCCL
+    started = not data_group_active()
+    maybe_initialize_distributed(device=device, backend="gloo")
+    logger = Logger(out_dir,
+                    active_file="predict_log" if is_main_process()
+                    else f"predict_log_rank{process_index()}",
                     overwrite_existing=True, no_sub_folder=True)
     try:
         hparams = YAMLHParams(Path(project_dir) / "train_hparams.yaml",
@@ -358,13 +464,18 @@ def entry_func(args=None):
             n_classes=hparams["build"]["n_classes"], device=device,
             logger=logger, resampler=args.resampler,
             stage_dtype=args.stage_dtype)
+        if devices:
+            logger(f"View-parallel inference over {len(devices)} devices: "
+                   f"{[str(d) for d in devices]}")
         timings = run_predictions_and_eval(
             loader, predictor, views, fusion_params, args, out_dir,
-            hparams["build"]["n_classes"], logger)
+            hparams["build"]["n_classes"], logger, devices=devices)
         logger("Prediction complete.")
         return timings
     finally:
         logger.close()
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -1,18 +1,26 @@
 """`mp predict_3D` on the PyTorch port: inference with a 3D model.
 
-Port of `multiplanarunet_tpu/bin/predict_3D.py` for one CUDA device:
-isotropic scanner-space box inference (`pred_3D_iso`: the base tiling and
---extra_boxes random boxes, scatter-added onto the voxel grid; the
-iso_live_3d style) or voxel-space patch inference (`predict_3D_patches`:
-patches_3d, or sliding_patches_3d with --strides), the per-class dice
-written to csv/results.csv and csv/detailed.csv, and PRED.nii.gz per
-image (optionally beside the input image and labels). Only the uint8
-class map leaves the device.
+Port of `multiplanarunet_tpu/bin/predict_3D.py`: isotropic scanner-space
+box inference (`pred_3D_iso`: the base tiling and --extra_boxes random
+boxes, scatter-added onto the voxel grid; the iso_live_3d style) or
+voxel-space patch inference (`predict_3D_patches`: patches_3d, or
+sliding_patches_3d with --strides), the per-class dice written to
+csv/results.csv and csv/detailed.csv, and PRED.nii.gz per image (optionally
+beside the input image and labels). Only the uint8 class map leaves the
+device.
 
 The cohort runs as a three-stage pipeline, as in the JAX script: an
 input thread decodes and scales the next image on the host, the main
 thread stages the current one on the device and predicts it, and an
 output thread evaluates and saves the previous result.
+
+Under a launch marker (MPUNET_* or torchrun's) each process is one rank
+of a gloo group and predicts a round-robin share of the cohort on its
+card (cuda:LOCAL_RANK, or the --device named); ranks > 0 write their
+share of the tables to <out_dir>/.rank<r>.json, and after a barrier rank
+0 merges them and writes csv/ and txt/ once (JAX :245-280); logs go to
+predict_log_rank<r>.txt on ranks > 0. --num_devices N > 1 checks that N
+cards are visible and runs on one, as the JAX script does.
 
 Run as ``python -m multiplanarunet_tpu_torch.bin.mp predict_3D
 --project_dir <project> [--device cpu] ...``.
@@ -39,8 +47,9 @@ def get_argparser():
     parser.add_argument("--out_dir", type=str, default="predictions_3D")
     parser.add_argument("--num_devices", "--num_GPUs", dest="num_devices",
                         type=int, default=0,
-                        help="Devices to use: 0 or 1 (multi-device "
-                             "inference is not ported yet)")
+                        help="Devices to check for; inference runs on one "
+                             "device per process (launch several processes "
+                             "to split a cohort)")
     parser.add_argument("--extra_boxes", type=str, default="2x",
                         help="Extra random boxes: an int or 'Nx' multiplier "
                              "of the base-tile count")
@@ -90,6 +99,43 @@ def get_loader(args, hparams, logger):
     return loader
 
 
+def merge_rank_results_3D(results, detailed, image_ids, out_dir, n_procs,
+                          rank):
+    """Write the tables once for a process group: ranks > 0 dump their
+    images' entries to <out_dir>/.rank<r>.json, and after a barrier rank
+    0 folds them into its tables (each image's per-class dice in its own
+    dtype) and writes csv/ and txt/."""
+    import json
+
+    from multiplanarunet_tpu_torch.logging import log_results as lr
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        process_barrier,
+    )
+
+    if rank:
+        cols = [detailed.columns.index(im) for im in image_ids]
+        part = {"results": {im: results.get(im, "0") for im in image_ids},
+                "detailed": {im: detailed.values[:, c].tolist()
+                             for im, c in zip(image_ids, cols)},
+                "f32": [im for im in image_ids if im in detailed.f32_columns]}
+        with open(os.path.join(out_dir, f".rank{rank}.json"), "w") as f:
+            json.dump(part, f)
+    process_barrier("mp-predict3d-results")
+    if rank:
+        return
+    for r in range(1, n_procs):
+        path = os.path.join(out_dir, f".rank{r}.json")
+        with open(path) as f:
+            part = json.load(f)
+        for im, value in part["results"].items():
+            results.set(im, "0", value)
+        for im, values in part["detailed"].items():
+            detailed.set_column(im, np.asarray(
+                values, np.float32 if im in part["f32"] else np.float64))
+        os.remove(path)
+    lr.save_all_3D(results, detailed, out_dir)
+
+
 def run_predictions(loader, seq, predict_fn, args, out_dir, n_classes,
                     logger):
     """Predict, evaluate and save every image of the loader; returns one
@@ -102,6 +148,11 @@ def run_predictions(loader, seq, predict_fn, args, out_dir, n_classes,
     from multiplanarunet_tpu_torch.evaluate.metrics import dice_all
     from multiplanarunet_tpu_torch.io import nifti
     from multiplanarunet_tpu_torch.logging import log_results as lr
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        process_barrier,
+        process_count,
+        process_index,
+    )
     from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
         pred_3D_iso,
         predict_3D_patches,
@@ -109,8 +160,14 @@ def run_predictions(loader, seq, predict_fn, args, out_dir, n_classes,
 
     iso_mode = hasattr(seq, "real_box_dim")
     on_card = seq.device.type == "cuda"
-    image_ids = sorted(loader.id_to_image)
-    results, detailed = lr.init_result_dict_3D(image_ids, n_classes)
+    all_ids = sorted(loader.id_to_image)
+    results, detailed = lr.init_result_dict_3D(all_ids, n_classes)
+    # Images are independent: a round-robin share per rank
+    n_procs, rank = process_count(), process_index()
+    image_ids = all_ids[rank::n_procs]
+    if n_procs > 1:
+        logger(f"Multi-process predict_3D: process {rank + 1}/{n_procs} "
+               f"handles {len(image_ids)}/{len(all_ids)} images")
     nii_dir = os.path.join(out_dir, "nii_files")
     timings = {i: {} for i in image_ids}
     io_pool = ThreadPoolExecutor(max_workers=1)
@@ -201,7 +258,12 @@ def run_predictions(loader, seq, predict_fn, args, out_dir, n_classes,
         io_pool.shutdown(wait=False)
         out_pool.shutdown(wait=True)
     if not args.no_eval:
-        lr.save_all_3D(results, detailed, out_dir)
+        if n_procs > 1:
+            merge_rank_results_3D(results, detailed, image_ids, out_dir,
+                                  n_procs, rank)
+        else:
+            lr.save_all_3D(results, detailed, out_dir)
+    process_barrier("mp-predict3d-done")
     for image_id, t in timings.items():
         logger(f"Timing {image_id}: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in t.items()))
@@ -209,17 +271,22 @@ def run_predictions(loader, seq, predict_fn, args, out_dir, n_classes,
 
 
 def entry_func(args=None):
-    from multiplanarunet_tpu_torch._device import resolve_device
-    from multiplanarunet_tpu_torch.bin.predict import (
-        MultiDeviceNotPortedError,
+    import torch
+
+    from multiplanarunet_tpu_torch._device import require_devices
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        data_group_active,
+        is_main_process,
+        maybe_initialize_distributed,
+        process_index,
+        rank_device,
+        shutdown_distributed,
     )
 
     args = get_argparser().parse_args(args)
-    if args.num_devices > 1:
-        raise MultiDeviceNotPortedError(
-            f"--num_devices {args.num_devices}: multi-device inference is "
-            f"not ported yet; use 0 or 1")
-    device = resolve_device(args.device)
+    if args.num_devices > 1 and torch.device(args.device).type == "cuda":
+        require_devices(args.num_devices)
+    device = rank_device(args.device)
     project_dir = os.path.abspath(args.project_dir)
     out_dir = os.path.abspath(os.path.join(project_dir, args.out_dir))
     if os.path.exists(out_dir) and not args.overwrite:
@@ -241,7 +308,12 @@ def entry_func(args=None):
         get_best_model,
     )
 
-    logger = Logger(out_dir, active_file="predict_log",
+    # Host coordination only: a gloo group, never NCCL
+    started = not data_group_active()
+    maybe_initialize_distributed(device=device, backend="gloo")
+    logger = Logger(out_dir,
+                    active_file="predict_log" if is_main_process()
+                    else f"predict_log_rank{process_index()}",
                     overwrite_existing=True, no_sub_folder=True)
     try:
         hparams = YAMLHParams(Path(project_dir) / "train_hparams.yaml",
@@ -275,6 +347,8 @@ def entry_func(args=None):
         return timings
     finally:
         logger.close()
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

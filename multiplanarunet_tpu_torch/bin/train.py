@@ -13,20 +13,37 @@ the build group (UNet, UNet3D or MultiTaskUNet2D; glorot init,
 which a multi-task model skips, as the JAX package does), the Trainer
 over the default callbacks, and model/model_weights.npz at the end
 (JAX-format .npz files, which either package reads). Training runs on the
-card unless --device cpu.
+card unless --device cpu. A model class other than UNet, UNet3D and
+MultiTaskUNet2D raises a named error.
 
-Not ported yet, each raising a named error: --num_devices > 1, a model
-class other than UNet, UNet3D and MultiTaskUNet2D; QuantileTransformer
-scaling raises when the images load.
+Data-parallel training, one process per card:
+
+  * under a launch marker (MPUNET_COORDINATOR_ADDRESS /
+    MPUNET_NUM_PROCESSES / MPUNET_PROCESS_ID, or torchrun's), this
+    process is one rank: it starts the process group before it touches
+    the project folder, the main process alone does the --overwrite
+    cleanup (the others wait at a barrier), logs go to logs/train.txt on
+    the main process and logs/train_rank<r>.txt on the others, and only
+    the main process writes checkpoints, the CSV, views.npz and the YAML;
+  * --num_devices N without a marker starts N such ranks itself, on
+    localhost (rank r on cuda:r, or on the CPU under --device cpu), after
+    checking that N cards are visible (TooFewDevicesError otherwise,
+    before any process starts). Their global batch is padded to a
+    multiple of N where N does not divide it, as the JAX package's
+    N-device mesh pads it; under an external launcher it must divide.
 
 Run as ``python -m multiplanarunet_tpu_torch.bin.mp train --project_dir
-<project> [--device cpu] ...``.
+<project> [--device cpu] [--num_devices N] ...``.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import socket
+import subprocess
+import sys
+import time
 from argparse import ArgumentParser
 from pathlib import Path
 
@@ -39,8 +56,9 @@ def get_argparser():
                         help="Path to a project directory (default: cwd)")
     parser.add_argument("--num_devices", "--num_GPUs", dest="num_devices",
                         type=int, default=0,
-                        help="Devices to use: 0 or 1 (multi-device "
-                             "training is not ported yet)")
+                        help="Train data-parallel over N devices, one "
+                             "process each (started here unless a launch "
+                             "marker is set); 0 or 1: one device")
     parser.add_argument("--continue_training", action="store_true",
                         help="Continue the last training session")
     parser.add_argument("--overwrite", action="store_true",
@@ -78,9 +96,10 @@ def get_argparser():
 
 
 def validate_args(args):
-    from multiplanarunet_tpu_torch.bin.predict import (
-        MultiDeviceNotPortedError,
-    )
+    import torch
+
+    from multiplanarunet_tpu_torch._device import require_devices
+    from multiplanarunet_tpu_torch.parallel.distributed import launch_config
 
     if args.continue_training and args.overwrite:
         raise ValueError("Cannot both --continue_training and --overwrite.")
@@ -90,9 +109,19 @@ def validate_args(args):
         raise ValueError("val_images_per_epoch must be positive "
                          "(use --no_val to disable validation)")
     if args.num_devices > 1:
-        raise MultiDeviceNotPortedError(
-            f"--num_devices {args.num_devices}: data-parallel training over "
-            f"several GPUs is not ported yet; use 0 or 1")
+        device = torch.device(args.device)
+        if device.type == "cuda" and device.index is not None:
+            raise ValueError(
+                f"--num_devices {args.num_devices} trains one rank per card; "
+                f"use --device cuda (rank r on cuda:r) or --device cpu, not "
+                f"{args.device}")
+        cfg = launch_config()
+        if cfg is not None and cfg[1] != args.num_devices:
+            raise ValueError(
+                f"--num_devices {args.num_devices} under a launch of "
+                f"{cfg[1]} processes")
+        if cfg is None and device.type == "cuda":
+            require_devices(args.num_devices)
 
 
 def validate_project_dir(project_dir):
@@ -172,6 +201,7 @@ def run(project_dir, logger, args, device):
         remove_validation_callbacks,
     )
     from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
+    from multiplanarunet_tpu_torch.parallel.distributed import is_main_process
     from multiplanarunet_tpu_torch.train.trainer import Trainer
 
     if args.debug:
@@ -185,7 +215,8 @@ def run(project_dir, logger, args, device):
     model, init_epoch, restored_lr = get_model(project_dir, train, hparams,
                                                logger, args)
     logger(f"Using device {device}")
-    trainer = Trainer(model, logger=logger, device=device)
+    trainer = Trainer(model, logger=logger, device=device,
+                      pad_global_batch=args.num_devices > 1)
     fit = hparams["fit"]
     loss_kwargs = dict(fit.get("loss_kwargs") or {})
     if fit.get("class_weights") is True and "class_weights" not in loss_kwargs:
@@ -223,36 +254,107 @@ def run(project_dir, logger, args, device):
             init_epoch=init_epoch, verbose=fit.get("verbose", True),
             no_im=args.no_images)
     finally:
-        path = Path(project_dir) / "model" / "model_weights.npz"
-        logger(f"Saving current model to: {path}")
-        trainer.save_checkpoint(path)
-    hparams.save_current()
+        if is_main_process():
+            path = Path(project_dir) / "model" / "model_weights.npz"
+            logger(f"Saving current model to: {path}")
+            trainer.save_checkpoint(path)
+    hparams.save_current()  # the main process only
     return trainer
 
 
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(argv, n):
+    """Run `mp train <argv>` as n ranks on localhost (the MPUNET_* markers
+    with LOCAL_RANK = rank) and wait for them; a rank that fails ends the
+    others and raises. Returns the exit codes."""
+    import multiplanarunet_tpu_torch
+
+    repo = str(Path(multiplanarunet_tpu_torch.__file__).resolve().parents[1])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH", "")) if p)
+    env["MPUNET_COORDINATOR_ADDRESS"] = f"localhost:{_free_port()}"
+    env["MPUNET_NUM_PROCESSES"] = str(n)
+    procs = []
+    for rank in range(n):
+        env.update(MPUNET_PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp",
+             "train", *argv], env=dict(env)))
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.returncode not in (None, 0)]
+            if failed:
+                raise RuntimeError(
+                    f"mp train rank {failed[0]} exited "
+                    f"{procs[failed[0]].returncode}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"mp train ranks exited {codes}")
+    return codes
+
+
 def entry_func(args=None):
-    from multiplanarunet_tpu_torch._device import resolve_device
     from multiplanarunet_tpu_torch.logging.loggers import Logger
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        data_group_active,
+        is_main_process,
+        launch_config,
+        maybe_initialize_distributed,
+        process_barrier,
+        process_index,
+        rank_device,
+        shutdown_distributed,
+    )
     from multiplanarunet_tpu_torch.utils.utils import await_PIDs
 
-    args = get_argparser().parse_args(args)
+    argv = list(sys.argv[1:] if args is None else args)
+    args = get_argparser().parse_args(argv)
     validate_args(args)
-    device = resolve_device(args.device)
+    if args.num_devices > 1 and launch_config() is None:
+        return launch_ranks(argv, args.num_devices)
+    device = rank_device(args.device)
     project_dir = os.path.abspath(args.project_dir)
     validate_project_dir(project_dir)
     os.chdir(project_dir)
-    if args.overwrite:
-        remove_previous_session(project_dir)
-    logger = Logger(project_dir, active_file="train",
-                    overwrite_existing=args.overwrite
-                    or args.continue_training)
+    # The group starts before the shared project folder is touched: the
+    # overwrite cleanup must finish before another rank opens its log
+    # file inside logs/
+    started = not data_group_active()
+    maybe_initialize_distributed(device=device)
     try:
-        logger(f"Project directory: {project_dir}")
-        if args.wait_for:
-            await_PIDs(args.wait_for, logger=logger)
-        return run(project_dir, logger, args, device)
+        if args.overwrite and is_main_process():
+            remove_previous_session(project_dir)
+        process_barrier("mp-train-overwrite")
+        logger = Logger(project_dir,
+                        active_file="train" if is_main_process()
+                        else f"train_rank{process_index()}",
+                        overwrite_existing=args.overwrite
+                        or args.continue_training)
+        try:
+            logger(f"Project directory: {project_dir}")
+            if args.wait_for:
+                await_PIDs(args.wait_for, logger=logger)
+            trainer = run(project_dir, logger, args, device)
+            process_barrier("mp-train-done")
+            return trainer
+        finally:
+            logger.close()
     finally:
-        logger.close()
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

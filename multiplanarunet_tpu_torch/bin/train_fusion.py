@@ -1,8 +1,8 @@
 """`mp train_fusion` on the PyTorch port: train the per-class-per-view
 FusionModel of a trained project.
 
-Port of `multiplanarunet_tpu/bin/train_fusion.py` for one device, with the
-same arguments (plus --device): map every view over the validation images
+Port of `multiplanarunet_tpu/bin/train_fusion.py`, with the same
+arguments (plus --device): map every view over the validation images
 (topped up with random training images to >= --min_val_images) in rounds
 of --images_per_round, stack the per-voxel (n_views, n_classes)
 probability points, fit the fusion layer with Adam + Sparse Generalized
@@ -17,6 +17,17 @@ the 80/20 split, one draw per round that seeds the epoch shuffles), so
 --seed leaves numpy's stream where the JAX package leaves it. The shuffles
 themselves and the --max_points_per_image subsets come from torch
 generators, not from jax.random.
+
+Under a launch marker (MPUNET_* or torchrun's) each process is one rank
+of a gloo group: the main process's draw of the image set is broadcast,
+each round's images are mapped round-robin over the ranks (an image's
+points depend on (round, index) alone, so which rank maps it changes no
+value) and exchanged through model/fusion_weights/.points_tmp/
+r<round>_i<index>.npz; rank 0 fits on the round's points in image order
+and writes the one checkpoint, the other ranks reload it, and
+.points_tmp is removed at the end. Logs go to logs/train_fusion.txt on
+rank 0 and logs/train_fusion_rank<r>.txt on the others. --num_devices N
+> 1 checks that N cards are visible; each process maps on one.
 
 Run as ``python -m multiplanarunet_tpu_torch.bin.mp train_fusion
 --project_dir <project> [--device cpu] ...``.
@@ -38,8 +49,9 @@ def get_argparser():
     parser.add_argument("--overwrite", action="store_true")
     parser.add_argument("--num_devices", "--num_GPUs", dest="num_devices",
                         type=int, default=0,
-                        help="Devices to use: 0 or 1 (multi-device fusion "
-                             "training is not ported yet)")
+                        help="Devices to check for; each process maps on "
+                             "one device (launch several processes to "
+                             "split the mapping)")
     parser.add_argument("--images_per_round", type=int, default=5,
                         help="Images to map per fusion training round")
     parser.add_argument("--min_val_images", type=int, default=15,
@@ -188,10 +200,15 @@ def _fit_fusion(points, targets, n_views, n_classes, args, logger,
 
 def _fusion_image_set(hparams, args, logger):
     """The val images, topped up with random training images (numpy's
-    global RNG, before --seed is applied, as in the JAX package), with
-    the project's bg value and scaler set."""
+    global RNG, before --seed is applied, as in the JAX package; the main
+    process's draw in a process group), with the project's bg value and
+    scaler set."""
     from multiplanarunet_tpu_torch.image.image_pair_loader import (
         ImagePairLoader,
+    )
+
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        broadcast_from_main,
     )
 
     val_loader = ImagePairLoader(logger=logger, **hparams["val_data"])
@@ -201,6 +218,9 @@ def _fusion_image_set(hparams, args, logger):
         need = args.min_val_images - len(images)
         extra = list(train_loader.get_random(
             min(need, len(train_loader)), unique=True))
+        # Every process of a group maps the main process's draw
+        ids = broadcast_from_main(np.asarray([im.identifier for im in extra]))
+        extra = [train_loader.get_by_id(str(i)) for i in ids]
         logger(f"Adding {len(extra)} random training images to the fusion "
                f"set")
         images += extra
@@ -218,6 +238,11 @@ def run(project_dir, args, device, logger):
     from multiplanarunet_tpu_torch.models.model_init import (
         build_model,
         load_unet_weights,
+    )
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        process_barrier,
+        process_count,
+        process_index,
     )
     from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
         MultiViewPredictor,
@@ -260,6 +285,11 @@ def run(project_dir, args, device, logger):
     if args.seed is not None:
         np.random.seed(args.seed)
 
+    n_procs, rank = process_count(), process_index()
+    points_tmp = fusion_dir / ".points_tmp"
+    if n_procs > 1:
+        points_tmp.mkdir(parents=True, exist_ok=True)
+
     n_rounds = -(-len(images) // args.images_per_round)
     for rnd in range(n_rounds):
         batch = images[rnd * args.images_per_round:
@@ -268,6 +298,8 @@ def run(project_dir, args, device, logger):
                f"({len(batch)} images) ===")
         points_coll, targets_coll = [], []
         for i, image in enumerate(batch):
+            if i % n_procs != rank:
+                continue
             with image.loaded_in_context():
                 logger(f"Mapping views over {image.identifier}...")
                 # Each image's subset depends on (round, index) alone
@@ -277,19 +309,44 @@ def run(project_dir, args, device, logger):
                     image, views, n_planes=args.n_planes,
                     max_points=args.max_points_per_image or None,
                     generator=gen)
-                points_coll.append(pts)
-                targets_coll.append(tgt)
-        X = torch.cat(points_coll)
-        y = torch.cat(targets_coll)
-        del points_coll, targets_coll
-        logger(f"Training fusion on {len(X)} voxel points "
-               f"(device-resident)")
-        fusion_params = _fit_fusion(X, y, n_views, n_classes, args, logger,
-                                    init_params=fusion_params)
-        del X, y
-        checkpoint.save_weights(fusion_out, fusion_params,
-                                meta={"round": rnd + 1, "n_views": n_views})
-        logger(f"Saved fusion weights to {fusion_out}")
+                if n_procs > 1:
+                    np.savez(points_tmp / f"r{rnd}_i{i:04d}.npz",
+                             pts=pts.cpu().numpy(), tgt=tgt.cpu().numpy())
+                else:
+                    points_coll.append(pts)
+                    targets_coll.append(tgt)
+        if n_procs > 1:
+            process_barrier(f"mp-fusion-r{rnd}-points")
+            if rank == 0:
+                for i in range(len(batch)):
+                    with np.load(points_tmp / f"r{rnd}_i{i:04d}.npz") as f:
+                        points_coll.append(torch.from_numpy(f["pts"]).to(
+                            device))
+                        targets_coll.append(torch.from_numpy(f["tgt"]).to(
+                            device))
+        if rank == 0:
+            X = torch.cat(points_coll)
+            y = torch.cat(targets_coll)
+            del points_coll, targets_coll
+            logger(f"Training fusion on {len(X)} voxel points "
+                   f"(device-resident)")
+            fusion_params = _fit_fusion(X, y, n_views, n_classes, args,
+                                        logger, init_params=fusion_params)
+            del X, y
+            checkpoint.save_weights(
+                fusion_out, fusion_params,
+                meta={"round": rnd + 1, "n_views": n_views})
+            logger(f"Saved fusion weights to {fusion_out}")
+        if n_procs > 1:
+            process_barrier(f"mp-fusion-r{rnd}-fit")
+            if rank:
+                fusion_params, _, _ = checkpoint.load_weights(fusion_out)
+    if n_procs > 1:
+        process_barrier("mp-fusion-done")
+        if rank == 0:
+            import shutil
+
+            shutil.rmtree(points_tmp, ignore_errors=True)
     logger("Fusion training complete.")
     logger(f"Final fusion W:\n"
            f"{np.asarray(fusion_params['fusion']['W'])}")
@@ -300,29 +357,42 @@ def run(project_dir, args, device, logger):
 
 
 def entry_func(args=None):
-    from multiplanarunet_tpu_torch._device import resolve_device
-    from multiplanarunet_tpu_torch.bin.predict import (
-        MultiDeviceNotPortedError,
-    )
+    import torch
+
+    from multiplanarunet_tpu_torch._device import require_devices
     from multiplanarunet_tpu_torch.logging.loggers import Logger
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        data_group_active,
+        is_main_process,
+        maybe_initialize_distributed,
+        process_index,
+        rank_device,
+        shutdown_distributed,
+    )
     from multiplanarunet_tpu_torch.utils.utils import await_PIDs
 
     args = get_argparser().parse_args(args)
-    if args.num_devices > 1:
-        raise MultiDeviceNotPortedError(
-            f"--num_devices {args.num_devices}: fusion training over "
-            f"several GPUs is not ported yet; use 0 or 1")
-    device = resolve_device(args.device)
+    if args.num_devices > 1 and torch.device(args.device).type == "cuda":
+        require_devices(args.num_devices)
+    device = rank_device(args.device)
     if args.wait_for:
         await_PIDs(args.wait_for)
     project_dir = os.path.abspath(args.project_dir)
     os.chdir(project_dir)
-    logger = Logger(project_dir, active_file="train_fusion",
+    # Host coordination only: a gloo group, started before the per-rank
+    # log file is opened
+    started = not data_group_active()
+    maybe_initialize_distributed(device=device, backend="gloo")
+    logger = Logger(project_dir,
+                    active_file="train_fusion" if is_main_process()
+                    else f"train_fusion_rank{process_index()}",
                     overwrite_existing=True)
     try:
         return run(project_dir, args, device, logger)
     finally:
         logger.close()
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -30,9 +30,12 @@ import torch
 
 
 class Callback:
-    """Base class; the Trainer assigns itself before training starts."""
+    """Base class; the Trainer assigns itself before training starts.
+    `writes_files` marks the callbacks that persist files, which ranks
+    other than the main one drop."""
 
     trainer = None
+    writes_files = False
 
     def set_trainer(self, trainer):
         self.trainer = trainer
@@ -65,6 +68,8 @@ class ModelCheckPointClean(Callback):
     """Save the best checkpoint and delete the previously saved best file.
     `filepath` may format `epoch` (1-based) and any logs key, e.g.
     './model/@epoch_{epoch:02d}_val_dice_{val_dice:.5f}.npz'."""
+
+    writes_files = True
 
     def __init__(self, filepath, monitor="val_dice", save_best_only=True,
                  save_weights_only=True, verbose=1, mode="max", **kwargs):
@@ -163,6 +168,8 @@ class ReduceLROnPlateau(Callback):
 
 
 class CSVLogger(Callback):
+    writes_files = True
+
     def __init__(self, filename="logs/training.csv", separator=",",
                  append=True, **kwargs):
         self.filename = Path(filename)
@@ -235,6 +242,10 @@ class DelayedCallback(Callback):
     """Wraps another callback, activating its epoch hooks from epoch
     `start_from`."""
 
+    @property
+    def writes_files(self):
+        return self.callback.writes_files
+
     def __init__(self, callback, start_from=0, logger=None, **kwargs):
         self.callback = callback
         self.start_from = start_from
@@ -288,6 +299,8 @@ class DividerLine(Callback):
 class LearningCurve(Callback):
     """Re-plots <out_dir>/<fname> from <log_dir>/training.csv each
     epoch."""
+
+    writes_files = True
 
     def __init__(self, log_dir="logs", out_dir="logs", fname="curve.png",
                  logger=None, **kwargs):
@@ -387,6 +400,8 @@ class SavePredictionImages(Callback):
     """Saves (input | truth | prediction) panels of a batch each epoch to
     <out_dir>/epoch_<e>.png."""
 
+    writes_files = True
+
     def __init__(self, train_data=None, val_data=None, out_dir="images",
                  logger=None, **kwargs):
         self.train_data = train_data
@@ -419,6 +434,8 @@ class Profiler(Callback):
     is exported as a Chrome trace, <log_dir>/trace_epoch_<e>.json (the
     JAX package writes a TensorBoard trace of the same epochs; only the
     format differs)."""
+
+    writes_files = True
 
     def __init__(self, log_dir="./profile", epochs=(1,), logger=None,
                  **kwargs):
@@ -458,6 +475,8 @@ class SaveOutputAs2DImage(Callback):
     """Saves the model's per-class output on the first image of a batch
     (the middle slice of a 3D output) each `every` epochs to
     <out_dir>/output_epoch_<e>.png."""
+
+    writes_files = True
 
     def __init__(self, sequence=None, out_dir="images/outputs", every=1,
                  logger=None, **kwargs):

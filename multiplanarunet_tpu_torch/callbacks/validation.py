@@ -1,7 +1,7 @@
 """Validation callback: epoch evaluation with exact per-class statistics.
 
-Port of `multiplanarunet_tpu/callbacks/validation.py:Validation` (single
-device). At every epoch end it runs the eval step over `steps`
+Port of `multiplanarunet_tpu/callbacks/validation.py:Validation`. At
+every epoch end it runs the eval step over `steps`
 validation batches (sampled one batch ahead), sums the batch logs and the
 int32 per-class (tp, rel, sel) counts on the device, fetches them once,
 and writes into the logs: val_<key> (the mean of each eval-step log:
@@ -11,6 +11,15 @@ classes present in the labels, background left out). For a multi-task
 trainer the counts are per task: each task's mean dice goes to
 val_task_{t}/dice, and val_precision, val_recall and val_dice are the
 means over the tasks.
+
+Data-parallel (a process group is active), each rank evaluates its share
+of every global batch (padded by the trainer where the ranks do not
+divide it; the pad rows leave the counts) and the epoch's sums are
+all-reduced once: the int32 counts exactly, as int64, and the log sums
+as their mean over the ranks, the loss keys times the trainer's padded
+over true global batch (`Trainer.loss_pad_factor`), as the JAX package's
+global pad over global true count. Every rank then logs the numbers one
+process computes over the same global batches.
 
 `ValDiceScores` (`validation.py:ValDiceScores` of the JAX package) is the
 light epoch metric over fixed (X, y) arrays: the trainer's predict_batch
@@ -27,6 +36,10 @@ from multiplanarunet_tpu_torch.callbacks.callbacks import Callback
 from multiplanarunet_tpu_torch.evaluate.metrics import (
     dice_all,
     precision_recall_dice,
+)
+from multiplanarunet_tpu_torch.parallel.distributed import (
+    all_reduce_mean,
+    data_group_active,
 )
 from multiplanarunet_tpu_torch.sequences.base_sequence import prefetched
 
@@ -45,11 +58,13 @@ class Validation(Callback):
 
     def evaluate(self):
         """(summed eval-step logs, per task a (tp, rel, sel) triple of
-        int64 numpy) over the validation batches, fetched once."""
+        int64 numpy) over the validation batches (the global batches when
+        data-parallel), fetched once."""
         trainer = self.trainer
         sums, counts = None, None
         for X, y, w in prefetched(self.sequence, self.steps, trainer.device):
-            step_logs, step_counts = trainer.eval_step(X, y, w)
+            X, y, w, n_valid = trainer.pad_share(X, y, w)
+            step_logs, step_counts = trainer.eval_step(X, y, w, n_valid)
             if not trainer.multitask:
                 step_counts = (step_counts,)
             if sums is None:
@@ -58,6 +73,18 @@ class Validation(Callback):
                 sums = {k: sums[k] + v for k, v in step_logs.items()}
                 counts = [[a + b for a, b in zip(task, step_task)]
                           for task, step_task in zip(counts, step_counts)]
+        if data_group_active():
+            import torch.distributed as dist
+
+            sums = all_reduce_mean(sums)
+            factor = trainer.loss_pad_factor()
+            sums = {k: v * factor if k.endswith("loss") else v
+                    for k, v in sums.items()}
+            flat = torch.cat([c.long() for task in counts for c in task])
+            dist.all_reduce(flat)
+            sizes = [len(c) for task in counts for c in task]
+            parts = iter(flat.split(sizes))
+            counts = [[next(parts) for _ in task] for task in counts]
         keys = list(sums)
         fetched = torch.stack([sums[k].float() for k in keys]).cpu().numpy()
         return (dict(zip(keys, fetched)),

@@ -276,7 +276,16 @@ class YAMLHParams(dict):
 
     def save_current(self, out_path=None):
         """Write the raw text (with every edit) to `out_path` or the file
-        it was read from."""
+        it was read from, in the main process only: the processes of a
+        group share the project folder and hold the same configuration
+        (audit and views broadcast), and concurrent rewrites of one YAML
+        could interleave."""
+        from multiplanarunet_tpu_torch.parallel.distributed import (
+            is_main_process,
+        )
+
+        if not is_main_process():
+            return
         out_path = os.path.abspath(out_path or self.yaml_path)
         if not self.no_log:
             self.logger(f"Saving current YAML configuration to file: "

@@ -66,6 +66,19 @@ class ResultTable:
         else:
             self.f32_columns.discard(col)
 
+    def update(self, other):
+        """Take `other`'s non-NaN entries where its row and column labels
+        are this table's (pandas DataFrame.update); labels this table
+        lacks are ignored."""
+        for i, row in enumerate(other.index):
+            if row not in self.index:
+                continue
+            r = self.index.index(row)
+            for j, col in enumerate(other.columns):
+                v = other.values[i, j]
+                if col in self.columns and not np.isnan(v):
+                    self.values[r, self.columns.index(col)] = v
+
     def get(self, row, col):
         return float(self.values[self.index.index(row),
                                  self.columns.index(col)])

@@ -21,6 +21,7 @@ from multiplanarunet_tpu_torch.models import checkpoint
 from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
+from multiplanarunet_tpu_torch.parallel.distributed import is_main_process
 from multiplanarunet_tpu_torch.utils.utils import (
     clear_csv_after_epoch,
     get_last_model,
@@ -111,7 +112,8 @@ def model_initializer(hparams, continue_training=False, project_dir=None,
             # index init_epoch and the rows kept are those < init_epoch
             csv_path = Path(project_dir) / "logs" / "training.csv"
             restored_lr, _ = get_lr_at_epoch(init_epoch - 1, csv_path.parent)
-            clear_csv_after_epoch(init_epoch - 1, csv_path)
+            if is_main_process():  # the one writer of the shared file
+                clear_csv_after_epoch(init_epoch - 1, csv_path)
     elif initialize_from:
         weights_path = initialize_from
 

@@ -13,17 +13,20 @@ an activation name the port does not know raises
 building blocks take the spatial rank n (`ndim`): `UNet` is the 2D model
 (NCHW), `models/unet3d.py:UNet3D` the 3D one (NCDHW) on the same blocks.
 
-Parameters and BatchNorm statistics stay float32; the convolutions run
-in `dtype` (bf16 on the card), as the JAX model's `dtype` does, and
-BatchNorm normalises in float32 (eps 1e-3). In eval mode BatchNorm uses
-the running statistics; in train mode (`.train()`) it normalises with
-the batch statistics and updates the running ones as flax does: float32
-reductions, the biased variance max(0, E[x^2] - E[x]^2), running = 0.99 *
-running + 0.01 * batch. Weights come from the JAX package's checkpoints
-through `models.checkpoint`, or from `glorot_init` (glorot-uniform
-kernels of every conv rank, zero biases, the JAX model's init).
-`label_crop` holds the (n, 2) skip crops of the last forward, the JAX
-model's sown `label_crop` (zero when the input side is divisible by
+Parameters and BatchNorm statistics stay float32; the convolutions run in
+`dtype` (bf16 on the card), as the JAX model's `dtype` does, and BatchNorm
+normalises in float32 (eps 1e-3). In eval mode BatchNorm uses the running
+statistics; in train mode (`.train()`) it normalises with the batch
+statistics and updates the running ones as flax does: float32 reductions,
+the biased variance max(0, E[x^2] - E[x]^2), running = 0.99 * running +
+0.01 * batch. While a process group is active (data-parallel training,
+`parallel.distributed`), the batch statistics are those of the global batch
+over every rank, as the JAX package's sharded step computes them, so every
+rank keeps the same running statistics. Weights come from the JAX package's
+checkpoints through `models.checkpoint`, or from `glorot_init`
+(glorot-uniform kernels of every conv rank, zero biases, the JAX model's
+init). `label_crop` holds the (n, 2) skip crops of the last forward, the
+JAX model's sown `label_crop` (zero when the input side is divisible by
 2^depth).
 """
 
@@ -31,8 +34,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from multiplanarunet_tpu_torch.parallel.distributed import data_group_active
 
 
 class UnsupportedActivationError(ValueError):
@@ -107,14 +113,36 @@ class _BatchStatsNorm(torch.autograd.Function):
     normalises with those statistics in one fused F.batch_norm (float32
     arithmetic, output in the input's dtype); the backward is aten's batch
     norm backward at the same mean and 1/std, the gradient of that same
-    function. Returns (y, mean, var); mean and var carry no gradient."""
+    function. Returns (y, mean, var); mean and var carry no gradient.
+
+    With `data_parallel` (a process group is active) the statistics are
+    those of the global batch: the per-channel float32 sum, sum of squares
+    and count are all-reduced (in float64) before the mean and variance
+    are taken, and the backward all-reduces sum(dy) and sum(dy * x_hat)
+    per channel and forms dx from their global means, as the gradient of
+    the mean loss over every rank's rows needs. The parameter gradients
+    stay local sums, which DistributedDataParallel averages. Both use
+    only all_reduce."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, data_parallel=False):
         xf = x.float()
         dims = (0,) + tuple(range(2, x.dim()))  # all but the channel axis
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        ctx.data_parallel = data_parallel
+        if data_parallel:
+            c = x.shape[1]
+            stats = torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                               xf.new_full((1,), xf.numel() // c)]).double()
+            dist.all_reduce(stats)
+            n = stats[-1]
+            mean = (stats[:c] / n).float()
+            var = torch.clamp((stats[c:2 * c] / n).float() - mean * mean,
+                              min=0.0)
+            ctx.count = n
+        else:
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                              min=0.0)
         del xf
         y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
@@ -125,10 +153,25 @@ class _BatchStatsNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_y, _grad_mean, _grad_var):
         x, weight, mean, invstd = ctx.saved_tensors
-        grad_x, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
-            grad_y.contiguous(), x, weight, None, None, mean, invstd, True,
-            ctx.eps, [True, True, True])
-        return grad_x, grad_w, grad_b, None
+        if not ctx.data_parallel:
+            grad_x, grad_w, grad_b = \
+                torch.ops.aten.native_batch_norm_backward(
+                    grad_y.contiguous(), x, weight, None, None, mean, invstd,
+                    True, ctx.eps, [True, True, True])
+            return grad_x, grad_w, grad_b, None, None
+        dims = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        g = grad_y.float()
+        x_hat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        grad_b = g.sum(dim=dims)
+        grad_w = (g * x_hat).sum(dim=dims)
+        c = grad_b.shape[0]
+        sums = torch.cat([grad_b, grad_w]).double()
+        dist.all_reduce(sums)
+        sums = (sums / ctx.count).float()
+        grad_x = (weight * invstd).view(shape) * (
+            g - sums[:c].view(shape) - x_hat * sums[c:].view(shape))
+        return grad_x.to(x.dtype), grad_w, grad_b, None, None
 
 
 class _FlaxBatchNorm:
@@ -137,7 +180,8 @@ class _FlaxBatchNorm:
     normalises with the batch's statistics and updates the running ones
     from them, as flax does: 0.99 * running + 0.01 * batch, with the
     biased variance (F.batch_norm's own running update, with the unbiased
-    variance, is never used)."""
+    variance, is never used). Under an active process group the batch's
+    statistics are the global batch's (`_BatchStatsNorm`)."""
 
     def __init__(self, channels):
         super().__init__(channels, eps=1e-3, momentum=1.0 - BN_MOMENTUM)
@@ -148,7 +192,7 @@ class _FlaxBatchNorm:
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
         y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias,
-                                             self.eps)
+                                             self.eps, data_group_active())
         with torch.no_grad():
             m = BN_MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -14,6 +14,7 @@ Nothing here falls back: a missing `nvcc` or a failed compile raises
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -65,13 +66,27 @@ def build(build_dir=BUILD_DIR):
     build_dir = Path(build_dir)
     lib_path = build_dir / f"libmp_kernels_{_source_hash()}.so"
     log_path = lib_path.with_suffix(".log")
-    if lib_path.is_file():
+
+    def built():
         log = log_path.read_text() if log_path.is_file() else ""
         return lib_path, 0.0, log
+
+    if lib_path.is_file():
+        return built()
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name and rename into place: concurrent builds
-    # never load a half-written library
+    # One compile for several processes (the ranks of a group): the others
+    # wait on the lock, then load what the first built
+    with open(build_dir / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.is_file():
+            return built()
+        return _compile(nvcc, lib_path, log_path, build_dir)
+
+
+def _compile(nvcc, lib_path, log_path, build_dir):
+    # Compile to a private name and rename into place: a library is never
+    # loaded half-written
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]

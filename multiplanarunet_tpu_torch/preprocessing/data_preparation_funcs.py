@@ -27,6 +27,10 @@ from multiplanarunet_tpu_torch.image.auditor import Auditor
 from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
 from multiplanarunet_tpu_torch.image.queue.queues import get_data_queues
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
+from multiplanarunet_tpu_torch.parallel.distributed import (
+    broadcast_from_main,
+    is_main_process,
+)
 from multiplanarunet_tpu_torch.ops.geometry import (
     sample_random_views_with_angle_restriction,
 )
@@ -98,7 +102,8 @@ def load_or_create_views(hparams, continue_training, logger, base_path,
     plotting failure logs one warning). Listed views are kept as given:
     the JAX package pre-noises them only for an intrp_style other than
     iso_live, and the 2D and multi-task paths that call this sample
-    iso_live."""
+    iso_live. In a process group the main process's views are broadcast
+    to every process, and only the main process writes the files."""
     views = hparams["fit"]["views"]
     view_path = os.path.join(base_path, f"{name}.npz")
     if continue_training:
@@ -115,6 +120,11 @@ def load_or_create_views(hparams, continue_training, logger, base_path,
                          f"or a list of vectors")
     views = np.asarray(views, np.float64)
     logger(f"View SD:     {hparams['fit'].get('noise_sd')}")
+    # Every process of a group trains on the main process's draw, and
+    # only that process writes the shared files
+    views = np.asarray(broadcast_from_main(views), np.float64)
+    if not is_main_process():
+        return views
     np.savez(view_path, views)
     try:
         from multiplanarunet_tpu_torch.utils.plotting import plot_views

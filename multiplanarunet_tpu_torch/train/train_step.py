@@ -1,20 +1,29 @@
 """The train and eval steps.
 
-Port of `multiplanarunet_tpu/train/train_step.py` (single device). A train
-step is: forward in train mode (BatchNorm over the batch's statistics,
-running statistics updated), the loss with sample weights, the L1/L2
-penalty over the parameters with ndim > 1, backward, the optimizer update
-and the in-step metrics. Under mixed precision the model keeps float32
-parameters and statistics and runs its convolutions in bf16, its
-BatchNorm reductions and out conv in float32, as the JAX model does; bf16
-needs no loss scaling, and none is used.
+Port of `multiplanarunet_tpu/train/train_step.py`. A train step is: forward
+in train mode (BatchNorm over the batch's statistics, running statistics
+updated), the loss with sample weights, the L1/L2 penalty over the
+parameters with ndim > 1, backward, the optimizer update and the in-step
+metrics. Under mixed precision the model keeps float32 parameters and
+statistics and runs its convolutions in bf16, its BatchNorm reductions and
+out conv in float32, as the JAX model does; bf16 needs no loss scaling, and
+none is used.
 
 Batches come from the sequences in the JAX package's channels-last
 layout: images (B, *spatial, C), integer labels (B, *spatial, 1), sample
 weights (B,), for 2D slices and 3D boxes alike. The steps
 return their logs as 0-d tensors on the device, so the caller decides
 when to fetch them. The eval step also returns the int32 per-class
-(tp, rel = |y == c|, sel = |pred == c|) counts of the batch.
+(tp, rel = |y == c|, sel = |pred == c|) counts of the batch, over its
+first `n_valid` rows when the trainer padded it.
+
+Data-parallel (a process group is active, `parallel.distributed`): the
+trainer hands the train step a DistributedDataParallel model, whose
+backward averages the gradients over the ranks (each rank's loss is the
+mean over its rows, so at equal shares the average is the gradient of
+the mean over the global batch, as the JAX step takes it), BatchNorm
+normalises with the global batch's statistics, and the step's logs are
+all-reduced means, so every rank logs the same numbers.
 
 The multi-task steps (`make_multitask_train_step` / `_eval_step` of the
 JAX package) take lists with one batch per task, whose shapes may differ,
@@ -27,6 +36,8 @@ returns a tuple of per-task (tp, rel, sel) counts.
 from __future__ import annotations
 
 import torch
+
+from multiplanarunet_tpu_torch.parallel.distributed import all_reduce_mean
 
 
 def reg_penalty(params, l1_reg=0.0, l2_reg=0.0):
@@ -81,7 +92,7 @@ class TrainStep:
             out = out.detach()
             for name, fn in self.metric_fns.items():
                 logs[name] = fn(y, out)
-        return logs
+        return all_reduce_mean(logs)
 
 
 def class_counts(y, out, n_classes):
@@ -101,7 +112,8 @@ def class_counts(y, out, n_classes):
 
 
 class EvalStep:
-    """(x, y, w) -> (logs, (tp, rel, sel)) of `model` in eval mode."""
+    """(x, y, w[, n_valid]) -> (logs, (tp, rel, sel)) of `model` in eval
+    mode; the counts cover the first n_valid rows (all by default)."""
 
     def __init__(self, model, loss_obj, metric_fns, n_classes):
         self.model = model
@@ -110,14 +122,14 @@ class EvalStep:
         self.n_classes = int(n_classes)
 
     @torch.no_grad()
-    def __call__(self, x, y, w):
+    def __call__(self, x, y, w, n_valid=None):
         self.model.eval()
         out = forward_channels_last(self.model, x)
         logs = {"loss": self.loss_obj(y, out,
                                       sample_weight=_weights(w, out.device))}
         for name, fn in self.metric_fns.items():
             logs[name] = fn(y, out)
-        return logs, class_counts(y, out, self.n_classes)
+        return logs, class_counts(y[:n_valid], out[:n_valid], self.n_classes)
 
 
 def forward_tasks(model, xs):
@@ -150,14 +162,16 @@ class MultiTaskTrainStep(TrainStep):
         loss.backward()
         self.optimizer.step()
         with torch.no_grad():
-            return {"loss": loss.detach(),
-                    **_task_logs(self.metric_fns, ys,
-                                 [o.detach() for o in outs], losses)}
+            return all_reduce_mean(
+                {"loss": loss.detach(),
+                 **_task_logs(self.metric_fns, ys,
+                              [o.detach() for o in outs], losses)})
 
 
 class MultiTaskEvalStep:
-    """(xs, ys, ws) lists per task -> (logs, ((tp, rel, sel), ...) per
-    task) of a MultiTaskUNet2D in eval mode."""
+    """(xs, ys, ws[, n_valid]) lists per task -> (logs, ((tp, rel, sel),
+    ...) per task) of a MultiTaskUNet2D in eval mode; n_valid, where
+    given, holds each task's count of valid rows."""
 
     def __init__(self, model, loss_obj, metric_fns, n_classes_per_task):
         self.model = model
@@ -166,12 +180,14 @@ class MultiTaskEvalStep:
         self.n_classes = [int(n) for n in n_classes_per_task]
 
     @torch.no_grad()
-    def __call__(self, xs, ys, ws):
+    def __call__(self, xs, ys, ws, n_valid=None):
         self.model.eval()
         outs = forward_tasks(self.model, xs)
         losses = [self.loss_obj(y, out, sample_weight=_weights(w, out.device))
                   for y, out, w in zip(ys, outs, ws)]
         logs = {"loss": sum(losses) / len(losses),
                 **_task_logs(self.metric_fns, ys, outs, losses)}
-        return logs, tuple(class_counts(y, out, n)
-                           for y, out, n in zip(ys, outs, self.n_classes))
+        n_valid = n_valid or [None] * len(ys)
+        return logs, tuple(class_counts(y[:k], out[:k], n)
+                           for y, out, n, k in zip(ys, outs, self.n_classes,
+                                                   n_valid))

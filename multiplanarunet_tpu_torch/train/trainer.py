@@ -1,19 +1,34 @@
 """Trainer: builds the train and eval steps and drives the epoch loop.
 
-Port of `multiplanarunet_tpu/train/trainer.py` for one device.
-`compile_model` resolves the optimizer, loss and metrics by name; `fit`
-runs the epochs (steps per epoch = images per epoch // batch size, the
-Validation callback first, the next batch sampled one step ahead,
-per-epoch means of the step logs plus `lr`) and retries with the batch
-size lowered by 2 on torch.cuda.OutOfMemoryError, after freeing the
-allocator's cached blocks. The step logs stay on the device through an
-epoch and are fetched once at its end. A MultiTaskUNet2D (`multitask`:
-its n_classes is a list) trains on the multi-task steps over a
-MultiTaskSequence's per-task batch lists. `fit` first saves sample
-images of a train and a val batch to images/ (unless no_im); where that
-fails, a missing matplotlib included, it logs one warning and trains on,
-as the JAX package does. `predict_batch` is the eval-mode forward the
-image and dice callbacks call.
+Port of `multiplanarunet_tpu/train/trainer.py`. `compile_model` resolves
+the optimizer, loss and metrics by name; `fit` runs the epochs (steps per
+epoch = images per epoch // batch size, the Validation callback first, the
+next batch sampled one step ahead, per-epoch means of the step logs plus
+`lr`) and retries with the batch size lowered by 2 on
+torch.cuda.OutOfMemoryError, after freeing the allocator's cached blocks.
+The step logs stay on the device through an epoch and are fetched once at
+its end. A MultiTaskUNet2D (`multitask`: its n_classes is a list) trains on
+the multi-task steps over a MultiTaskSequence's per-task batch lists. `fit`
+first saves sample images of a train and a val batch to images/ (unless
+no_im); where that fails, a missing matplotlib included, it logs one
+warning and trains on, as the JAX package does. `predict_batch` is the
+eval-mode forward the image and dice callbacks call.
+
+Data-parallel, when a process group is active (`parallel.distributed`;
+`mp train` starts one under a launch marker or for --num_devices N):
+`compile_model` broadcasts rank 0's parameters and buffers (`replicate`)
+and gives the train step a DistributedDataParallel model (no buffer
+broadcasts: every rank computes the same running statistics from the
+global batch). `batch_size` is the global batch: each rank samples its
+share (`local_batch_slice`) from its own sampler, whose numpy stream is
+seeded per process. A global batch that the ranks do not divide raises,
+unless `pad_global_batch` (set by `mp train --num_devices N`, the
+counterpart of the JAX package's one-process N-device mesh): then it is
+padded to a multiple of the ranks as that mesh pads it, with rows of
+weight 0 (copies of the share's first rows) that enter the BatchNorm
+statistics and that Validation masks out of its counts. Ranks other
+than the main one drop the callbacks that write files, and the OOM
+back-off keeps the global batch a multiple of the ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +44,16 @@ from multiplanarunet_tpu_torch.callbacks.funcs import init_callback_objects
 from multiplanarunet_tpu_torch.callbacks.validation import Validation
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
+from multiplanarunet_tpu_torch.parallel.distributed import (
+    data_group_active,
+    is_main_process,
+    process_count,
+    process_index,
+)
+from multiplanarunet_tpu_torch.parallel.mesh import (
+    pad_batch_to_multiple,
+    replicate,
+)
 from multiplanarunet_tpu_torch.sequences.base_sequence import prefetched
 from multiplanarunet_tpu_torch.train.train_step import (
     EvalStep,
@@ -48,12 +73,18 @@ from multiplanarunet_tpu_torch.train.utils import (
 
 class Trainer:
     """Trains a UNet (on `device`: the card by default, which raises
-    without one) over batch sampler sequences."""
+    without one) over batch sampler sequences; data-parallel over the
+    ranks of an active process group."""
 
-    def __init__(self, model, logger=None, device=None):
+    def __init__(self, model, logger=None, device=None,
+                 pad_global_batch=False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.logger = logger or ScreenLogger()
+        self.pad_global_batch = bool(pad_global_batch)
+        # (global batch, padded global batch, rows per rank, this rank's
+        # valid rows) of the running fit; None outside fit
+        self._share = None
         self.optimizer = None
         self.train_step = None
         self.eval_step = None
@@ -76,7 +107,21 @@ class Trainer:
         metric_fns = init_metrics(metrics, logger=self.logger)
         train_cls, eval_cls = ((MultiTaskTrainStep, MultiTaskEvalStep)
                                if self.multitask else (TrainStep, EvalStep))
-        self.train_step = train_cls(self.model, self.optimizer, loss_obj,
+        step_model = self.model
+        if data_group_active():
+            import torch.distributed as dist
+            from torch.nn.parallel import DistributedDataParallel
+
+            replicate(self.model)
+            step_model = DistributedDataParallel(
+                self.model, device_ids=(None if self.device.type == "cpu"
+                                        else [self.device]),
+                broadcast_buffers=False, init_sync=False)
+            self.logger(f"Data-parallel: DistributedDataParallel over "
+                        f"{process_count()} process(es), "
+                        f"{dist.get_backend()} group; BatchNorm over the "
+                        f"global batch")
+        self.train_step = train_cls(step_model, self.optimizer, loss_obj,
                                     metric_fns, l1_reg=l1_reg, l2_reg=l2_reg)
         self.eval_step = eval_cls(self.model, loss_obj, metric_fns,
                                   self.n_classes)
@@ -129,7 +174,7 @@ class Trainer:
         with batch_size - 2 on a device out-of-memory error."""
         self.train_sequence = train
         self.val_sequence = val
-        if not no_im:
+        if not no_im and is_main_process():
             try:
                 from multiplanarunet_tpu_torch.utils import plotting
 
@@ -150,24 +195,88 @@ class Trainer:
                     val_im_per_epoch=val_im_per_epoch, init_epoch=init_epoch,
                     verbose=verbose)
             except torch.cuda.OutOfMemoryError:
-                batch_size -= 2
+                # A multiple of the ranks stays one
+                batch_size -= pad_batch_to_multiple(2, self.world_size)
                 if batch_size < 1:
                     raise
                 self.logger.warn(f"Device OOM; retrying with batch_size="
                                  f"{batch_size}")
                 torch.cuda.empty_cache()
 
+    # ------------------------------------------------------ data-parallel
+    @property
+    def world_size(self):
+        """Ranks training together (1 without a process group)."""
+        return process_count() if data_group_active() else 1
+
+    def _batch_share(self, batch_size):
+        """(global, padded global, rows per rank, this rank's valid rows)
+        of a global batch."""
+        world = self.world_size
+        if batch_size % world and not self.pad_global_batch:
+            raise ValueError(f"batch_size={batch_size} not divisible by "
+                             f"{world} processes")
+        padded = pad_batch_to_multiple(batch_size, world)
+        local = padded // world
+        valid = min(local, max(0, batch_size - process_index() * local))
+        return batch_size, padded, local, valid
+
+    def pad_share(self, X, y, w):
+        """A batch this rank sampled, padded to its share of the padded
+        global batch: (X, y, w, n_valid), n_valid None where every row is
+        valid. Pad rows are copies of the first rows with weight 0
+        (every row, on a rank whose share holds no valid row); for a
+        multi-task batch each task's lists, and n_valid per task."""
+        if self._share is None or self._share[1] == self._share[0]:
+            return X, y, w, None
+        if isinstance(X, (list, tuple)):
+            parts = [self.pad_share(*t) for t in zip(X, y, w)]
+            return ([p[0] for p in parts], [p[1] for p in parts],
+                    [p[2] for p in parts], [p[3] for p in parts])
+        local, valid = self._share[2:]
+        w = torch.as_tensor(w, dtype=torch.float32)
+        n = int(X.shape[0])
+        if n < local:
+            idx = torch.arange(local - n) % n
+            X = torch.cat([X, X[idx.to(X.device)]])
+            y = torch.cat([y, y[idx.to(y.device)]])
+            w = torch.cat([w, w.new_zeros(local - n)])
+        w = w.clone()
+        w[valid:] = 0.0
+        return X, y, w, valid
+
+    def loss_pad_factor(self):
+        """Padded global over true global batch: the factor that turns a
+        mean over the padded batch (pad rows weigh 0) into the mean over
+        the true rows (the JAX package's global pad / global true)."""
+        if self._share is None:
+            return 1.0
+        return self._share[1] / self._share[0]
+
     def _fit(self, train, val, batch_size, n_epochs, callbacks,
              train_im_per_epoch, val_im_per_epoch, init_epoch, verbose):
-        train.batch_size = batch_size
+        self._share = self._batch_share(batch_size)
+        _, padded, local, valid = self._share
+        # A rank with no valid row still samples (weight-0) rows
+        train.batch_size = valid or local
         steps_per_epoch = max(1, int(train_im_per_epoch / batch_size))
         cb_objs = []
         if val is not None:
-            val.batch_size = batch_size
+            val.batch_size = valid or local
             val_steps = max(1, int(val_im_per_epoch / batch_size))
             cb_objs.append(Validation(val, val_steps, logger=self.logger,
                                       verbose=verbose))
         cb_objs += init_callback_objects(callbacks, self.logger)[0]
+        if not is_main_process():
+            # One writer per shared project folder: the logs are the same
+            # on every rank (all-reduced), so the others drop the
+            # callbacks that persist files
+            dropped = [type(cb).__name__ for cb in cb_objs
+                       if cb.writes_files]
+            cb_objs = [cb for cb in cb_objs if not cb.writes_files]
+            if dropped:
+                self.logger(f"Non-main process: dropped file-writing "
+                            f"callbacks {dropped}")
         for cb in cb_objs:
             cb.set_trainer(self)
 
@@ -177,6 +286,11 @@ class Trainer:
             cb.on_train_begin({})
         self.logger(f"Training for {n_epochs} epochs of {steps_per_epoch} "
                     f"steps (batch {batch_size}, device {self.device})")
+        if self.world_size > 1:
+            self.logger(f"Data-parallel: process {process_index() + 1}/"
+                        f"{self.world_size}, {local} rows per process"
+                        + (f" (global batch padded to {padded}; {valid} "
+                           f"valid here)" if padded != batch_size else ""))
         for epoch in range(init_epoch, n_epochs):
             logs = {}
             for cb in cb_objs:
@@ -184,6 +298,7 @@ class Trainer:
             t0 = time.perf_counter()
             accum = {}
             for X, y, w in prefetched(train, steps_per_epoch, self.device):
+                X, y, w, _ = self.pad_share(X, y, w)
                 for k, v in self.train_step(X, y, w).items():
                     accum.setdefault(k, []).append(v)
             # One host fetch per epoch for the step logs
@@ -211,6 +326,7 @@ class Trainer:
         for cb in cb_objs:
             cb.on_train_end({})
         self._stop_queues(train, val)
+        self._share = None
         return history
 
     @staticmethod

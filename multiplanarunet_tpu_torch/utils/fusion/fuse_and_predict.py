@@ -1,7 +1,7 @@
 """Fused multi-view inference, in torch.
 
 Port of `multiplanarunet_tpu/utils/fusion/fuse_and_predict.py:
-MultiViewPredictor` (single device). For each view, on the device:
+MultiViewPredictor`. For each view, on the device:
 
     plane-stack resample  ->  U-Net over plane chunks (bf16 probabilities)
         ->  remap onto the padded voxel grid
@@ -9,7 +9,10 @@ MultiViewPredictor` (single device). For each view, on the device:
 
 then bias + argmax (uint8 class map) or the fused probabilities. Because
 the fusion model is linear in the per-view probabilities, accumulating
-``W[v] * mapped`` per view is the fusion.
+``W[v] * mapped`` per view is the fusion. `predict_image_sharded` runs the
+views over several devices (view v on device v % n, the JAX package's
+`_predict_sharded_shear` and its gather fallback) and adds the partial
+accumulators on the first.
 
 Two resamplers:
 
@@ -38,6 +41,8 @@ order, with the volume staged once.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 
 import numpy as np
@@ -135,6 +140,8 @@ class MultiViewPredictor:
         # 'gather-remap' (mixed mode) or 'gather'
         self.remap_modes = []
         self._events = []
+        # Model replicas of predict_image_sharded, per device
+        self._replicas = {}
 
     def _log(self, msg):
         if self.logger:
@@ -297,16 +304,18 @@ class MultiViewPredictor:
             out[name] = out.get(name, 0.0) + start.elapsed_time(end)
         return out
 
-    def _unet_stack(self, stack):
+    def _unet_stack(self, stack, model=None):
         """(d, d, P_pad, C) stack -> (d, d, P_pad, n_classes) bf16
-        probabilities, running the model over plane chunks."""
+        probabilities, running `model` (this predictor's by default) over
+        plane chunks."""
+        model = self.model if model is None else model
         d, _, P_pad, _ = stack.shape
         planes = stack.permute(2, 3, 0, 1)  # (P_pad, C, d, d)
         chunk = self._chunk_for(P_pad)
         pred = torch.empty((d, d, P_pad, self.n_classes),
                            dtype=torch.bfloat16, device=stack.device)
         for p in range(0, P_pad, chunk):
-            probs = self.model(planes[p:p + chunk].contiguous())
+            probs = model(planes[p:p + chunk].contiguous())
             pred[:, :, p:p + chunk] = probs.permute(2, 3, 0, 1)
         return pred
 
@@ -331,12 +340,12 @@ class MultiViewPredictor:
                  for lo in range(0, nc, group)]
         return torch.cat(parts, dim=-1)
 
-    def _stage_volume(self, sampler, packed):
+    def _stage_volume(self, sampler, packed, device=None):
+        device = self.device if device is None else device
         quantize = self.stage_dtype == "u8"
         if packed:
-            return sampler.device_volume_packed(self.device,
-                                                quantize=quantize)
-        return sampler.device_volume_unpacked(self.device, quantize=quantize)
+            return sampler.device_volume_packed(device, quantize=quantize)
+        return sampler.device_volume_unpacked(device, quantize=quantize)
 
     def prestage(self, image):
         """The host half of staging this image (scaling, and the uint8
@@ -359,54 +368,65 @@ class MultiViewPredictor:
             lab = lab[..., 0]
         return torch.from_numpy(lab.astype(np.uint8)).to(self.device)
 
-    def _run_views(self, sampler, volume, bases, plans, ws, out_shape,
-                   offsets, n_valid, Mts, want_side, crop, labels_dev):
-        """The per-view loop: stack (shear plan, or the corner-packed
-        gather when the view has no stack plan), U-Net, remap (shear,
-        grouped shear, or the gather remap) + fusion accumulation.
-        Returns (accum, per-view results)."""
+    def _run_view(self, v, n_views, model, sampler, volume, accum, w_v,
+                  basis, plan, Mt, offsets, n_valid, want_side, mark):
+        """One view on `volume`'s device: stack (shear plan, or the
+        corner-packed gather when the view has no stack plan), U-Net
+        `model`, remap (shear, grouped shear, or the gather remap) and
+        accum += w_v * mapped. Returns the view's uint8 argmax (with
+        want_side) or None; `mark` records the stage boundaries."""
+        stack_plan, (mode, group, r_plan, r_bounds) = plan
         fill = sampler.scaled_bg_value
         g0, g_step, o0, o_step = self._grid_params(offsets)
+        self.remap_modes.append(mode if group is None else f"grouped:{group}")
+        self._log(f"View {v + 1}/{n_views}: "
+                  f"{'gather' if stack_plan is None else 'shear'} "
+                  f"stack, remap {self.remap_modes[-1]}"
+                  + ("" if volume.device == self.device
+                     else f" (device {volume.device})"))
+        mark("start")
+        if stack_plan is None:
+            stack = sample_plane_stack_packed(
+                volume, sampler.origin, sampler.spacing, sampler.rot_mat,
+                basis, offsets, self.span, self.dim, fill,
+                valid_shape=sampler.valid_shape)
+        else:
+            # Catmull-Rom forward passes keep the input sharp; bf16 passes
+            # halve the bandwidth (the U-Net computes in bf16)
+            stack = shear_resample(volume, stack_plan[0], fill,
+                                   method="cubic",
+                                   compute_dtype=torch.bfloat16,
+                                   exact_bounds=stack_plan[1])
+        mark("stack")
+        pred = self._unet_stack(stack, model)
+        del stack
+        mark("unet")
+        if mode in ("gather", "gather-remap"):
+            M, t = Mt
+            side = accum_view_pred_affine(
+                pred, g0, g_step, o0, o_step, M, t, accum, w_v, n_valid,
+                want_argmax=want_side)
+        else:
+            mapped = self.shear_remap(pred, r_plan, r_bounds, group)
+            side = (mapped.argmax(dim=-1).to(torch.uint8)
+                    if want_side else None)
+            # accum + w * mapped in float32, with no second f32 volume
+            accum.addcmul_(mapped, w_v)
+            del mapped
+        del pred
+        return side
+
+    def _run_views(self, sampler, volume, bases, plans, ws, out_shape,
+                   offsets, n_valid, Mts, want_side, crop, labels_dev):
+        """The per-view loop on this predictor's device (`_run_view`).
+        Returns (accum, per-view results)."""
         accum = torch.zeros(out_shape + (self.n_classes,),
                             dtype=torch.float32, device=self.device)
         per_view = []
-        for v, (stack_plan, (mode, group, r_plan, r_bounds)) in \
-                enumerate(plans):
-            self.remap_modes.append(mode if group is None
-                                    else f"grouped:{group}")
-            self._log(f"View {v + 1}/{len(plans)}: "
-                      f"{'gather' if stack_plan is None else 'shear'} "
-                      f"stack, remap {self.remap_modes[-1]}")
-            self._mark("start")
-            if stack_plan is None:
-                stack = sample_plane_stack_packed(
-                    volume, sampler.origin, sampler.spacing, sampler.rot_mat,
-                    bases[v], offsets, self.span, self.dim, fill,
-                    valid_shape=sampler.valid_shape)
-            else:
-                # Catmull-Rom forward passes keep the input sharp; bf16
-                # passes halve the bandwidth (the U-Net computes in bf16)
-                stack = shear_resample(volume, stack_plan[0], fill,
-                                       method="cubic",
-                                       compute_dtype=torch.bfloat16,
-                                       exact_bounds=stack_plan[1])
-            self._mark("stack")
-            pred = self._unet_stack(stack)
-            del stack
-            self._mark("unet")
-            if mode in ("gather", "gather-remap"):
-                M, t = Mts[v]
-                side = accum_view_pred_affine(
-                    pred, g0, g_step, o0, o_step, M, t, accum, ws[v],
-                    n_valid, want_argmax=want_side)
-            else:
-                mapped = self.shear_remap(pred, r_plan, r_bounds, group)
-                side = (mapped.argmax(dim=-1).to(torch.uint8)
-                        if want_side else None)
-                # accum + w * mapped in float32, with no second f32 volume
-                accum.addcmul_(mapped, ws[v])
-                del mapped
-            del pred
+        for v, plan in enumerate(plans):
+            side = self._run_view(v, len(plans), self.model, sampler, volume,
+                                  accum, ws[v], bases[v], plan, Mts[v],
+                                  offsets, n_valid, want_side, self._mark)
             if want_side:
                 per_view.append(self._per_view_result(side, crop,
                                                       labels_dev))
@@ -487,6 +507,82 @@ class MultiViewPredictor:
         out = out.cpu().numpy()
         self._mark("fuse")
         return out, per_view
+
+    # ------------------------------------------------ view-parallel path
+    def _replica(self, device):
+        """This predictor's model on `device`: the model itself on its own
+        device, else a copy made once per device."""
+        if device == self.device:
+            return self.model
+        if device not in self._replicas:
+            self._replicas[device] = copy.deepcopy(self.model).to(device)
+        return self._replicas[device]
+
+    @torch.inference_mode()
+    def predict_image_sharded(self, image, views, devices, fusion_params=None,
+                              n_planes="same+20"):
+        """View-parallel inference over `devices` (a list; an entry may
+        repeat): view v runs on devices[v % n] through the same stack ->
+        U-Net -> remap calls as predict_image, with one model replica and
+        one copy of the staged volume per distinct device and one float32
+        fusion accumulator per list entry; the accumulators are summed on
+        devices[0], then bias and argmax. The views are queued from this
+        thread with no synchronisation of their own: a view's small
+        host-to-device copies wait only for its own device's earlier
+        work, so separate cards overlap. Shear
+        where every view factors within the memory guard (as in
+        predict_image), else the exact gather path for every view.
+        Returns the fused uint8 class map at the image's true shape."""
+        devices = [torch.device(d) for d in devices]
+        sampler = image.interpolator
+        true_shape = tuple(int(s) for s in image.shape[:3])
+        offsets, n_valid = self._prepare_offsets(image, n_planes)
+        n_views = len(views)
+        W, b = self._fusion_Wb(fusion_params, n_views)
+        bases = [geometry.plane_basis(view, noise_sd=0.0) for view in views]
+        Mts = [self._remap_transform(image, basis, true_shape)
+               for basis in bases]
+        plans = None
+        if self.resampler in ("auto", "shear"):
+            plans = self._plan_shear_views(image, bases, Mts, offsets,
+                                           n_valid)
+            if plans is None and self.resampler == "shear":
+                raise ValueError(
+                    "resampler='shear' requested but a view affine does not "
+                    "factor within the memory guard; use 'auto' (falls back "
+                    "to the exact gather path) or 'gather'")
+        packed = plans is None
+        if packed:
+            plans = [(None, ("gather", None, None, None))] * n_views
+        self.remap_modes = []
+        n_use = min(len(devices), n_views)
+        volumes = {devices[0]: self._stage_volume(sampler, packed,
+                                                  devices[0])}
+        for d in devices[1:n_use]:
+            if d not in volumes:
+                volumes[d] = volumes[devices[0]].to(d, non_blocking=True)
+        out_shape = tuple(int(s) for s in volumes[devices[0]].shape[:3])
+        ws = torch.from_numpy(W) if W is not None \
+            else torch.ones((n_views, self.n_classes))
+        ws = {d: ws.to(d) for d in volumes}
+        accums = [torch.zeros(out_shape + (self.n_classes,),
+                              dtype=torch.float32, device=d)
+                  for d in devices[:n_use]]
+        for v, plan in enumerate(plans):
+            d = devices[v % n_use]
+            with torch.cuda.device(d) if d.type == "cuda" else \
+                    contextlib.nullcontext():
+                self._run_view(v, n_views, self._replica(d), sampler,
+                               volumes[d], accums[v % n_use], ws[d][v],
+                               bases[v], plan, Mts[v], offsets, n_valid,
+                               False, lambda name: None)
+        total = accums[0]
+        for a in accums[1:]:
+            total = total + a.to(devices[0], non_blocking=True)
+        crop = tuple(slice(0, s) for s in true_shape)
+        b_t = torch.from_numpy(b).to(devices[0])
+        return (total + b_t)[crop].argmax(dim=-1).to(torch.uint8).cpu() \
+            .numpy()
 
     # ------------------------------------------------- fusion training data
     def _views_mapped(self, image, views, n_planes):

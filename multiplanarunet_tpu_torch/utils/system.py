@@ -26,8 +26,17 @@ def get_devices():
 
 
 def describe_devices():
-    """One line per card: index, platform, name."""
-    return "\n".join(f"[{d.index}] cuda {torch.cuda.get_device_name(d)}"
+    """One line per card: index, platform, name; in a process group each
+    line names this process's rank."""
+    from multiplanarunet_tpu_torch.parallel.distributed import (
+        process_count,
+        process_index,
+    )
+
+    rank = (f"process {process_index() + 1}/{process_count()} "
+            if process_count() > 1 else "")
+    return "\n".join(f"{rank}[{d.index}] cuda "
+                     f"{torch.cuda.get_device_name(d)}"
                      for d in get_devices())
 
 

@@ -266,7 +266,9 @@ def test_mp_dispatch_and_device_errors(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as exit_info:
         t_mp.entry_func(["no_such_script", "--folder", str(tmp_path)])
     assert exit_info.value.code == 2
-    with pytest.raises(t_predict.MultiDeviceNotPortedError):
+    # more cards asked for than visible: a named error before any work
+    with pytest.raises(_device.TooFewDevicesError,
+                       match="2 devices asked, 0 visible"):
         t_mp.entry_func(["predict", "--num_devices", "2"])
     # The default device is CUDA: with no card visible it raises, and never
     # turns into the CPU

@@ -11,7 +11,6 @@ import pytest
 import multiplanarunet_tpu
 
 REPO = Path(__file__).resolve().parents[1]
-_MULTI_GPU = "multi-GPU: not ported yet (ROADMAP.md section A, item 4)"
 _FLAX_STATE = ("flax idiom: the state lives in the torch model and "
                "optimizer, driven by the port's TrainStep and EvalStep "
                "(train/train_step.py)")
@@ -26,12 +25,6 @@ ALLOWED = {
                                 "model owns its parameters (glorot_init "
                                 "in models/unet.py)",
     },
-    "parallel": {name: _MULTI_GPU for name in (
-        "DATA_AXIS", "batch_sharding", "get_mesh", "pad_batch_to_multiple",
-        "replicate", "replicated", "shard_batch", "broadcast_from_main",
-        "initialize_distributed", "is_main_process", "local_batch_slice",
-        "maybe_initialize_distributed", "process_barrier",
-        "task_group_mesh")},
 }
 
 

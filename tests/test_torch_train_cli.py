@@ -19,7 +19,6 @@ from multiplanarunet_tpu.bin.toy_data import create_dataset
 from multiplanarunet_tpu.models import checkpoint as jckpt
 from multiplanarunet_tpu_torch import _device
 from multiplanarunet_tpu_torch.bin import mp as t_mp
-from multiplanarunet_tpu_torch.bin.predict import MultiDeviceNotPortedError
 from multiplanarunet_tpu_torch.callbacks.funcs import CallbackNotPortedError
 from multiplanarunet_tpu_torch.io import nifti
 from multiplanarunet_tpu_torch.models.model_init import UnsupportedModelError
@@ -179,7 +178,8 @@ def test_predict_on_the_trained_project(trained):
 def test_named_errors(trained, tmp_path, monkeypatch):
     root, _, _ = trained
     cases = [
-        (["--num_devices", "2"], MultiDeviceNotPortedError),
+        (["--num_devices", "2", "--device", "cuda"],
+         _device.TooFewDevicesError),
         (["--continue_training", "--overwrite"], ValueError),
     ]
     for extra, err in cases:

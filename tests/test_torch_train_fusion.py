@@ -31,11 +31,11 @@ from multiplanarunet_tpu.ops import geometry as jgeo
 from multiplanarunet_tpu.utils.fusion import (
     MultiViewPredictor as JMultiViewPredictor,
 )
+from multiplanarunet_tpu_torch._device import TooFewDevicesError
 from multiplanarunet_tpu_torch.bin import init_project as t_init_project
 from multiplanarunet_tpu_torch.bin import mp as t_mp
 from multiplanarunet_tpu_torch.bin import toy_data as t_toy_data
 from multiplanarunet_tpu_torch.bin import train_fusion as t_train_fusion
-from multiplanarunet_tpu_torch.bin.predict import MultiDeviceNotPortedError
 from multiplanarunet_tpu_torch.evaluate.losses import (
     SparseGeneralizedDiceLoss,
 )
@@ -416,6 +416,6 @@ def test_mp_train_fusion_both_packages(projects):
     with pytest.raises(RuntimeError, match="exists"):
         _run(t_mp.entry_func, "train_fusion", "--project_dir", str(tp),
              "--device", "cpu")
-    with pytest.raises(MultiDeviceNotPortedError):
+    with pytest.raises(TooFewDevicesError, match="2 devices asked"):
         _run(t_mp.entry_func, "train_fusion", "--project_dir", str(tp),
              "--num_devices", "2")
