@@ -129,7 +129,14 @@ from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.ops import _build, geometry
-from multiplanarunet_tpu_torch.ops.shear import shear_resample
+from multiplanarunet_tpu_torch.ops.interp import (
+    map_view_pred_to_voxels,
+    sample_plane_stack_packed,
+)
+from multiplanarunet_tpu_torch.ops.shear import (
+    shear_resample,
+    shear_resample_np,
+)
 from multiplanarunet_tpu_torch.ops import shear as shear_module
 from multiplanarunet_tpu_torch.ops.shear_pass import (
     pass_positions,
@@ -153,17 +160,21 @@ from multiplanarunet_tpu_torch.sequences.iso_3d import (
     IsotrophicLiveViewSequence3D,
 )
 from multiplanarunet_tpu_torch.sequences.patches_3d import PatchSequence3D
+from multiplanarunet_tpu_torch.sequences.utils import get_sequence
 from multiplanarunet_tpu_torch.train.train_step import (
     MultiTaskTrainStep,
     TrainStep,
 )
 from multiplanarunet_tpu_torch.train.trainer import Trainer
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
+from multiplanarunet_tpu_torch.utils.fusion import fuse_and_predict
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
     class_map_counts,
+    map_real_space_pred,
     pred_3D_iso,
     predict_3D_patches,
+    predict_single,
     unet_predict_fn,
 )
 from multiplanarunet_tpu_torch.utils.utils import get_best_model
@@ -228,7 +239,10 @@ def log(msg=""):
 
 class Image:
     """Minimal ImagePair stand-in: shape, affine, physical extent and the
-    port's sampler."""
+    port's sampler, in predict mode (no labels)."""
+
+    predict_mode = True
+    bg_class = 0
 
     def __init__(self, volume, affine):
         self.shape = volume.shape
@@ -667,7 +681,8 @@ def phase_main_path(dev, predictor, images, views, fusion):
     unet = float(np.mean([s["unet"] for s in shares[1:]]))
     resample = float(np.mean([s["stack"] + s["remap"] for s in shares[1:]]))
     total = float(np.mean([sum(s.values()) for s in shares[1:]]))
-    n_valid = len(predictor._plane_offsets(images[0], "same+20"))
+    n_valid = len(geometry.plane_offsets(images[0], "same+20",
+                                         predictor.span, predictor.dim))
     plane_flops = unet_flops_per_plane(predictor.model, dev)
     model_flops = plane_flops * N_VIEWS * n_valid
     tflops = model_flops / (unet * 1e-3) / 1e12
@@ -984,6 +999,223 @@ def phase_gather(dev, predictor, img, views, fusion):
         f"shear-pass launches 0")
     img.interpolator.unload_device()
     return shear_pass.launches
+
+
+# --------------------------------------------------------- per-view API
+# The per-view inference API on the main path's model and first volume:
+# get_view_from's stack and its two remaps, predict_single on both
+# branches, and the kernel's whole resample against the float64 numpy
+# reference
+PV_SPEC = "same+20"
+PV_MAPPED_SHARE, PV_GATHER_SHARE = 0.999, 0.9999
+NP_SIZE, NP_CHANNELS = 64, 2
+# Max abs error of a float32 6-pass resample against float64 on unit-range
+# data: a few float32 ulps per pass, amplified up to 20x where the validity
+# divisor is clamped at 0.05 near the border
+NP_TOL = 1e-4
+PS_SEED = 1234
+
+
+def check_shear_np(dev):
+    """The shear-pass kernel's whole resample (`shear_resample`, float32
+    passes on the card) against `ops.shear.shear_resample_np` (float64
+    numpy, independent of the kernel and of its plain torch version) on a
+    64^3, 2-channel volume under an oblique affine: view 0's plane-stack
+    plan (cubic) and view-remap plan (linear) as predict_image plans them.
+    Gate: max abs error <= NP_TOL on each. Returns {plan: error}."""
+    rng = np.random.RandomState(21)
+    affine = np.eye(4)
+    affine[:3, :3] = geometry.rotation_matrix([0.3, 0.2, 1.0],
+                                              angle_deg=20) @ np.diag(
+        [1.0, 1.1, 0.9])
+    vol = rng.rand(NP_SIZE, NP_SIZE, NP_SIZE, NP_CHANNELS).astype(np.float32)
+    img = Image(vol, affine)
+    small = MultiViewPredictor(OneHotOracle(NP_CHANNELS), sample_dim=NP_SIZE,
+                               real_space_span=float(NP_SIZE - 1),
+                               n_classes=NP_CHANNELS, device=dev)
+    view = geometry.sample_random_views_with_angle_restriction(
+        1, 60, rng=np.random.RandomState(42))[0]
+    (s_plan, s_bounds), (_, _, r_plan, r_bounds) = view_plans(
+        small, img, [view])[0]
+    pred = rng.rand(*r_plan.src_shape, NP_CHANNELS).astype(np.float32)
+    fill = np.array([1.0, 0.0], np.float32)
+    errs = {}
+    for name, src, plan, bounds, method in (
+            ("stack (cubic)", vol, s_plan, s_bounds, "cubic"),
+            ("remap (linear)", pred, r_plan, r_bounds, "linear")):
+        card = shear_resample(torch.from_numpy(src).to(dev), plan, fill,
+                              method=method, compute_dtype=torch.float32,
+                              exact_bounds=bounds).cpu().numpy()
+        ref = shear_resample_np(src, plan, fill, method=method,
+                                exact_bounds=bounds)
+        if card.shape != ref.shape:
+            raise AssertionError(f"{name}: {card.shape} vs {ref.shape}")
+        errs[name] = float(np.abs(card - ref).max())
+    log(f"shear-pass kernel's whole resample vs shear_resample_np (float64 "
+        f"numpy) on a {NP_SIZE}^3, {NP_CHANNELS}-channel volume: max abs "
+        f"error {errs} (bound {NP_TOL:g})")
+    if max(errs.values()) > NP_TOL:
+        raise AssertionError(f"shear_resample vs shear_resample_np {errs}")
+    return errs
+
+
+def write_image_nifti(vol, affine, path):
+    """An uncompressed NIfTI of one volume, read back as a predict-mode
+    ImagePair."""
+    nifti.save(vol, path, affine=affine)
+    return ImagePair(path, logger=ScreenLogger(False))
+
+
+def phase_per_view(dev, predictor, img, views, tmp, card):
+    """The per-view API at the main path's full width on its first 256^3
+    volume:
+    - get_view_from (view 0, same+20) on the volume rounded to bf16: X
+      against the predictor's corner-packed bf16 stack within bf16
+      rounding of the volume's range;
+      X through the U-Net, then map_real_space_pred on get_view_from's
+      grid and inverse basis, against predict_views_mapped of that view
+      (argmax equal in >= PV_MAPPED_SHARE of voxels); map_view_pred_to_voxels
+      at the voxels' real-space positions against map_real_space_pred
+      (argmax equal in >= PV_GATHER_SHARE);
+    - predict_single (iso_live, the 6 views) on the volume as a NIfTI
+      ImagePair, bit-equal to predict_views_mapped;
+    - the kernel's whole resample against shear_resample_np
+      (check_shear_np, before the count).
+    None of it launches the shear pass (gated). Returns those launches."""
+    t_phase = time.perf_counter()
+    check_shear_np(dev)
+    shear_pass.launches = 0
+    # The volume rounded to bf16: the float32 stack and the bf16-staged one
+    # then read the same values, so the mapping gate measures the grid and
+    # remap, not the staging's rounding amplified by random U-Net weights
+    vol = torch.from_numpy(img.interpolator.image).to(torch.bfloat16).float()
+    img = Image(vol.numpy(), img.affine)
+    seq = multi_planar.IsotrophicLiveViewSequence2D(
+        None, views=views, dim=DIM, batch_size=1, n_classes=N_CLASSES,
+        real_space_span=predictor.span, device=dev, no_log=True,
+        logger=ScreenLogger(False))
+    view = views[0]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, y, grid, inv_basis = seq.get_view_from(img, view, PV_SPEC)
+        torch.cuda.synchronize()
+        gv_s = time.perf_counter() - t0
+        P = len(grid[2])
+        if (y is not None or tuple(X.shape) != (DIM, DIM, P, N_CHANNELS)
+                or X.dtype != torch.float32):
+            raise AssertionError(f"get_view_from: X {tuple(X.shape)} "
+                                 f"{X.dtype}, y {y is not None}")
+        sampler = img.interpolator
+        packed = sample_plane_stack_packed(
+            sampler.device_volume_packed(dev), sampler.origin,
+            sampler.spacing, sampler.rot_mat, geometry.plane_basis(view),
+            grid[2], predictor.span, DIM, sampler.scaled_bg_value,
+            valid_shape=sampler.valid_shape)
+        x_err = float((X - packed).abs().max())
+        x_tol = 2.0 ** -8 * float(np.abs(sampler.scaled_volume).max()) + 1e-6
+        del packed
+        pred = predictor._unet_stack(X)
+        del X
+        mapped = map_real_space_pred(pred, grid, inv_basis, img.affine,
+                                     img.shape)
+        cls = mapped.argmax(-1)
+        del mapped
+        ref = predictor.predict_views_mapped(img, [view])[0]
+        ref_cls = torch.from_numpy(ref.argmax(-1)).to(dev)
+        del ref
+        mapped_share = float((cls == ref_cls).float().mean())
+        del ref_cls
+        pts = np.moveaxis(geometry.get_voxel_grid_real_space(
+            img.shape[:3], img.affine), 0, -1).astype(np.float32)
+        real_axis, offsets = grid[0], grid[2]
+        gathered = map_view_pred_to_voxels(
+            pred, [real_axis[0], real_axis[1] - real_axis[0]],
+            [offsets[0], offsets[1] - offsets[0]], inv_basis, pts)
+        gather_share = float((gathered.argmax(-1) == cls).float().mean())
+        del gathered, pred, cls, pts
+    sampler.unload_device()
+    torch.cuda.empty_cache()
+    log(f"[{card}] get_view_from (view 0, {PV_SPEC}, {P} planes): "
+        f"{gv_s:.3f} s; X vs the predictor's bf16 packed stack max abs "
+        f"{x_err:.3e} (bound {x_tol:.3e}); map_real_space_pred of its U-Net "
+        f"stack vs predict_views_mapped: argmax equal in {mapped_share:.6f} "
+        f"of voxels (gate {PV_MAPPED_SHARE}); map_view_pred_to_voxels vs "
+        f"map_real_space_pred: {gather_share:.6f} (gate {PV_GATHER_SHARE})")
+    if x_err > x_tol or mapped_share < PV_MAPPED_SHARE \
+            or gather_share < PV_GATHER_SHARE:
+        raise AssertionError("get_view_from gates failed (see above)")
+
+    root = Path(tmp) / "per_view"
+    root.mkdir()
+    (root / "train_hparams.yaml").write_text(
+        f"build:\n  dim: {DIM}\n  n_classes: {N_CLASSES}\nfit:\n"
+        f"  intrp_style: iso_live\n  real_space_span: {predictor.span}\n"
+        f"  bg_value: 0.0\n  scaler: null\n")
+    hparams = YAMLHParams(root / "train_hparams.yaml", no_log=True,
+                          no_version_control=True)
+    image = write_image_nifti(sampler.image[..., 0], img.affine,
+                              root / "img.nii")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = predict_single(image, predictor.model, hparams, views=views,
+                         device=dev)
+    ps_s = time.perf_counter() - t0
+    with image.loaded_in_context():
+        ref = predictor.predict_views_mapped(image, views)
+    equal = bool(np.array_equal(out, ref))
+    shape, dtype, nbytes = out.shape, out.dtype, out.nbytes
+    del out, ref
+    log(f"[{card}] predict_single (iso_live, {len(views)} views, {DIM}^3): "
+        f"{ps_s:.3f} s; host array {shape} {dtype}, {nbytes / 1e9:.2f} GB; "
+        f"bit-equal to predict_views_mapped: {equal}")
+    if not equal or shape != (len(views),) + (DIM,) * 3 + (N_CLASSES,) \
+            or dtype != np.float32:
+        raise AssertionError("predict_single (iso_live) gates failed")
+    if shear_pass.launches != 0:
+        raise AssertionError(f"the per-view API launched "
+                             f"{shear_pass.launches} shear passes")
+    log(f"per-view phase: {time.perf_counter() - t_phase:.1f} s")
+    return shear_pass.launches
+
+
+def check_predict_single_3d(proj, hparams, dev, dirs, card):
+    """predict_single (iso_live_3d) with the trained UNet3D on the 256^3
+    val subject against pred_3D_iso driven directly over the same
+    one-image sequence, numpy's stream seeded alike before each: the box
+    sums within 1e-5 of their largest (the scatter's index_add_ atomics
+    sum in no fixed order) and the class maps equal in >= 0.9999 of
+    voxels."""
+    model = build_model(hparams["build"], mixed_precision=bool(
+        hparams["fit"].get("mixed_precision", False)),
+        logger=ScreenLogger(False))
+    model = load_unet_weights(model, get_best_model(proj / "model")).to(dev)
+    image = ImagePair(dirs["val"] / "images" / "val_0.nii.gz",
+                      logger=ScreenLogger(False))
+    np.random.seed(PS_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = predict_single(image, model, hparams, device=dev)
+    secs = time.perf_counter() - t0
+    seq = get_sequence(
+        data_queue=fuse_and_predict._SingleImageQueue(image),
+        is_validation=True, logger=None, dim=hparams["build"]["dim"],
+        n_classes=hparams["build"]["n_classes"], no_log=True, device=dev,
+        **hparams["fit"])
+    np.random.seed(PS_SEED)
+    with image.loaded_in_context():
+        ref = pred_3D_iso(unet_predict_fn(model, dev), seq, image,
+                          extra_boxes="3x", min_coverage=None)
+    err = float(np.abs(out - ref).max())
+    scale = float(np.abs(ref).max())
+    share = float((out.argmax(-1) == ref.argmax(-1)).mean())
+    log(f"[{card}] predict_single (iso_live_3d, trained UNet3D, {DIM}^3 val "
+        f"subject, 3x extra boxes): {secs:.3f} s; vs pred_3D_iso driven "
+        f"directly: max abs {err:.3e} of sums up to {scale:.3f}, class maps "
+        f"equal in {share:.6f} of voxels")
+    if out.shape != (DIM,) * 3 + (N_CLASSES,) or err > 1e-5 * scale \
+            or share < 0.9999:
+        raise AssertionError("predict_single (iso_live_3d) gates failed")
 
 
 def phase_u8(dev):
@@ -2645,6 +2877,10 @@ def phase_3d(dev, tmp, data, dirs, card):
         raise AssertionError(f"the 3D path launched {shear_pass.launches} "
                              f"shear passes")
     launches = shear_pass.launches
+    check_predict_single_3d(proj, hparams, dev, dirs, card)
+    if shear_pass.launches != 0:
+        raise AssertionError(f"predict_single (iso_live_3d) launched "
+                             f"{shear_pass.launches} shear passes")
     p_wall, numbers = run_mp_predict_3d(proj, dev)
     secs = numbers["seconds"]
     log(f"[{card}] mp predict_3D on the {DIM}^3 val subject (box mode, "
@@ -3577,6 +3813,8 @@ def main():
         err = max(err, e)
         paths[f"gather {DIM}^3"] = phase_gather(dev, predictor, images[0],
                                              views, fusion)
+        paths["per-view API"] = phase_per_view(dev, predictor, images[0],
+                                               views, tmp, card)
         del images
         phase_u8(dev)
         paths["mp predict"], predict_proj = phase_mp_predict(

@@ -34,7 +34,14 @@ def _validate_range(value, name):
     return value
 
 
-class Elastic:
+class Augmenter:
+    """Base: callable on (batch_x, batch_y, batch_w, bg_values)."""
+
+    def __call__(self, batch_x, batch_y, batch_w=None, bg_values=None):
+        raise NotImplementedError
+
+
+class Elastic(Augmenter):
     """Random elastic deformation of every batch element (on its
     device)."""
 

@@ -61,20 +61,33 @@ def _std(values):
     return np.sqrt(((_mean(values) - values) ** 2).sum() / (len(values) - 1))
 
 
+def parse_results(csv_dir):
+    """(results table, {csv stem: per-class table}) of one csv folder,
+    as ResultTables (the JAX package returns DataFrames); results.csv and
+    detailed.csv are not per-class tables."""
+    results = ResultTable.read_csv(os.path.join(csv_dir, "results.csv"))
+    pc = {}
+    for path in glob(os.path.join(csv_dir, "*.csv")):
+        name = Path(path).stem
+        if name in ("results", "detailed"):
+            continue
+        pc[name] = ResultTable.read_csv(path)
+    return results, pc
+
+
 def build_report(csv_dirs):
     lines = []
     all_mj = []
     for csv_dir in csv_dirs:
-        results = ResultTable.read_csv(os.path.join(csv_dir, "results.csv"))
-        mj_path = os.path.join(csv_dir, "MJ.csv")
+        results, pc = parse_results(csv_dir)
         lines.append(f"\n=== {csv_dir} ===")
         if "MJ" in results.columns:
             mj = _dropna(results.values[:, results.columns.index("MJ")])
             all_mj.append(mj)
             lines.append(f"Fused (MJ) mean dice: {_mean(mj):.3f} "
                          f"+/- {_std(mj):.3f}  (N={len(mj)})")
-        if os.path.exists(mj_path):
-            per_class = ResultTable.read_csv(mj_path)
+        if "MJ" in pc:
+            per_class = pc["MJ"]
             lines.append("Per-class mean dice:")
             for cls, row in zip(per_class.index, per_class.values):
                 lines.append(f"  class {cls}: {_mean(_dropna(row)):.3f}")

@@ -194,6 +194,15 @@ def get_model(project_dir, train_seq, hparams, logger, args):
     return model, init_epoch, restored_lr
 
 
+def save_final_weights(trainer, project_dir, logger=None):
+    """The trainer's model to <project_dir>/model/model_weights.npz (the
+    JAX package's format)."""
+    path = Path(project_dir) / "model" / "model_weights.npz"
+    if logger:
+        logger(f"Saving current model to: {path}")
+    trainer.save_checkpoint(path)
+
+
 def run(project_dir, logger, args, device):
     import torch
 
@@ -255,9 +264,7 @@ def run(project_dir, logger, args, device):
             no_im=args.no_images)
     finally:
         if is_main_process():
-            path = Path(project_dir) / "model" / "model_weights.npz"
-            logger(f"Saving current model to: {path}")
-            trainer.save_checkpoint(path)
+            save_final_weights(trainer, project_dir, logger)
     hparams.save_current()  # the main process only
     return trainer
 

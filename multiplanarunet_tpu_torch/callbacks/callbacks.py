@@ -52,6 +52,10 @@ class Callback:
     def on_epoch_end(self, epoch, logs=None):
         pass
 
+    def on_batch_end(self, batch, logs=None):
+        """Per-batch hook of the JAX package's base; no Trainer of either
+        package calls it."""
+
 
 def _improved(current, best, mode, min_delta=0.0):
     if mode == "max":

@@ -12,8 +12,12 @@ codes (half the bytes of bf16) and the card dequantises them to bf16.
 For training, the labels are staged too (`device_labels`, float32
 (X, Y, Z, 1), the nearest-gather source) with the image's background
 class (`bg_class`), and `device_rot` gives the alignment rotation as a
-tensor. The JAX package's host interpolation path (`intrp_image`,
-`intrp_labels`) is not ported: the port samples on the device only.
+tensor. `device_volume` stages the scaled volume in float32 (the source
+of `get_view_from` and `predict_single`'s paths), cached apart from the
+bf16 forms. The host path (`apply_rotation`, `intrp_image`,
+`intrp_labels`, `__call__`) interpolates the RAW image and the labels at
+a (3, ...) query mesh in numpy (`ops.interp.grid_gather_np`), as the JAX
+package's does: scaling is the caller's.
 """
 
 from __future__ import annotations
@@ -22,13 +26,18 @@ import numpy as np
 import torch
 
 from multiplanarunet_tpu_torch.ops import geometry
-from multiplanarunet_tpu_torch.ops.interp import pack_corners
+from multiplanarunet_tpu_torch.ops.interp import grid_gather_np, pack_corners
 
 
 class VolumeSampler:
     """image: (X, Y, Z, C) array; scaler: any object with `.transform`
     taking and returning (X, Y, Z, C) arrays, or None; labels: (X, Y, Z)
-    integer array or None."""
+    integer array or None.
+
+    The positional order is the port's, (image, affine, bg_value, scaler,
+    labels, bg_class); the JAX package's is (image, labels, affine,
+    bg_value, bg_class, scaler). Pass the labels by keyword to write a
+    call both packages read alike."""
 
     def __init__(self, image, affine, bg_value=0.0, scaler=None, labels=None,
                  bg_class=0):
@@ -55,6 +64,64 @@ class VolumeSampler:
         self._codes = None    # (bucket, (codes, step, vmin))
         self._staged = None   # ((form, device, bucket, dtype, quantize), t)
         self._labels_staged = None  # ((device, bucket), t)
+        self._device_volume = None  # ((device, bucket, dtype), t)
+
+    # ------------------------------------------------------------- host path
+    def apply_rotation(self, mgrid):
+        """A (3, ...) stacked query mesh rotated onto the aligned grid
+        (unchanged when the affine is axis-aligned)."""
+        if self.rot_mat is None:
+            return mgrid
+        mgrid = np.asarray(mgrid)
+        pts = geometry.mgrid_to_points(mgrid)
+        return geometry.points_to_mgrid(
+            pts @ np.asarray(self.rot_mat, np.float32).T, mgrid.shape[1:])
+
+    def _points_from_mgrid(self, mgrid, apply_rot):
+        mgrid = np.asarray(mgrid)
+        if apply_rot:
+            mgrid = self.apply_rotation(mgrid)
+        return np.moveaxis(mgrid, 0, -1)
+
+    @staticmethod
+    def _squeeze_unit(a, axes_of):
+        """a without the unit axes among its first `axes_of` axes."""
+        unit = tuple(i for i, s in enumerate(a.shape[:axes_of]) if s == 1)
+        return np.squeeze(a, axis=unit) if unit else a
+
+    def intrp_image(self, mgrid, apply_rot=True):
+        """The RAW image linear-interpolated at a (3, ...) query mesh,
+        bg_value out of bounds; unit axes of the mesh dropped."""
+        out = grid_gather_np(
+            self.image, self.origin, self.spacing,
+            self._points_from_mgrid(mgrid, apply_rot), method="linear",
+            fill=np.asarray(self.bg_value, np.float32))
+        return self._squeeze_unit(out, out.ndim - 1)
+
+    def intrp_labels(self, mgrid, apply_rot=True):
+        """The labels nearest-interpolated at a (3, ...) query mesh,
+        bg_class out of bounds, as uint8 (uint16 past 255); None without
+        labels."""
+        if self.labels is None:
+            return None
+        lab = grid_gather_np(
+            self.labels[..., None].astype(np.float32), self.origin,
+            self.spacing, self._points_from_mgrid(mgrid, apply_rot),
+            method="nearest", fill=float(self.bg_class))[..., 0]
+        return self._cast_labels(self._squeeze_unit(lab, lab.ndim))
+
+    def __call__(self, mgrid):
+        """(image, labels) at a (3, ...) query mesh, rotated once."""
+        mgrid = self.apply_rotation(np.asarray(mgrid))
+        return (self.intrp_image(mgrid, apply_rot=False),
+                self.intrp_labels(mgrid, apply_rot=False))
+
+    @staticmethod
+    def _cast_labels(lab):
+        info = np.iinfo(np.uint8)
+        if np.all((lab >= info.min) & (lab <= info.max)):
+            return lab.astype(np.uint8)
+        return lab.astype(np.uint16)
 
     # ------------------------------------------------------------- host side
     @property
@@ -163,6 +230,18 @@ class VolumeSampler:
         gather resampler. Cached like the unpacked form."""
         return self._cached("packed", device, bucket, dtype, quantize)
 
+    def device_volume(self, device, dtype=None, bucket=32):
+        """The scaled (X, Y, Z, C) volume zero-padded to the bucket, as a
+        float32 tensor (or `dtype`) on `device`, cached apart from the
+        unpacked and packed forms (the JAX package's `device_volume`)."""
+        dtype = torch.float32 if dtype is None else dtype
+        key = (torch.device(device), int(bucket or 0), dtype)
+        if self._device_volume is None or self._device_volume[0] != key:
+            self._device_volume = None
+            self._device_volume = (key, self._dense(device, bucket, dtype,
+                                                    False))
+        return self._device_volume[1]
+
     def device_labels(self, device, bucket=32):
         """The labels as float32 (X, Y, Z, 1) zero-padded to the bucket on
         `device` (cached), or None without labels."""
@@ -188,6 +267,7 @@ class VolumeSampler:
 
     def unload_device(self):
         """Drop every staged tensor and the host caches."""
+        self._device_volume = None
         self._labels_staged = None
         self._staged = None
         self._codes = None

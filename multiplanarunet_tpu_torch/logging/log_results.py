@@ -9,7 +9,10 @@ named by `_view_fname`, and their twins as text tables under txt/; for
 and detailed.csv (class x image dice). The
 CSVs are written as pandas writes them (index column first, floats at
 full precision, NaN as an empty field), so the JAX package's `mp summary`
-and `load_result_dicts` read the port's files and the port reads theirs.
+and `load_result_dicts` read the port's files and the port reads theirs;
+the text tables are pandas' `to_string()` of the same frames.
+`to_df`, `results_to_csv` and `results_to_txt` take a ResultTable or the
+JAX package's dict of columns.
 """
 
 from __future__ import annotations
@@ -108,22 +111,65 @@ class ResultTable:
                                for v in r[1:]]
         return table
 
+    def transposed(self):
+        """The table with rows and columns swapped (no index name)."""
+        table = ResultTable("", self.columns, self.index)
+        table.values = self.values.T.copy()
+        return table
+
     def to_text(self):
-        cols = [str(c) for c in self.columns]
-        cells = [["NaN" if np.isnan(v) else f"{v:.6f}" for v in row]
-                 for row in self.values]
+        """The table as pandas' DataFrame.to_string() writes a float
+        frame: each column's values formatted as `_float_column` does,
+        numeric headers with a leading space, columns right-aligned one
+        space apart, index labels left-aligned, and the index name on a
+        line of its own padded to the full width."""
+        cols = [" " + str(c) for c in self.columns]
+        cells = [_float_column(self.values[:, j])
+                 for j in range(len(self.columns))]
         labels = [str(i) for i in self.index]
         lw = max([len(self.index_name)] + [len(s) for s in labels])
-        widths = [max([len(c)] + [len(r[j]) for r in cells])
-                  for j, c in enumerate(cols)]
-        lines = [" " * lw + "".join(f"  {c:>{w}}"
+        widths = [max([len(c)] + [len(v) for v in col])
+                  for c, col in zip(cols, cells)]
+        lines = [" " * lw + "".join(f" {c:>{w}}"
                                     for c, w in zip(cols, widths))]
         if self.index_name:
-            lines.append(self.index_name)
-        for label, row in zip(labels, cells):
+            lines.append(self.index_name.ljust(len(lines[0])))
+        for i, label in enumerate(labels):
             lines.append(f"{label:<{lw}}" + "".join(
-                f"  {v:>{w}}" for v, w in zip(row, widths)))
+                f" {col[i]:>{w}}" for col, w in zip(cells, widths)))
         return "\n".join(lines)
+
+
+def _trim_zeros(strs):
+    """pandas' trailing-zero trim: drop a last "0" from every fixed-point
+    string while all of them end in one, keeping one decimal digit."""
+    fixed = re.compile(r"^\s*[\+-]?[0-9]+\.[0-9]*$")
+    nums = [i for i, x in enumerate(strs) if fixed.match(x)]
+    while nums and all(strs[i].endswith("0") for i in nums):
+        for i in nums:
+            strs[i] = strs[i][:-1]
+    for i in nums:
+        if strs[i].endswith("."):
+            strs[i] += "0"
+    return strs
+
+
+def _float_column(values, digits=6):
+    """pandas' fixed-width strings of a float column: " .6f" with
+    trailing zeros trimmed alike, or " .6e" when a nonzero value is below
+    1e-6 or a value above 1e6 makes a string longer than 12; NaN as
+    "NaN"."""
+    def fmt(spec):
+        return _trim_zeros(["NaN" if np.isnan(v) else format(v, spec)
+                            for v in values])
+
+    out = fmt(f" .{digits}f")
+    a = np.abs(values[~np.isnan(values)])
+    too_long = max((len(x) for x in out), default=0) > digits + 6
+    if ((a < 10.0 ** -digits) & (a > 0)).any() or (too_long
+                                                   and (a > 1e6).any()):
+        out = fmt(f" .{digits}e")
+    return out
 
 
 def init_result_dicts(views, all_images, n_classes):
@@ -174,16 +220,48 @@ def _view_fname(view):
         " ", "_")
 
 
+def to_df(results, transpose=False):
+    """A ResultTable of `results`: a ResultTable, or a dict of columns as
+    the JAX package's tables are built (indexed by its "class" column
+    when it has one, else by row number); transposed if asked. The port's
+    stand-in for the JAX package's DataFrame."""
+    if isinstance(results, ResultTable):
+        table = results
+    else:
+        cols = {k: list(v) for k, v in results.items()}
+        index = cols.pop("class", None)
+        name = "" if index is None else "class"
+        if index is None:
+            index = range(len(next(iter(cols.values()), [])))
+        table = ResultTable(name, index, cols)
+        for j, col in enumerate(cols.values()):
+            table.values[:, j] = np.asarray(col, np.float64)
+    return table.transposed() if transpose else table
+
+
+def results_to_csv(results, res_path, fname="results", transpose=False):
+    """<res_path>/<fname>.csv as pandas writes the table, and a blank
+    line."""
+    to_df(results, transpose).write_csv(os.path.join(res_path,
+                                                     f"{fname}.csv"))
+
+
+def results_to_txt(results, res_path, fname="results", transpose=False):
+    """<res_path>/<fname>.txt: the table as pandas' to_string() writes
+    it, and a newline."""
+    with open(os.path.join(res_path, f"{fname}.txt"), "w") as f:
+        f.write(to_df(results, transpose).to_text() + "\n")
+
+
 def save_all(results, pc_results, out_dir):
     txt_dir = os.path.join(out_dir, "txt")
     csv_dir = os.path.join(out_dir, "csv")
     create_folders([txt_dir, csv_dir])
-    tables = [("results", results)] + [(_view_fname(view), frame)
-                                       for view, frame in pc_results.items()]
-    for fname, table in tables:
-        table.write_csv(os.path.join(csv_dir, f"{fname}.csv"))
-        with open(os.path.join(txt_dir, f"{fname}.txt"), "w") as f:
-            f.write(table.to_text() + "\n")
+    results_to_txt(results, txt_dir)
+    results_to_csv(results, csv_dir)
+    for view, frame in pc_results.items():
+        results_to_txt(frame, txt_dir, fname=_view_fname(view))
+        results_to_csv(frame, csv_dir, fname=_view_fname(view))
 
 
 def save_all_3D(results, detailed, out_dir):
@@ -192,6 +270,5 @@ def save_all_3D(results, detailed, out_dir):
     csv_dir = os.path.join(out_dir, "csv")
     create_folders([txt_dir, csv_dir])
     for fname, table in (("results", results), ("detailed", detailed)):
-        table.write_csv(os.path.join(csv_dir, f"{fname}.csv"))
-        with open(os.path.join(txt_dir, f"{fname}.txt"), "w") as f:
-            f.write(table.to_text() + "\n")
+        results_to_txt(table, txt_dir, fname=fname)
+        results_to_csv(table, csv_dir, fname=fname)

@@ -20,6 +20,7 @@ class FusionModel(nn.Module):
         """W = 1 and b = 0, or the values of a {"fusion": {"W", "b"}}
         tree."""
         super().__init__()
+        self.n_inputs, self.n_classes = int(n_inputs), int(n_classes)
         self.W = nn.Parameter(torch.ones(n_inputs, n_classes))
         self.b = nn.Parameter(torch.zeros(1, n_classes))
         if params is not None:
@@ -32,6 +33,22 @@ class FusionModel(nn.Module):
                             f"fusion/{name} has shape {tuple(value.shape)}; "
                             f"the model needs {tuple(p.shape)}")
                     p.copy_(value)
+
+    def init_params(self, rng=None):
+        """The initial weights as the JAX package's params tree,
+        {"fusion": {"W": ones (V, C), "b": zeros (1, C)}} of float32
+        numpy arrays. rng is unused: the initialisation is constant."""
+        return {"fusion": {
+            "W": np.ones((self.n_inputs, self.n_classes), np.float32),
+            "b": np.zeros((1, self.n_classes), np.float32)}}
+
+    def count_params(self, params=None):
+        """The number of values of a params tree, or of this model's
+        parameters when params is None."""
+        if params is None:
+            return sum(p.numel() for p in self.parameters())
+        return sum(int(np.prod(np.shape(v)))
+                   for v in params["fusion"].values())
 
     def forward(self, x):
         """x: (..., n_views, n_classes) -> (..., n_classes) probabilities."""

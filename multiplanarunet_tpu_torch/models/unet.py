@@ -261,10 +261,11 @@ class UNet(nn.Module):
         self.n_classes = int(n_classes)
         self.n_channels = int(n_channels)
         self.depth = int(depth)
+        self.complexity_factor = float(complexity_factor)
         self.dtype = dtype
         self.act = get_activation(activation)
         self.out_act = output_activation(out_activation)
-        cf = float(np.sqrt(complexity_factor))
+        cf = self.cf
         k = self.kernel_size = int(kernel_size)
 
         n = self.ndim
@@ -290,6 +291,11 @@ class UNet(nn.Module):
         self.out_conv = (nn.Conv2d if n == 2 else nn.Conv3d)(
             cin, self.n_classes, 1)
         self.label_crop = np.zeros((n, 2), np.int64)
+
+    @property
+    def cf(self):
+        """sqrt(complexity_factor), the filter multiplier."""
+        return float(np.sqrt(self.complexity_factor))
 
     def forward(self, x):
         x = x.to(self.dtype)

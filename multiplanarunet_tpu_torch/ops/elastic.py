@@ -73,6 +73,14 @@ def smooth_fields(fields, sigmas, radius):
     return fields
 
 
+def smooth_field(field, sigma, radius):
+    """Separable gaussian blur (zero boundary) of one 2D or 3D field (a
+    tensor) with a scalar sigma: `smooth_fields` of a batch of one."""
+    sigmas = torch.full((1,), float(sigma), dtype=torch.float32,
+                        device=field.device)
+    return smooth_fields(field[None], sigmas, radius)[0]
+
+
 def _oob_and_cells(px, py, H, W):
     oob = (px < 0) | (px > H - 1) | (py < 0) | (py > W - 1)
     x0 = torch.clamp(torch.floor(px), 0, H - 2)

@@ -1,6 +1,7 @@
 """Scanner-space geometry for the predictor and the image layer: view
-sampling, plane bases, centered voxel axes, physical image extents, and
-the isotropic 3D boxes (grids, random placements and rotations).
+sampling, plane bases and grids, centered voxel axes, physical image
+extents, and the isotropic 3D boxes (grids, random placements and
+rotations).
 
 Numpy copies of the functions of `multiplanarunet_tpu/ops/geometry.py`
 that the inference paths and the training samplers need. The JAX
@@ -225,6 +226,57 @@ def plane_basis_batch(norm_vectors, noise_sd=0.0, rng=None):
     u[degenerate] = (1.0, 0.0, 0.0)
     v[degenerate] = (0.0, 1.0, 0.0)
     return np.stack([u, v, n_hat], axis=-1).astype(np.float32)
+
+
+def plane_axis(real_space_span, sample_dim):
+    """The in-plane axis: linspace(-span//2, span//2, sample_dim), float32
+    (the floor division on a float span, as the JAX package does it)."""
+    hd = real_space_span // 2
+    return np.linspace(-hd, hd, sample_dim).astype(np.float32)
+
+
+def plane_offsets(image, n_planes, real_space_span, sample_dim):
+    """The evenly spaced offsets (float32) of a view's plane stack for an
+    n_planes spec: 'same' (sample_dim planes over the span), 'same+N' (N
+    more, the span widened by N sample steps), 'by_radius' (the image's
+    bounding sphere at the sample resolution) or a plane count."""
+    span = float(real_space_span)
+    sample_res = span / (sample_dim - 1)
+    if n_planes == "by_radius":
+        bounds = get_bounding_sphere_real_radius(image)
+        n = int(2 * bounds / sample_res)
+    else:
+        extra = 0
+        if n_planes == "same":
+            n = sample_dim
+        elif isinstance(n_planes, str) and n_planes.startswith("same+"):
+            extra = int(n_planes.split("+")[-1])
+            n = sample_dim + extra
+        else:
+            n = int(n_planes)
+        bounds = (span + extra * sample_res) / 2
+    return np.linspace(-bounds, bounds, n).astype(np.float32)
+
+
+def sample_plane_grid(norm_vector, sample_dim, real_space_span,
+                      offset_from_center, noise_sd=0.0, rng=None,
+                      return_basis=False):
+    """Real-space (3, d, d, 1) grid of one oblique plane at
+    offset_from_center along the view (a host form for tests; the
+    samplers generate the points on their device). rng: a numpy
+    RandomState for the basis noise (np.random if None). With
+    return_basis, (grid, axis, inv_basis)."""
+    basis = plane_basis(norm_vector, noise_sd=noise_sd, rng=rng)
+    g = plane_axis(real_space_span, sample_dim)
+    uu, vv = np.meshgrid(g, g, indexing="ij")
+    pts = (basis[:, 0][:, None, None] * uu[None]
+           + basis[:, 1][:, None, None] * vv[None]
+           + basis[:, 2][:, None, None] * np.float32(offset_from_center))
+    grid = pts[:, :, :, None]
+    if return_basis:
+        return grid, g, np.linalg.inv(basis.astype(np.float64)).astype(
+            np.float32)
+    return grid
 
 
 # ----------------------------------------------------------------- box grids

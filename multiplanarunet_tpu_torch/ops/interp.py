@@ -4,12 +4,15 @@ the predictor's gather path and the training sampler's plane gathers.
 Port of the gather half of `multiplanarunet_tpu/ops/interp.py`, with
 `sample_plane` / `sample_plane_batch` (one oblique plane, or a batch of
 independently oriented planes, linear for images and nearest for
-labels) and the pooled training sampler's `grid_gather_pool` /
-`sample_plane_batch_pool` (B planes from B slots of a volume pool in one
-batched gather), and the 3D path's isotropic boxes: `sample_box` /
-`sample_box_batch` (boxes of one volume), `sample_box_batch_pool` (B
-boxes from B pool slots) and `scatter_box_pred` (box predictions added
-onto their nearest voxels, as one `index_add_`). Sample
+labels), the per-view inference pair `sample_plane_stack` (a view's
+unpacked (d, d, P, C) plane stack) and `map_view_pred_to_voxels` (its
+prediction gathered back at voxel positions), the pooled training
+sampler's `grid_gather_pool` / `sample_plane_batch_pool` (B planes from
+B slots of a volume pool in one batched gather), and the 3D path's
+isotropic boxes: `sample_box` / `sample_box_batch` (boxes of one volume),
+`sample_box_batch_pool` (B boxes from B pool slots) and
+`scatter_box_pred` (box predictions added onto their nearest voxels, as
+one `index_add_`). Sample
 axes are uniform (centered voxel axes spaced by pixdim; plane axes are a
 linspace), so a point's cell index is a multiply-add. Boundary semantics
 are the JAX package's: a point is out of bounds iff it lies outside
@@ -156,6 +159,41 @@ def sample_plane(volume, origin, spacing, rot, basis, offset, span, dim,
     pts = plane_points(basis, offset, span, dim, device=volume.device)
     return grid_gather(volume, origin, spacing, _rotate(pts, rot),
                        method=method, fill=fill, valid_shape=valid_shape)
+
+
+def _plane_stack_chunks(basis, rot, offsets, span, dim, device):
+    """Yield the (d, d, p, 3) float32 points of consecutive chunks of a
+    stack of parallel planes (plane p at offsets[p] along n_hat, then
+    rotated by `rot`, the identity if None), at most _CHUNK_POINTS points
+    per chunk so the gather temporaries stay bounded at any size."""
+    base = plane_points(basis, 0.0, span, dim, device=device)
+    n = _as_f32(basis, device)[:, 2]
+    if rot is None:
+        rot_t = torch.eye(3, device=device)
+    else:
+        rot_t = torch.as_tensor(rot, dtype=torch.float32, device=device).T
+    offs = _as_f32(offsets, device)
+    d = int(dim)
+    per_chunk = max(1, _CHUNK_POINTS // (d * d))
+    for p0 in range(0, offs.shape[0], per_chunk):
+        o = offs[p0:p0 + per_chunk]
+        yield (base[:, :, None, :] + o[None, None, :, None] * n) @ rot_t
+
+
+def sample_plane_stack(volume, origin, spacing, rot, basis, offsets, span,
+                       dim, fill, method="linear", valid_shape=None):
+    """(d, d, P, C) stack of parallel planes along one view of `volume`
+    (X, Y, Z, C), the planes on axis 2 (the JAX package's layout): plane
+    p sits at offsets[p] along n_hat, its points rotated by `rot`
+    (scanner -> grid alignment; an array, a tensor or None for the
+    identity) and sampled by `grid_gather` (linear or nearest, `fill`
+    out of bounds, `valid_shape` the true extent of a padded volume),
+    in float32 points, in chunks of planes."""
+    parts = [grid_gather(volume, origin, spacing, pts, method=method,
+                         fill=fill, valid_shape=valid_shape)
+             for pts in _plane_stack_chunks(basis, rot, offsets, span, dim,
+                                            volume.device)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
 
 def _plane_batch_points(bases, offsets, span, dim, device):
@@ -428,25 +466,35 @@ def sample_plane_stack_packed(packed, origin, spacing, rot, basis, offsets,
     points are rotated by `rot` (the scanner -> grid alignment, identity
     when the affine is axis-aligned) before sampling. Sampled in chunks of
     planes, so the temporaries stay bounded at any volume size."""
-    dev = packed.device
-    base = plane_points(basis, 0.0, span, dim, device=dev)
-    n = _as_f32(basis, dev)[:, 2]
-    rot_t = (torch.eye(3, device=dev) if rot is None
-             else _as_f32(rot, dev)).T
-    offs = _as_f32(offsets, dev)
-    d = int(dim)
-    per_chunk = max(1, _CHUNK_POINTS // (d * d))
-    parts = []
-    for p0 in range(0, offs.shape[0], per_chunk):
-        o = offs[p0:p0 + per_chunk]
-        pts = base[:, :, None, :] + o[None, None, :, None] * n
-        pts = pts @ rot_t
-        parts.append(grid_gather_packed(packed, origin, spacing, pts,
-                                        fill=fill, valid_shape=valid_shape))
+    parts = [grid_gather_packed(packed, origin, spacing, pts, fill=fill,
+                                valid_shape=valid_shape)
+             for pts in _plane_stack_chunks(basis, rot, offsets, span, dim,
+                                            packed.device)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
 
 # ------------------------------------------------------ prediction remapping
+def map_view_pred_to_voxels(pred, plane_span_axis0, offsets_axis2, inv_basis,
+                            voxel_points, method="nearest"):
+    """A (d, d, P, C) per-view prediction stack gathered at voxel
+    positions: voxel_points (..., 3) centered real-space positions (an
+    array or a tensor), taken to plane coordinates by inv_basis (3, 3);
+    plane_span_axis0 and offsets_axis2 are the [start, step] of the
+    in-plane axis (u and v) and of the plane-offset axis. Out-of-bounds
+    voxels get the one-hot background (class 0). Returns (..., C) on
+    pred's device, in pred's dtype for nearest."""
+    dev = pred.device
+    fill = np.zeros((pred.shape[-1],), np.float32)
+    fill[0] = 1.0
+    pts = torch.as_tensor(voxel_points, dtype=torch.float32, device=dev)
+    pts = pts @ torch.as_tensor(inv_basis, dtype=torch.float32,
+                                device=dev).T
+    a0, a1 = (np.float32(x) for x in plane_span_axis0)
+    o0, o1 = (np.float32(x) for x in offsets_axis2)
+    return grid_gather(pred, (a0, a0, o0), (a1, a1, o1), pts, method=method,
+                       fill=fill)
+
+
 def _view_slab_mapper(pred, plane_start, plane_step, offset_start,
                       offset_step, M, t, out_shape, valid_planes, method,
                       x_slab):

@@ -93,17 +93,31 @@ def _base_loader_func(hparams, just_one, no_val, logger, mtype):
     return train_queue, val_queue, logger, auditor
 
 
+def add_noise_to_views(views, sd, rng=None):
+    """Each view vector plus normal(scale=sd, size=3) noise, renormalised
+    (float64 (N, 3)); rng: a numpy RandomState, numpy's global stream if
+    None."""
+    rng = rng or np.random
+    out = []
+    for v in np.asarray(views, np.float64):
+        noisy = v + rng.normal(scale=sd, size=3)
+        out.append(noisy / np.linalg.norm(noisy))
+    return np.asarray(out)
+
+
 def load_or_create_views(hparams, continue_training, logger, base_path,
-                         auditor=None, name="views"):
+                         auditor=None, name="views", pre_noise=True):
     """The views of fit.views: an int -> freshly sampled restricted views,
     a list -> those, continue_training -> <name>.npz reloaded; new views
     go to <name>.npz (a multi-task project keeps views_<task>.npz per
     task) and are drawn to views.png, where matplotlib is there (a
-    plotting failure logs one warning). Listed views are kept as given:
-    the JAX package pre-noises them only for an intrp_style other than
-    iso_live, and the 2D and multi-task paths that call this sample
-    iso_live. In a process group the main process's views are broadcast
-    to every process, and only the main process writes the files."""
+    plotting failure logs one warning). With pre_noise (as the JAX
+    package's single-task path), listed views get fit.noise_sd of
+    orientation noise once, here, for an intrp_style other than iso_live,
+    and fit.noise_sd is set to False (the JAX package's per-task views
+    take no pre-noise: pre_noise=False). In a process group the main
+    process's views are broadcast to every process, and only the main
+    process writes the files."""
     views = hparams["fit"]["views"]
     view_path = os.path.join(base_path, f"{name}.npz")
     if continue_training:
@@ -115,7 +129,14 @@ def load_or_create_views(hparams, continue_training, logger, base_path,
             logger(f"[OBS] Weighting random views by median res: {weights}")
         views = sample_random_views_with_angle_restriction(
             int(views), 60, weights=weights, logger=logger)
-    elif not isinstance(views, (list, tuple, np.ndarray)):
+    elif isinstance(views, (list, tuple, np.ndarray)):
+        views = np.asarray(views, np.float64)
+        if pre_noise and hparams["fit"]["intrp_style"] != "iso_live":
+            logger(f"[Note] Pre-adding noise to views "
+                   f"(SD: {hparams['fit']['noise_sd']})")
+            views = add_noise_to_views(views, hparams["fit"]["noise_sd"])
+            hparams["fit"]["noise_sd"] = False
+    else:
         raise ValueError(f"Invalid 'views' value {views!r}; must be an int "
                          f"or a list of vectors")
     views = np.asarray(views, np.float64)
@@ -205,7 +226,7 @@ def prepare_for_multi_task_2d(hparams, just_one=False, no_val=False,
         fit_kwargs = dict(hparams["fit"])
         fit_kwargs["views"] = load_or_create_views(
             hparams, continue_training, logger, base_path, auditor,
-            name=f"views_{name}")
+            name=f"views_{name}", pre_noise=False)
         fit_kwargs["real_space_span"] = spec["real_space_span"]
         for queue, is_val, out in ((train_queue, False, train_seqs),
                                    (val_queue, True, val_seqs)):

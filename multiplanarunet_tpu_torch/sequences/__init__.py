@@ -1,22 +1,22 @@
-"""Batch samplers and their factory: the multi-planar slice sampler
-(iso_live), the isotropic 3D box sampler (iso_live_3d), the voxel-space
-patch samplers (patches_3d, sliding_patches_3d), MultiTaskSequence, one
-sampler per task, and RandomDataFeeder over fixed arrays."""
+"""Batch samplers and their factory (`sequences/utils.py:get_sequence`):
+the multi-planar slice sampler (iso_live), the isotropic 3D box sampler
+(iso_live_3d), the voxel-space patch samplers (patches_3d,
+sliding_patches_3d), MultiTaskSequence, one sampler per task, and
+RandomDataFeeder over fixed arrays."""
 
-from multiplanarunet_tpu_torch.augmentation.augmenters import build_augmenters
-from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
-from multiplanarunet_tpu_torch.image.queue.queues import LazyQueue
 from multiplanarunet_tpu_torch.sequences.base_sequence import (  # noqa: F401
     BaseSequence,
 )
-from multiplanarunet_tpu_torch.sequences.iso_3d import (
+from multiplanarunet_tpu_torch.sequences.iso_3d import (  # noqa: F401
     IsotrophicLiveViewSequence3D,
 )
 from multiplanarunet_tpu_torch.sequences.multi_planar import (  # noqa: F401
     IsotrophicLiveViewSequence,
     IsotrophicLiveViewSequence2D,
 )
-from multiplanarunet_tpu_torch.sequences.multi_task import MultiTaskSequence
+from multiplanarunet_tpu_torch.sequences.multi_task import (  # noqa: F401
+    MultiTaskSequence,
+)
 from multiplanarunet_tpu_torch.sequences.patches_3d import (  # noqa: F401
     PatchSequence3D,
     SlidingPatchSequence3D,
@@ -25,32 +25,6 @@ from multiplanarunet_tpu_torch.sequences.patches_3d import (  # noqa: F401
 from multiplanarunet_tpu_torch.sequences.simple_sequences import (  # noqa: F401
     RandomDataFeeder,
 )
-
-_STYLES = {
-    "iso_live": IsotrophicLiveViewSequence2D,
-    "iso_live_3d": IsotrophicLiveViewSequence3D,
-    "patches_3d": PatchSequence3D,
-    "sliding_patches_3d": SlidingPatchSequence3D,
-}
-# styles whose sampler takes no augmenters
-_PATCH_STYLES = ("patches_3d", "sliding_patches_3d")
-
-
-def get_sequence(data_queue, intrp_style, augmenters=None, logger=None,
-                 device=None, **kwargs):
-    """The sampler of `intrp_style` over a data queue (as
-    `multiplanarunet_tpu/sequences/utils.py:get_sequence`), sampling on
-    `device` (the card by default, which raises without one). A bare
-    ImagePairLoader is wrapped in a LazyQueue; augmenter config dicts are
-    instantiated here (the patch samplers take none)."""
-    style = intrp_style.lower()
-    if style not in _STYLES:
-        raise ValueError(f"Unknown intrp_style '{intrp_style}'; valid: "
-                         f"{sorted(_STYLES)}")
-    if isinstance(data_queue, ImagePairLoader):
-        data_queue = LazyQueue(data_queue, logger=logger)
-    kwargs.pop("list_of_augmenters", None)
-    if style not in _PATCH_STYLES:
-        kwargs["list_of_augmenters"] = (build_augmenters(augmenters)
-                                        if augmenters else None)
-    return _STYLES[style](data_queue, logger=logger, device=device, **kwargs)
+from multiplanarunet_tpu_torch.sequences.utils import (  # noqa: F401
+    get_sequence,
+)

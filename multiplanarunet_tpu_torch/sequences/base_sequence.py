@@ -40,6 +40,12 @@ class BaseSequence:
             raise ValueError(f"Invalid batch size {value}")
         self._batch_size = int(value)
 
+    @property
+    def n_samples(self):
+        """len(self): the nominal, endless length (the Trainer sets the
+        epoch's)."""
+        return len(self)
+
 
 def _tensors(part):
     """The tensors of a batch part: one, or a list of them per task."""

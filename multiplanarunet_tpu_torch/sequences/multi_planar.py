@@ -41,6 +41,12 @@ labels are cropped by `label_crop` and given a trailing axis. Batches are
 (X (B, d, d, C) float32, y (B, d, d, 1), w (B,) float32 numpy) on the
 sequence's device; y is int32, or float32 after an augmenter, as in the
 JAX package.
+
+For inference, `IsotrophicLiveViewSequence2D.get_view_from` samples one
+view's whole plane stack from the float32 staged volume (and the label
+stack, nearest), with the grid and inverse basis that
+`utils.fusion.fuse_and_predict.map_real_space_pred` takes back onto the
+voxels.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from multiplanarunet_tpu_torch.ops.interp import (
     sample_plane,
     sample_plane_batch,
     sample_plane_batch_pool,
+    sample_plane_stack,
 )
 from multiplanarunet_tpu_torch.parallel.volume_pool import DeviceVolumePool
 from multiplanarunet_tpu_torch.sequences.base_sequence import BaseSequence
@@ -445,3 +452,41 @@ class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
             params["spacings"], params["rots"], bases, offsets,
             float(self.real_space_span), self.sample_dim, params["fills"],
             valid_shapes=params["valid_shapes"])
+
+    # ------------------------------------------------------------ inference
+    def plane_offsets(self, image, n_planes):
+        """The plane offsets of an n_planes spec ('same', 'same+N',
+        'by_radius' or a count) at this sequence's span and dim
+        (`ops.geometry.plane_offsets`, which the predictor shares)."""
+        return geometry.plane_offsets(image, n_planes, self.real_space_span,
+                                      self.sample_dim)
+
+    def get_view_from(self, image, view, n_planes):
+        """The full plane stack of one view over an image, on this
+        sequence's device: (X (d, d, P, C) float32 scaled, y (d, d, P)
+        int32 or None in predict mode, (real_axis, real_axis, offsets),
+        inv_basis (3, 3) float32), the JAX package's tuple. X is
+        linear-gathered from the float32 staged volume
+        (`VolumeSampler.device_volume`), y nearest from the labels with
+        the image's bg_class as fill."""
+        offsets = self.plane_offsets(image, n_planes)
+        basis = geometry.plane_basis(view, noise_sd=0.0)
+        sampler = image.interpolator
+        dev = self.device
+        span = float(self.real_space_span)
+        rot = sampler.device_rot(dev)
+        valid = tuple(int(s) for s in sampler.valid_shape)
+        X = sample_plane_stack(
+            sampler.device_volume(dev), sampler.origin, sampler.spacing, rot,
+            basis, offsets, span, self.sample_dim, sampler.scaled_bg_value,
+            valid_shape=valid)
+        y = None
+        if not image.predict_mode:
+            y = sample_plane_stack(
+                sampler.device_labels(dev), sampler.origin, sampler.spacing,
+                rot, basis, offsets, span, self.sample_dim,
+                float(image.bg_class), method="nearest",
+                valid_shape=valid)[..., 0].to(torch.int32)
+        real_axis = geometry.plane_axis(self.real_space_span, self.sample_dim)
+        inv_basis = np.linalg.inv(basis.astype(np.float64)).astype(np.float32)
+        return X, y, (real_axis, real_axis, offsets), inv_basis

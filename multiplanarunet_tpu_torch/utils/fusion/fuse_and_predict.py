@@ -31,6 +31,10 @@ Fusion training (`mp train_fusion`) reads each view's mapped probabilities
 through `predict_views_mapped` / `predict_views_points`, which always take
 the exact gather path, as the JAX package's do.
 
+`predict_single` is the one-image convenience over both model kinds: the
+per-view mapped probabilities (iso_live) or `pred_3D_iso`'s box sums
+(iso_live_3d).
+
 The 3D model's inference (`mp predict_3D`) is `pred_3D_iso` (isotropic
 scanner-space boxes: the base tiling, then extra random boxes, each
 sampled, predicted and scatter-added onto its nearest voxels) and
@@ -48,6 +52,7 @@ import os
 import numpy as np
 import torch
 
+from multiplanarunet_tpu_torch._device import resolve_device
 from multiplanarunet_tpu_torch.ops import geometry
 from multiplanarunet_tpu_torch.ops.interp import (
     accum_view_pred_affine,
@@ -159,26 +164,9 @@ class MultiViewPredictor:
             return P_pad
         return max(d for d in range(2, t + 1, 2) if P_pad % d == 0)
 
-    def _plane_offsets(self, image, n_planes):
-        sample_res = self.span / (self.dim - 1)
-        if n_planes == "by_radius":
-            bounds = geometry.get_bounding_sphere_real_radius(image)
-            n = int(2 * bounds / sample_res)
-        else:
-            extra = 0
-            if n_planes == "same":
-                n = self.dim
-            elif isinstance(n_planes, str) and n_planes.startswith("same+"):
-                extra = int(n_planes.split("+")[-1])
-                n = self.dim + extra
-            else:
-                n = int(n_planes)
-            bounds = (self.span + extra * sample_res) / 2
-        return np.linspace(-bounds, bounds, n).astype(np.float32)
-
     def _prepare_offsets(self, image, n_planes):
         """(chunk-padded offsets, n_valid) for an n_planes spec."""
-        offsets = self._plane_offsets(image, n_planes)
+        offsets = geometry.plane_offsets(image, n_planes, self.span, self.dim)
         n_valid = len(offsets)
         if self.chunk is not None:
             P_pad = -(-n_valid // self.chunk) * self.chunk
@@ -856,3 +844,70 @@ def predict_3D_patches_binary(predict_fn, patches, image, n_extra=0,
         recon[sl + (1,)] += mask[: i1 - i, : i2 - k, : i3 - v]
     total = recon.sum(-1)
     return (recon[..., 1] > threshold * total).astype(np.uint8)
+
+
+# ------------------------------------------------------------- convenience
+def predict_single(image, model, hparams, views=None, logger=None,
+                   device=None):
+    """One ImagePair's predictions under a project's hparams (the JAX
+    package's `predict_single`), on `device` (the card by default, which
+    raises without one):
+
+    - intrp_style iso_live: every view's mapped probabilities,
+      (n_views, X, Y, Z, n_classes) float32 on the host, by
+      `MultiViewPredictor.predict_views_mapped` (the exact gather path);
+      views from <project>/views.npz when None;
+    - iso_live_3d: the un-normalised box sums (X, Y, Z, n_classes)
+      float32 of `pred_3D_iso` with 3x extra boxes, over a sequence of
+      this one image.
+
+    The torch model holds its own weights, so the JAX form's `variables`
+    argument is gone: a call in that form, (image, model, variables,
+    hparams), raises a TypeError naming it. The model is moved to the
+    device and put in eval mode. Another intrp_style raises the JAX
+    package's ValueError."""
+    if not hasattr(hparams, "get_from_anywhere"):
+        raise TypeError(
+            "predict_single takes (image, model, hparams, views=None, "
+            "logger=None, device=None): the torch model holds its own "
+            "weights, so the JAX package's `variables` argument is gone; "
+            f"got {type(hparams).__name__} where the hparams go")
+    mode = hparams["fit"]["intrp_style"].lower()
+    if mode not in ("iso_live", "iso_live_3d"):
+        raise ValueError(f"predict_single supports iso_live modes, got {mode}")
+    device = resolve_device(device)
+    model = model.to(device).eval()
+    image.set_bg_value(hparams.get_from_anywhere("bg_value"))
+    image.set_scaler(hparams.get_from_anywhere("scaler"))
+    if mode == "iso_live":
+        if views is None:
+            views = np.load(os.path.join(hparams.project_path,
+                                         "views.npz"))["arr_0"]
+        predictor = MultiViewPredictor(
+            model, sample_dim=hparams["build"]["dim"],
+            real_space_span=hparams["fit"]["real_space_span"],
+            n_classes=hparams["build"]["n_classes"], device=device,
+            logger=logger)
+        with image.loaded_in_context():
+            return predictor.predict_views_mapped(image, views)
+    from multiplanarunet_tpu_torch.sequences.utils import get_sequence
+
+    seq = get_sequence(
+        data_queue=_SingleImageQueue(image), is_validation=True,
+        logger=logger, dim=hparams["build"]["dim"],
+        n_classes=hparams["build"]["n_classes"], no_log=True, device=device,
+        **hparams["fit"])
+    with image.loaded_in_context():
+        return pred_3D_iso(unet_predict_fn(model, device), seq, image,
+                           extra_boxes="3x", min_coverage=None)
+
+
+class _SingleImageQueue:
+    """A queue over one image: every draw is that image."""
+
+    def __init__(self, image):
+        self.image = image
+
+    @contextlib.contextmanager
+    def get_random_image(self):
+        yield self.image

@@ -50,6 +50,7 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.sequences",
     "multiplanarunet_tpu_torch.sequences.base_sequence",
     "multiplanarunet_tpu_torch.sequences.multi_planar",
+    "multiplanarunet_tpu_torch.sequences.utils",
     "multiplanarunet_tpu_torch.image.auditor",
     "multiplanarunet_tpu_torch.image.queue.queues",
     "multiplanarunet_tpu_torch.preprocessing.data_preparation_funcs",

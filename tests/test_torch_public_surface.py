@@ -1,6 +1,8 @@
 """Every public name of every subpackage `__init__` of the JAX package
-exists in the port's matching `__init__`, or sits in the allow-list below
-with the reason the port has no such name."""
+exists in the port's matching `__init__`, and every public module-level
+def and public class method of every JAX module exists in the port's
+module of the same path, or sits in an allow-list below with the reason
+the port has no such name."""
 import ast
 import importlib
 import pkgutil
@@ -24,6 +26,68 @@ ALLOWED = {
         "init_model_variables": "flax init of a variable tree; a torch "
                                 "model owns its parameters (glorot_init "
                                 "in models/unet.py)",
+    },
+}
+
+
+_NOT_PORTED = ("ROADMAP 'Do not port': a workaround for the remote TPU "
+               "transport with no job on a local card")
+_TPU_LAYOUT = ("ROADMAP B.1: a TPU-layout rewrite of the same function, "
+               "exact up to reassociation; the port runs the plain layers "
+               "until a card measurement asks for it")
+MODULE_ALLOWED = {
+    "ops.pallas_shear": {
+        "pass_pallas": "the Pallas entry of the shear pass: the port's "
+                       "kernel is CUDA C++ (csrc/shear_pass.cu) behind "
+                       "ops/shear_pass.py:shear_pass",
+    },
+    "ops.interp": {
+        "grid_gather_pool_packed": _NOT_PORTED + " (the corner-packed "
+                                   "pool twin)",
+        "sample_plane_batch_pool_packed": _NOT_PORTED + " (the "
+                                          "corner-packed pool twin)",
+    },
+    "parallel.volume_pool": {
+        "DeviceVolumePool.packed": _NOT_PORTED + " (the corner-packed "
+                                   "pool twin)",
+    },
+    "train.trainer": {
+        "Trainer.synced_dispatch": _NOT_PORTED + " (the gloo compile-skew "
+                                   "barrier)",
+    },
+    "augmentation.augmenters": {
+        "Elastic.base_key": _NOT_PORTED + " (the fused sampler's PRNG "
+                            "key; the port runs the host walk)",
+        "Elastic.draw_batch_params_host": _NOT_PORTED + " (the fused "
+                                          "sampler's host draw)",
+    },
+    "models.unet": {
+        "SubpixelUpConv": _NOT_PORTED + " (the sub-pixel decoder, off by "
+                          "default)",
+        "upsample2x": _NOT_PORTED + " (the sub-pixel decoder's upsample)",
+        "FusedBNAffine": _TPU_LAYOUT,
+        "DilatedUpConv": _TPU_LAYOUT,
+        "lane_pad_variables": _TPU_LAYOUT,
+        "init_unet": "flax init of (params, batch_stats); a torch model "
+                     "owns its parameters (glorot_init in models/unet.py)",
+    },
+    "utils.compilation_cache": {
+        "enable_compilation_cache": _NOT_PORTED + " (the XLA compile "
+                                    "cache)",
+    },
+    "models.fusion_model": {
+        "FusionLayer": ALLOWED["models"]["FusionLayer"],
+        "FusionLayer.regularizer": "FusionModel.regularizer holds it",
+    },
+    "models.model_init": {
+        "init_model_variables": ALLOWED["models"]["init_model_variables"],
+    },
+    "train.train_step": {
+        **{name: _FLAX_STATE for name in ALLOWED["train"]},
+        "TrainState.learning_rate": _FLAX_STATE,
+        "TrainState.with_learning_rate": _FLAX_STATE,
+        "make_multitask_train_step": _FLAX_STATE + " (MultiTaskTrainStep)",
+        "make_multitask_eval_step": _FLAX_STATE + " (MultiTaskEvalStep)",
     },
 }
 
@@ -84,3 +148,67 @@ def test_root_version_matches():
 
     assert multiplanarunet_tpu_torch.__version__ == \
         multiplanarunet_tpu.__version__
+
+
+def _module_names(path):
+    """Public module-level defs and classes of a module, and each public
+    class's public methods and properties as 'Class.name'."""
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) or \
+                node.name.startswith("_"):
+            continue
+        names.append(node.name)
+        if isinstance(node, ast.ClassDef):
+            names += [f"{node.name}.{b.name}" for b in node.body
+                      if isinstance(b, ast.FunctionDef)
+                      and not b.name.startswith("_")]
+    return list(dict.fromkeys(names))
+
+
+def _modules():
+    root = REPO / "multiplanarunet_tpu"
+    return sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                  for p in root.rglob("*.py") if p.name != "__init__.py")
+
+
+MODULES = _modules()
+
+
+def _has(obj, dotted):
+    for part in dotted.split("."):
+        if not hasattr(obj, part):
+            return False
+        obj = getattr(obj, part)
+    return True
+
+
+def test_every_jax_module_is_checked():
+    assert {"sequences.multi_planar", "utils.fusion.fuse_and_predict",
+            "image.volume_sampler", "ops.geometry", "ops.interp",
+            "ops.shear", "sequences.utils", "bin.train"} <= set(MODULES)
+    assert len(MODULES) >= 60
+    assert set(MODULE_ALLOWED) <= set(MODULES)
+
+
+@pytest.mark.parametrize("mod", MODULES)
+def test_port_module_has_the_jax_defs_and_methods(mod):
+    """The port's module of the same path holds each public def, class
+    and class method of the JAX module, or the name is allow-listed with
+    a reason (a JAX module with no port module has every name
+    allow-listed)."""
+    names = _module_names(REPO / "multiplanarunet_tpu" /
+                          (mod.replace(".", "/") + ".py"))
+    allowed = MODULE_ALLOWED.get(mod, {})
+    try:
+        port = importlib.import_module(f"multiplanarunet_tpu_torch.{mod}")
+    except ModuleNotFoundError:
+        port = None
+    missing = [n for n in names
+               if n not in allowed and (port is None or not _has(port, n))]
+    assert not missing, f"{mod}: {missing}"
+    assert set(allowed) <= set(names)
+    if port is not None:
+        assert not [n for n in allowed if _has(port, n)]
+    assert all(reason.strip() for reason in allowed.values())
+
