@@ -7,7 +7,12 @@ oracle (shear, gather and auto's fallback), then drives fused multi-view
 inference at full width (U-Net complexity_factor 2, depth 4, dim 256, 7
 classes; 6 views + learned fusion over 256^3 volumes, bench.py's
 configuration) and times it, and requires the same class map with the
-plain pass in the kernel's place. It times the kernel's 6-pass plans
+plain pass in the kernel's place. The predictor runs the U-Net in the JAX
+predictor's form (the dilated decoder, filters zero-padded to multiples
+of 8); `phase_unet_variants` holds every form against the plain one in
+float32, times each in bf16, loads a lane-padded checkpoint through
+build_model, and runs predict-256 in the plain form against the
+default. It times the kernel's 6-pass plans
 beside their HBM bound, the plain version and a dense-W torch.bmm library
 arm. Then: the channel-grouped remap against the
 ungrouped one, the gather resampler on a full-width 256^3 volume, uint8
@@ -16,7 +21,7 @@ volume with the kernel held against its plain version at that volume's
 largest shapes, and training: `mp train` (a subprocess, through the mp
 entry point) of the same model on a project that the port's `mp
 init_project` makes from its MultiPlanar preset, over 3 + 1 structured
-256^3 subjects (3 epochs of 20 steps of 16, Elastic2D) on the pooled
+256^3 subjects (2 epochs of 20 steps of 16, Elastic2D) on the pooled
 sampler, a float32 step on the card against the host, the bf16 step
 against the float32 one, a 50-step overfit, the step, sampler and
 validation times; the pooled sampler against the per-image path in
@@ -93,6 +98,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -167,6 +173,9 @@ from multiplanarunet_tpu_torch.train.train_step import (
 )
 from multiplanarunet_tpu_torch.train.trainer import Trainer
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
+from multiplanarunet_tpu_torch.utils.conv_arithmetics import (
+    unet_forward_flops,
+)
 from multiplanarunet_tpu_torch.utils.fusion import fuse_and_predict
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
@@ -683,11 +692,13 @@ def phase_main_path(dev, predictor, images, views, fusion):
     total = float(np.mean([sum(s.values()) for s in shares[1:]]))
     n_valid = len(geometry.plane_offsets(images[0], "same+20",
                                          predictor.span, predictor.dim))
-    plane_flops = unet_flops_per_plane(predictor.model, dev)
-    model_flops = plane_flops * N_VIEWS * n_valid
+    # The plain decoder's unpadded count, whatever form the predictor runs,
+    # so that the rate stays comparable across forms
+    model_flops = unet_main_flops() * N_VIEWS * n_valid
     tflops = model_flops / (unet * 1e-3) / 1e12
     log(f"main path: {steady:.3f} s/volume after the first "
-        f"({60.0 / steady:.2f} volumes/min; first {seconds[0]:.3f} s); "
+        f"({60.0 / steady:.2f} volumes/min; first {seconds[0]:.3f} s; "
+        f"U-Net form {unet_form(predictor.model)}); "
         f"U-Net {unet:.1f} ms ({100 * unet / total:.1f}%), resample "
         f"(stack + remap + accumulate) {resample:.1f} ms "
         f"({100 * resample / total:.1f}%) of {total:.1f} ms device-event "
@@ -712,6 +723,193 @@ def phase_main_path(dev, predictor, images, views, fusion):
         f"{agree:.6f}")
     if not (np.isfinite(probs).all() and sum_err < 1e-4 and agree > 0.999):
         raise AssertionError("fused probabilities are wrong")
+    return launches
+
+
+# ------------------------------------------------------------- U-Net forms
+# The U-Net's forms at the main path's width, each with the fields that
+# select it; "dilated+pad8" is the JAX predictor's form
+UNET_ARMS = (
+    ("naive", {}),
+    ("dilated", {"dilated_upconv": True}),
+    ("pad8", {"lane_pad": 8}),
+    ("dilated+pad8", {"dilated_upconv": True, "lane_pad": 8}),
+    ("dilated+pad8+fused_bn", {"dilated_upconv": True, "lane_pad": 8,
+                               "predict_fused_bn": True}),
+    ("subpixel", {"subpixel_decoder": True}),
+)
+# Float32 (TF32 off) against the naive form: the forms reassociate sums
+# (and pad with exact zeros), so they stay within the card-vs-host bound
+# of check_unet_against_host; bf16 argmax against the naive bf16 form:
+# random weights have near-ties that one bf16 rounding flips (0.9966 of
+# voxels in a 32^3 CPU rehearsal of the per-view gate)
+FORMS_F32_TOL, FORMS_AGREEMENT = 1e-4, 0.99
+FORMS_WARMUP, FORMS_REPS = 3, 12
+# The main path's build group, as `mp init_project` writes it
+BUILD_MAIN = {"model_class_name": "UNet", "n_classes": N_CLASSES,
+              "n_channels": N_CHANNELS, "dim": DIM, "depth": DEPTH,
+              "complexity_factor": CF, "out_activation": "softmax"}
+
+
+def unet_main_flops():
+    """Forward FLOPs of one DIM x DIM plane through the main path's U-Net
+    with the plain decoder and unpadded filters (the analytic count that
+    phase_callbacks_tools holds against the hook count), whatever form
+    runs."""
+    return unet_forward_flops(DIM, N_CLASSES, N_CHANNELS, DEPTH,
+                              complexity_factor=CF)
+
+
+def unet_form(model):
+    """The form fields of a U-Net, for the log."""
+    return {k: getattr(model, k) for k in (
+        "dilated_upconv", "subpixel_decoder", "predict_fused_bn",
+        "lane_pad") if getattr(model, k, None)} or "naive"
+
+
+def phase_unet_variants(dev, tmp, predictor, img, views, fusion, card):
+    """The U-Net's forms on predict-256's model (cf 2, depth 4, 7
+    classes), on one U-Net chunk of the main path (`_chunk_for` of its
+    plane stack) of random 256^2 planes:
+
+    1. every form in float32 with TF32 off against the naive form (gate
+       FORMS_F32_TOL), and a JAX-format checkpoint written with lane_pad 8
+       loaded through build_model + load_unet_weights the same way;
+    2. in bf16 (the predictor's dtype) each form's forward time by CUDA
+       events, in rounds over the forms (median and quartiles of
+       FORMS_REPS after FORMS_WARMUP), its peak memory, and its argmax
+       against the naive form's (gate FORMS_AGREEMENT, finite);
+    3. TFLOP/s of each form on the naive unpadded count;
+    4. predict-256 on one volume with the predictor's default form
+       against the naive form (MP_PREDICT_DILATED=0,
+       MP_PREDICT_LANE_PAD=0), in the order naive, default, default,
+       naive: s/volume, U-Net ms and the class maps' agreement (gate
+       FORMS_AGREEMENT; 72 shear-pass launches each, gated).
+
+    Returns the shear-pass launches of step 4."""
+    t_phase = time.perf_counter()
+    offsets, _ = predictor._prepare_offsets(img, "same+20")
+    chunk = predictor._chunk_for(len(offsets))
+    # setup_main_path's weights, through the entry points `mp predict`
+    # uses
+    naive = load_unet_weights(build_model(BUILD_MAIN),
+                              Path(tmp) / "unet_cf2.npz").to(dev)
+    arms = {name: naive.twin(**fields) for name, fields in UNET_ARMS}
+    path = Path(tmp) / "unet_cf2_lane_pad8.npz"
+    checkpoint.save_unet_weights(path, arms["pad8"])
+    loaded = load_unet_weights(
+        build_model({**BUILD_MAIN, "lane_pad": 8}), path).to(dev).eval()
+    if loaded.lane_pad != 8:
+        raise AssertionError("build_model dropped lane_pad")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(chunk, N_CHANNELS, DIM, DIM, generator=gen, device=dev)
+
+    if torch.backends.cudnn.allow_tf32:  # require_cuda turns it off
+        raise AssertionError("TF32 convolutions are on")
+    errs = {}
+    with torch.inference_mode():
+        ref = arms["naive"](x)
+        for name, arm in [*arms.items(), ("pad8 checkpoint", loaded)]:
+            if name != "naive":
+                errs[name] = (arm(x) - ref).abs().max().item()
+    del ref, loaded
+    log(f"U-Net forms, float32 (TF32 off), {chunk} planes of {DIM}^2, max "
+        f"abs err against the naive form: "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (< "
+        f"{FORMS_F32_TOL:g})")
+    if not all(e < FORMS_F32_TOL for e in errs.values()):
+        raise AssertionError(f"a U-Net form disagrees in float32: {errs}")
+
+    for arm in arms.values():
+        arm.dtype = torch.bfloat16
+    flops = unet_main_flops() * chunk
+    agree, peaks, times = {}, {}, {name: [] for name in arms}
+    with torch.inference_mode():
+        want = arms["naive"](x).argmax(1)
+        for name, arm in arms.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = arm(x)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated(dev)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"U-Net form {name}: non-finite bf16")
+            agree[name] = (out.argmax(1) == want).float().mean().item()
+            del out
+            for _ in range(FORMS_WARMUP - 1):
+                arm(x)
+        events = []
+        for _ in range(FORMS_REPS):  # rounds over the forms
+            for name, arm in arms.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                arm(x)
+                end.record()
+                events.append((name, start, end))
+        torch.cuda.synchronize()
+        for name, start, end in events:
+            times[name].append(start.elapsed_time(end))
+    del want, x
+    stats = {name: tuple(float(np.percentile(t, q)) for q in (50, 25, 75))
+             for name, t in times.items()}
+    base = stats["naive"][0]
+    log(f"[{card}] U-Net forms, bf16, one chunk of {chunk} planes of "
+        f"{DIM}^2 (median and quartiles of {FORMS_REPS} after "
+        f"{FORMS_WARMUP} warm-up, CUDA events, in rounds over the forms; "
+        f"TFLOP/s on the naive unpadded count, {flops / 1e12:.3f} TFLOP):")
+    for name, (med, q1, q3) in stats.items():
+        log(f"  {name:22s} {med:8.3f} ms ({q1:.3f} / {q3:.3f}), "
+            f"{flops / (med * 1e-3) / 1e12:6.1f} TFLOP/s, "
+            f"{100 * (med / base - 1):+.1f}% vs naive; peak "
+            f"{peaks[name] / 2**30:.2f} GiB; argmax vs naive bf16 "
+            f"{agree[name]:.6f}")
+    if min(agree.values()) < FORMS_AGREEMENT:
+        raise AssertionError(f"bf16 forms' argmax agreement {agree}")
+    del arms, naive
+
+    # predict-256 with the predictor's default form against the naive one
+    with mock.patch.dict(os.environ, {"MP_PREDICT_DILATED": "0",
+                                      "MP_PREDICT_LANE_PAD": "0"}):
+        plain = MultiViewPredictor(
+            load_unet_weights(build_model(BUILD_MAIN, mixed_precision=True),
+                              Path(tmp) / "unet_cf2.npz").to(dev).eval(),
+            sample_dim=DIM, real_space_span=float(DIM - 1),
+            n_classes=N_CLASSES, device=dev)
+    if unet_form(plain.model) != "naive":
+        raise AssertionError(f"MP_PREDICT_DILATED=0 / MP_PREDICT_LANE_PAD=0"
+                             f" left the form {unet_form(plain.model)}")
+    runs = {"naive": [], "default": []}
+    maps = {}
+    launches = 0
+    for name in ("naive", "default", "default", "naive"):
+        pred = plain if name == "naive" else predictor
+        shear_pass.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cls, _ = pred.predict_image(img, views, fusion_params=fusion,
+                                    n_planes="same+20",
+                                    return_per_view=False)
+        secs = time.perf_counter() - t0
+        if shear_pass.launches != 12 * N_VIEWS:
+            raise AssertionError(f"{name} predict: {shear_pass.launches} "
+                                 f"shear-pass launches")
+        launches += shear_pass.launches
+        runs[name].append((secs, pred.stage_ms()["unet"]))
+        maps[name] = cls
+    same = float((maps["naive"] == maps["default"]).mean())
+    log(f"[{card}] predict-{DIM}, one volume, naive form vs the predictor's "
+        f"default {unet_form(predictor.model)} (naive, default, default, "
+        f"naive): s/volume naive {[round(r[0], 3) for r in runs['naive']]}"
+        f", default {[round(r[0], 3) for r in runs['default']]}; U-Net ms "
+        f"naive {[round(r[1], 1) for r in runs['naive']]}, default "
+        f"{[round(r[1], 1) for r in runs['default']]}; class maps equal "
+        f"in {same:.6f} of voxels (>= {FORMS_AGREEMENT})")
+    if same < FORMS_AGREEMENT:
+        raise AssertionError("the default form's class map differs")
+    del plain
+    torch.cuda.empty_cache()
+    log(f"U-Net forms phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1507,9 +1705,9 @@ def phase_large(dev, model, views, fusion):
 
 
 # ------------------------------------------------------------------ training
-# `mp train` of the bench model on a 3 + 1 subject 256^3 project: 3 epochs
+# `mp train` of the bench model on a 3 + 1 subject 256^3 project: 2 epochs
 # of 20 steps of 16 and 4 validation steps
-TRAIN_EPOCHS, TRAIN_IMAGES, VAL_IMAGES, BATCH = 3, 320, 64, 16
+TRAIN_EPOCHS, TRAIN_IMAGES, VAL_IMAGES, BATCH = 2, 320, 64, 16
 N_TRAIN_SUBJECTS, N_VAL_SUBJECTS = 3, 1
 BATCH_LARGE = 64
 # The 3D preset's model at full width: UNet3D, complexity_factor 1, depth
@@ -1997,25 +2195,79 @@ def sampler_ab(seq, rounds, n):
     return ms, peak
 
 
+def pool_build_blocks(seq):
+    """Build `seq`'s pool on the card with the caching allocator's history
+    on. Returns (the pool, the bytes asked by the allocations made under
+    `_get_pool` and live after it, the bytes of the blocks that the
+    allocator handed them, the other allocations made while it was built
+    and live after it as (bytes asked, innermost Python frame) pairs).
+    `memory_allocated`'s growth over the build is no measure of the pool:
+    another thread may allocate meanwhile, and the allocator hands out a
+    free block whole when it is at most 1 MB larger than asked (a free
+    block in a segment still in use survives `empty_cache`), so two runs
+    saw it 1536 B above the pool. The bytes are therefore attributed by
+    the allocating stack, and the pool's tensors must be allocations of
+    its build."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python", clear_history=True)
+    try:
+        pool = seq._get_pool()
+        torch.cuda.synchronize()
+        snapshot = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    block_bytes = {}
+    for seg in snapshot["segments"]:
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            block_bytes[addr] = b["size"]
+            addr += b["size"]
+    live = {}  # a trace event's size is the bytes asked
+    for e in snapshot["device_traces"][torch.cuda.current_device()]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested":
+            live.pop(e["addr"], None)
+    asked = blocks = 0
+    own, foreign = set(), []
+    for addr, e in live.items():
+        frames = e.get("frames", [])
+        if any(f["name"] == "_get_pool" for f in frames):
+            asked += e["size"]
+            blocks += block_bytes[addr]
+            own.add(addr)
+        else:
+            foreign.append((e["size"], next(
+                (f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+                 for f in frames), "no Python frame")))
+    ptrs = {t.data_ptr() for t in (pool.volumes, pool.labels)}
+    if ptrs != own:
+        raise AssertionError(f"the pool's tensors at {sorted(ptrs)} are not "
+                             f"the allocations of its build {sorted(own)}")
+    return pool, asked, blocks, foreign
+
+
 def check_pooled_card_vs_cpu(seq, n_batches, card):
     """Pooled batches of copies of `seq` on the card and on the CPU (own
     pools, no augmenters: Elastic2D's fields come from device generators)
     from the same numpy seed: images within CPU_IMAGE_TOL of the largest
     |intensity|, labels equal on CPU_LABEL_SHARE of pixels, weights equal,
-    and the batch contract. Gates the card pool's bytes: allocated when it
-    was built, equal to capacity x padded shape x (C x 4 + label
-    itemsize). Returns the card pool's bytes."""
-    batches, pools, grown = {}, {}, {}
+    and the batch contract. Gates the card pool's bytes: the bytes that
+    building it allocated (`pool_build_blocks`), equal to capacity x
+    padded shape x (C x 4 + label itemsize). Returns the card pool's
+    bytes."""
+    batches, pools = {}, {}
     for name, device in (("card", seq.device), ("cpu", torch.device("cpu"))):
         s = copy.copy(seq)
         s.device, s._pool, s.list_of_augmenters = device, None, None
         set_sampler_path(s, True)
         s.seed = lambda: None  # one numpy seed for both
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        pools[name] = s._get_pool()
-        torch.cuda.synchronize()
-        grown[name] = torch.cuda.memory_allocated() - before
+        if device.type == "cuda":
+            pools[name], built, blocks, foreign = pool_build_blocks(s)
+        else:
+            pools[name] = s._get_pool()
         np.random.seed(1234)
         batches[name] = [s[i] for i in range(n_batches)]
         for i, b in enumerate(batches[name]):
@@ -2023,9 +2275,9 @@ def check_pooled_card_vs_cpu(seq, n_batches, card):
     pool = pools["card"]
     want = (pool.capacity * int(np.prod(pool.shape))
             * (pool.n_channels * 4 + pool.labels.element_size()))
-    if not pool.nbytes == want == grown["card"]:
-        raise AssertionError(f"pool bytes {pool.nbytes}, allocated "
-                             f"{grown['card']}, want {want}")
+    if not pool.nbytes == want == built:
+        raise AssertionError(f"pool bytes {pool.nbytes}, allocated by its "
+                             f"build {built}, want {want}")
     img_err, label_share = 0.0, 1.0
     for (cX, cy, cw), (hX, hy, hw) in zip(batches["card"], batches["cpu"]):
         hX = hX.numpy()
@@ -2044,8 +2296,9 @@ def check_pooled_card_vs_cpu(seq, n_batches, card):
         f"{seq.n_classes}); pool {pool.capacity} slots of "
         f"{pool.shape + (pool.n_channels,)} float32 + "
         f"{str(pool.labels.dtype).split('.')[-1]} labels = {pool.nbytes} B "
-        f"({pool.nbytes / 2**30:.3f} GiB), allocated when built "
-        f"{grown['card']} B")
+        f"({pool.nbytes / 2**30:.3f} GiB), allocated by its build {built} "
+        f"B in blocks of {blocks} B; allocated meanwhile by other code "
+        f"{foreign or 'nothing'}")
     if not (img_err <= CPU_IMAGE_TOL and label_share >= CPU_LABEL_SHARE):
         raise AssertionError("pooled batches differ card vs CPU")
     del pools, batches
@@ -2509,9 +2762,6 @@ def phase_callbacks_tools(dev, tmp, proj, dirs, epochs_256, card):
     of the trained model where h5py imports (else both must raise an
     error naming h5py). Returns the shear-pass launches of the mp predict
     run."""
-    from multiplanarunet_tpu_torch.utils.conv_arithmetics import (
-        unet_forward_flops,
-    )
     from multiplanarunet_tpu_torch.utils.system import describe_devices
 
     t_phase = time.perf_counter()
@@ -3806,6 +4056,8 @@ def main():
         phase_oracle(dev)
         paths[f"main {DIM}^3"] = phase_main_path(dev, predictor, images, views,
                                               fusion)
+        paths["U-Net forms A/B"] = phase_unet_variants(
+            dev, tmp, predictor, images[1], views, fusion, card)
         phase_reference_swap(predictor, images[0], views, fusion)
         times = phase_timing(dev, plans)
         e, paths[f"grouped {DIM}^3"] = phase_grouped_remap(

@@ -20,6 +20,7 @@ from __future__ import annotations
 import os
 import re
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -279,7 +280,10 @@ class YAMLHParams(dict):
         it was read from, in the main process only: the processes of a
         group share the project folder and hold the same configuration
         (audit and views broadcast), and concurrent rewrites of one YAML
-        could interleave."""
+        could interleave. The text goes to a file beside it that then
+        replaces it, so a process reading the YAML meanwhile (another rank
+        starting up) reads the old text or the new, never a truncated
+        file."""
         from multiplanarunet_tpu_torch.parallel.distributed import (
             is_main_process,
         )
@@ -290,5 +294,7 @@ class YAMLHParams(dict):
         if not self.no_log:
             self.logger(f"Saving current YAML configuration to file: "
                         f"{out_path}")
-        with open(out_path, "w") as f:
+        tmp_path = f"{out_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp_path, "w") as f:
             f.write(self.string_rep)
+        os.replace(tmp_path, out_path)

@@ -12,6 +12,7 @@ weight file, restored by name).
 
 from __future__ import annotations
 
+import inspect
 from pathlib import Path
 
 import torch
@@ -30,17 +31,17 @@ from multiplanarunet_tpu_torch.utils.utils import (
 
 MODELS = {"UNet": UNet, "UNet3D": UNet3D,
           "MultiTaskUNet2D": MultiTaskUNet2D}
-# build-group fields the U-Nets take; the JAX models' other fields (the
-# single-task dim, img_rows/img_cols, l1_reg/l2_reg, and the exact
-# inference restructurings dilated_upconv / subpixel_decoder) do not
-# change what they compute, and keys that are not model fields are
-# ignored, as the JAX package ignores them
-_UNET_FIELDS = ("n_classes", "n_channels", "depth", "complexity_factor",
-                "init_filters", "kernel_size", "activation",
-                "out_activation")
-# the multi-task model's per-task lists come with the task names and dims
-_FIELDS = {"UNet": _UNET_FIELDS, "UNet3D": _UNET_FIELDS,
-           "MultiTaskUNet2D": ("task_names", "dim") + _UNET_FIELDS}
+
+
+def _build_kwargs(cls, build):
+    """The build group's entries that are fields of the port's `cls` (its
+    constructor's parameters; `dtype` comes from mixed_precision), as
+    the JAX package passes each class the fields it takes: the 2D UNet
+    takes the inference forms and lane_pad, UNet3D the two decoder forms,
+    MultiTaskUNet2D its per-task lists. Keys that are not fields (dim of
+    a single-task model, l1_reg/l2_reg, ...) are ignored, as there."""
+    fields = set(inspect.signature(cls).parameters) - {"dtype"}
+    return {k: v for k, v in build.items() if k in fields and v is not None}
 
 
 class UnsupportedModelError(ValueError):
@@ -63,8 +64,7 @@ def build_model(build_hparams, mixed_precision=False, logger=None):
     if build.get("flatten_output"):
         raise UnsupportedModelError(
             "flatten_output: the port's U-Nets return (B, C, *spatial)")
-    kwargs = {k: build[k] for k in _FIELDS[name]
-              if build.get(k) is not None}
+    kwargs = _build_kwargs(MODELS[name], build)
     if mixed_precision:
         kwargs["dtype"] = torch.bfloat16
     model = MODELS[name](**kwargs).eval()

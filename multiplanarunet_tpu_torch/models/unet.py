@@ -28,9 +28,23 @@ checkpoints through `models.checkpoint`, or from `glorot_init`
 init). `label_crop` holds the (n, 2) skip crops of the last forward, the
 JAX model's sown `label_crop` (zero when the input side is divisible by
 2^depth).
+
+The JAX model's inference forms are fields here too, each computing the
+same function with the same parameters (so a checkpoint loads into any
+of them): `dilated_upconv` computes the decoder's upsample + 2^n conv as
+one transposed conv with a 3^n kernel (`DilatedUpConv`),
+`subpixel_decoder` as 2^n parity convs on the source grid
+(`SubpixelUpConv`), `predict_fused_bn` makes eval-mode BatchNorm one
+multiply-add in the compute dtype (`FusedBNAffine`), `predict_skip_bn`
+drops eval-mode BatchNorm (a probe, not the same function), and
+`lane_pad` rounds every internal filter count up to a multiple, exact
+with the zero embedding of `lane_pad_variables`. The 2D `UNet` takes all
+five, `UNet3D` the two decoder forms, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import torch
@@ -212,22 +226,131 @@ BATCH_NORM = {2: BatchNorm2d, 3: BatchNorm3d}
 MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
 
 
+class FusedBNAffine(_FlaxBatchNorm, nn.modules.batchnorm._BatchNorm):
+    """BatchNorm whose eval mode is one multiply-add in the compute
+    dtype: ``x * a + b`` with ``a = scale * rsqrt(var + eps)`` and
+    ``b = bias - mean * a`` computed in float32 and cast to x's dtype, as
+    `multiplanarunet_tpu/models/unet.py:FusedBNAffine` computes it. Any
+    spatial rank. The parameters and buffers are BatchNorm's (weight,
+    bias, running_mean, running_var), so a checkpoint loads into either.
+    Train mode is the flax BatchNorm of `BatchNorm2d` / `BatchNorm3d`.
+    In bf16 it differs from the float32 normalisation by the rounding of
+    (a, b)."""
+
+    def forward(self, x):
+        if self.training:
+            return super().forward(x)
+        a = self.weight * torch.rsqrt(self.running_var + self.eps)
+        b = self.bias - self.running_mean * a
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return x * a.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+
+
+def _batch_norm(channels, ndim=2, fused=False):
+    """The BatchNorm of rank `ndim`, or a `FusedBNAffine`."""
+    return FusedBNAffine(channels) if fused else BATCH_NORM[ndim](channels)
+
+
 class ConvBNBlock(nn.Module):
     """Two k^n SAME convs with the activation, then BatchNorm (n = ndim
-    spatial axes)."""
+    spatial axes). In eval mode, `fused_bn` runs the BatchNorm as a
+    `FusedBNAffine` and `skip_bn` leaves it out, as the JAX block's
+    fields do."""
 
-    def __init__(self, in_channels, filters, kernel_size, act, ndim=2):
+    def __init__(self, in_channels, filters, kernel_size, act, ndim=2,
+                 fused_bn=False, skip_bn=False):
         super().__init__()
         conv = CONV[ndim]
         self.conv1 = conv(in_channels, filters, kernel_size, padding="same")
         self.conv2 = conv(filters, filters, kernel_size, padding="same")
-        self.bn = BATCH_NORM[ndim](filters)
+        self.bn = _batch_norm(filters, ndim, fused_bn)
         self.act = act
+        self.skip_bn = skip_bn
 
     def forward(self, x):
         x = self.act(self.conv1(x))
         x = self.act(self.conv2(x))
+        if self.skip_bn and not self.training:
+            return x
         return self.bn(x)
+
+
+def upsample2x(x):
+    """Nearest 2x upsample over every spatial axis of a channels-first
+    tensor (each voxel repeated 2^n times, Keras' UpSampling)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class _UpConv(nn.modules.conv._ConvNd):
+    """The parameters of the decoder's up conv as the plain 2^n conv
+    holds them: an (O, I, 2, .., 2) float32 kernel and a bias. So
+    checkpoints, `glorot_init` (fan_in 2^n * I) and by-name restores treat
+    the forms below as that conv. Subclasses compute upsample2x -> the
+    2^n conv SAME-padded (0, 1) from the source tensor, in its dtype."""
+
+    def __init__(self, in_channels, filters, ndim=2):
+        one, zero = (1,) * ndim, (0,) * ndim
+        super().__init__(in_channels, filters, (2,) * ndim, one, zero, one,
+                         False, zero, 1, True, "zeros")
+        self.ndim = ndim
+
+
+class DilatedUpConv(_UpConv):
+    """upsample2x -> conv 2^n SAME as one transposed conv: nearest-up(x)
+    is x dilated by 2 convolved with ones(2^n), so up-then-conv_k is the
+    dilated x correlated with the 3^n kernel ``K[m, n] = sum_{a, b}
+    A[a, m] A[b, n] k[a, b]``, ``A = [[1, 1, 0], [0, 1, 1]]``
+    (`multiplanarunet_tpu/models/unet.py:DilatedUpConv`). The JAX model
+    feeds the dilation to the conv (`lhs_dilation`); torch would have to
+    build the zero-inserted tensor, so the port computes the same function
+    as a stride-2 transposed conv with the flipped K, padding 1 and output
+    padding 1. Neither the 2^n-times larger upsampled tensor nor the
+    dilated one is ever stored, and each output voxel takes 2.25 (2D) or
+    3.375 (3D) taps on average in place of 2^n."""
+
+    def forward(self, x):
+        n = self.ndim
+        # Along each spatial axis K = (k0, k0 + k1, k1); the transposed
+        # conv takes it flipped, (k1, k0 + k1, k0), and (in, out) first
+        K = self.weight
+        for ax in range(2, 2 + n):
+            K = torch.cat([K.narrow(ax, 1, 1), K.sum(ax, keepdim=True),
+                           K.narrow(ax, 0, 1)], dim=ax)
+        conv_t = F.conv_transpose2d if n == 2 else F.conv_transpose3d
+        return conv_t(x, K.transpose(0, 1).to(x.dtype),
+                      self.bias.to(x.dtype), stride=2, padding=1,
+                      output_padding=1)
+
+
+class SubpixelUpConv(_UpConv):
+    """upsample2x -> conv 2^n SAME as 2^n convs on the source grid, one
+    per output parity, interleaved
+    (`multiplanarunet_tpu/models/unet.py:SubpixelUpConv`). Along an axis,
+    an even output voxel's two taps read the same source voxel (the
+    kernel axis is summed, extent 1), an odd one's read two neighbours
+    (extent 2, the high edge zero-padded as SAME pads)."""
+
+    def forward(self, x):
+        n = self.ndim
+        conv = F.conv2d if n == 2 else F.conv3d
+        parts = []
+        for parity in np.ndindex(*(2,) * n):
+            k = self.weight
+            for ax, p in enumerate(parity):
+                if p == 0:
+                    k = k.sum(dim=2 + ax, keepdim=True)
+            pad = []
+            for p in reversed(parity):  # F.pad lists the last axis first
+                pad += [0, p]
+            parts.append(conv(F.pad(x, pad), k.to(x.dtype)))
+        # out[..., 2i + p, ...] = parts[parity][..., i, ...]
+        B, F_, *sp = parts[0].shape
+        y = torch.stack(parts, dim=2).view(B, F_, *(2,) * n, *sp)
+        perm = [0, 1]
+        for ax in range(n):  # (B, F, p0, .., s0, ..) -> (B, F, s0, p0, ..)
+            perm += [2 + n + ax, 2 + ax]
+        y = y.permute(perm).reshape(B, F_, *(2 * s for s in sp))
+        return y + self.bias.to(x.dtype).view((1, -1) + (1,) * n)
 
 
 def crop_to_match(skip, up):
@@ -256,37 +379,56 @@ class UNet(nn.Module):
 
     def __init__(self, n_classes, n_channels=1, depth=4, complexity_factor=1.0,
                  init_filters=64, kernel_size=3, activation="relu",
-                 out_activation="softmax", dtype=torch.float32):
+                 out_activation="softmax", dtype=torch.float32,
+                 subpixel_decoder=False, dilated_upconv=False,
+                 predict_fused_bn=False, predict_skip_bn=False, lane_pad=0):
         super().__init__()
         self.n_classes = int(n_classes)
         self.n_channels = int(n_channels)
         self.depth = int(depth)
         self.complexity_factor = float(complexity_factor)
+        self.init_filters = int(init_filters)
+        self.activation = activation
+        self.out_activation = out_activation
         self.dtype = dtype
+        self.subpixel_decoder = bool(subpixel_decoder)
+        self.dilated_upconv = bool(dilated_upconv)
+        self.predict_fused_bn = bool(predict_fused_bn)
+        self.predict_skip_bn = bool(predict_skip_bn)
+        self.lane_pad = int(lane_pad)
         self.act = get_activation(activation)
         self.out_act = output_activation(out_activation)
-        cf = self.cf
         k = self.kernel_size = int(kernel_size)
 
         n = self.ndim
-        cin, filters = self.n_channels, init_filters
+        bn = dict(fused_bn=self.predict_fused_bn,
+                  skip_bn=self.predict_skip_bn)
+        cin, filters = self.n_channels, self.init_filters
         for i in range(self.depth):
-            f = int(filters * cf)
+            f = self._filters(filters)
             self.add_module(f"encoder_L{i}",
-                            ConvBNBlock(cin, f, k, self.act, n))
+                            ConvBNBlock(cin, f, k, self.act, n, **bn))
             cin, filters = f, filters * 2
-        f = int(filters * cf)
-        self.bottom = ConvBNBlock(cin, f, k, self.act, n)
+        f = self._filters(filters)
+        self.bottom = ConvBNBlock(cin, f, k, self.act, n, **bn)
         cin = f
         for i in range(self.depth):
             filters //= 2
-            f = int(filters * cf)
-            # 2^n SAME conv after the upsample: SAME pads an even kernel
-            # (0, 1), the high edge of every axis only (done in forward)
-            self.add_module(f"decoder_L{i}_conv_up", CONV[n](cin, f, 2))
-            self.add_module(f"decoder_L{i}_bn_up", BATCH_NORM[n](f))
+            f = self._filters(filters)
+            if self.subpixel_decoder:
+                up = SubpixelUpConv(cin, f, n)
+            elif self.dilated_upconv:
+                up = DilatedUpConv(cin, f, n)
+            else:
+                # 2^n SAME conv after the upsample: SAME pads an even
+                # kernel (0, 1), the high edge of every axis only (done
+                # in forward)
+                up = CONV[n](cin, f, 2)
+            self.add_module(f"decoder_L{i}_conv_up", up)
+            self.add_module(f"decoder_L{i}_bn_up",
+                            _batch_norm(f, n, self.predict_fused_bn))
             self.add_module(f"decoder_L{i}",
-                            ConvBNBlock(2 * f, f, k, self.act, n))
+                            ConvBNBlock(2 * f, f, k, self.act, n, **bn))
             cin = f
         self.out_conv = (nn.Conv2d if n == 2 else nn.Conv3d)(
             cin, self.n_classes, 1)
@@ -296,6 +438,35 @@ class UNet(nn.Module):
     def cf(self):
         """sqrt(complexity_factor), the filter multiplier."""
         return float(np.sqrt(self.complexity_factor))
+
+    def _filters(self, base):
+        """int(base * cf), rounded up to a multiple of lane_pad when set
+        (the out conv keeps n_classes)."""
+        f = int(base * self.cf)
+        if self.lane_pad:
+            f = -(-f // self.lane_pad) * self.lane_pad
+        return f
+
+    def copy(self, **overrides):
+        """A new model of this class with the same fields but
+        `overrides` (flax's `Module.copy`): fresh parameters, built where
+        torch builds modules (the CPU, or a `torch.device` context)."""
+        fields = inspect.signature(type(self)).parameters
+        return type(self)(**{**{k: getattr(self, k) for k in fields},
+                             **overrides})
+
+    def twin(self, **fields):
+        """This model with `fields` changed and its weights carried: a new
+        model on the same device, in the same mode, loaded from this one's
+        state dict (zero-embedded by `lane_pad_variables` when `fields`
+        sets lane_pad). This model is left as it is."""
+        state = self.state_dict()
+        if fields.get("lane_pad", self.lane_pad) != self.lane_pad:
+            state = lane_pad_variables(self, state, fields["lane_pad"])
+        with torch.device(next(self.parameters()).device):
+            twin = self.copy(**fields)
+        twin.load_state_dict(state)
+        return twin.train(self.training)
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -307,10 +478,14 @@ class UNet(nn.Module):
             x = MAX_POOL[n](x, 2, 2)
         x = self.bottom(x)
         label_crop = np.zeros((n, 2), np.int64)
+        skip_bn = self.predict_skip_bn and not self.training
         for i in range(self.depth):
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-            x = getattr(self, f"decoder_L{i}_conv_up")(F.pad(x, (0, 1) * n))
-            x = getattr(self, f"decoder_L{i}_bn_up")(self.act(x))
+            up = getattr(self, f"decoder_L{i}_conv_up")
+            if not isinstance(up, _UpConv):  # the naive form
+                x = F.pad(upsample2x(x), (0, 1) * n)
+            x = self.act(up(x))
+            if not skip_bn:
+                x = getattr(self, f"decoder_L{i}_bn_up")(x)
             skip, crops = crop_to_match(skips[-(i + 1)], x)
             label_crop += crops
             x = getattr(self, f"decoder_L{i}")(torch.cat([skip, x], dim=1))
@@ -356,3 +531,51 @@ def glorot_init(model, seed=0):
             elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
                 mod.reset_parameters()
     return model
+
+
+def lane_pad_variables(model, state_dict, lane_pad):
+    """`model`'s state dict (`state_dict`) zero-embedded into the shapes
+    of `model.copy(lane_pad=lane_pad)`, as
+    `multiplanarunet_tpu/models/unet.py:lane_pad_variables` embeds a flax
+    tree; the padded model computes the same outputs. Padded kernel rows
+    and columns are zero (a padded output channel stays zero through bias
+    0), padded BatchNorm channels are the identity on it (weight 1, bias
+    0, mean 0, var 1), and the out conv's padded input rows are zero.
+    Level i's decoder concat is [skip (f padded to P(f)), up (likewise)],
+    so `decoder_L{i}.conv1`'s real input rows, torch's dim 1, are
+    [0, f) and [P(f), P(f) + f). Entries whose shape does not change are
+    returned as they are."""
+    if model.lane_pad:
+        raise ValueError(f"lane_pad_variables embeds an unpadded model's "
+                         f"weights; this one has lane_pad {model.lane_pad}")
+    with torch.device("meta"):
+        padded = model.copy(lane_pad=lane_pad)
+    P = lambda c: -(-c // lane_pad) * lane_pad  # noqa: E731
+    dec_f = {f"decoder_L{i}":
+             int(model.init_filters * 2 ** (model.depth - 1 - i) * model.cf)
+             for i in range(model.depth)}
+    out = {}
+    for key, ref in padded.state_dict().items():
+        src = state_dict[key]
+        if src.shape == ref.shape:
+            out[key] = src
+            continue
+        *mods, leaf = key.split(".")
+        fill = 1.0 if leaf == "running_var" or (
+            leaf == "weight" and src.dim() == 1) else 0.0
+        tgt = torch.full(ref.shape, fill, dtype=src.dtype, device=src.device)
+        o = src.shape[0]
+        if src.dim() > 1:  # conv kernel (O, I, *k)
+            if len(mods) >= 2 and mods[-2] in dec_f and mods[-1] == "conv1":
+                f = dec_f[mods[-2]]
+                if src.shape[1] != 2 * f:
+                    raise ValueError(f"{key}: {src.shape[1]} input "
+                                     f"channels, not the concat's {2 * f}")
+                tgt[:o, :f] = src[:, :f]
+                tgt[:o, P(f):P(f) + f] = src[:, f:]
+            else:
+                tgt[:o, :src.shape[1]] = src
+        else:  # per-channel: bias, BatchNorm weight / bias / statistics
+            tgt[:o] = src
+        out[key] = tgt
+    return out

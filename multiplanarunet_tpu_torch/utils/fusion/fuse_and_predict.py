@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from multiplanarunet_tpu_torch._device import resolve_device
+from multiplanarunet_tpu_torch.models.unet import UNet
 from multiplanarunet_tpu_torch.ops import geometry
 from multiplanarunet_tpu_torch.ops.interp import (
     accum_view_pred_affine,
@@ -90,14 +91,49 @@ def class_map_counts(cls, labels, n_classes):
     return torch.stack([torch.stack(tp), torch.stack(rel), torch.stack(sel)])
 
 
+def _inference_model(model):
+    """The form of `model` the predictor runs, by the JAX predictor's rule
+    (`multiplanarunet_tpu/utils/fusion/fuse_and_predict.py`,
+    MultiViewPredictor.__init__):
+
+      * a U-Net's decoder as `DilatedUpConv`, unless the model has the
+        sub-pixel decoder or MP_PREDICT_DILATED=0;
+      * a 2D `UNet` (that class exactly: no UNet3D) with lane_pad 0 whose
+        filter ladder holds a count that is not a multiple of
+        MP_PREDICT_LANE_PAD (default 8; 0 turns it off) zero-padded to
+        that multiple (`lane_pad_variables`, exact).
+
+    Either way the result is a twin with its own copy of the weights, on
+    the model's device, in its dtype and mode (`UNet.twin`); `model`
+    itself is never changed. Any other model (an oracle, a multi-task
+    model) is returned as it is. The defaults are the JAX package's; on
+    an NVIDIA H100 each form alone and both together run the main path's
+    U-Net faster than the plain one (`chip_smoke.py`,
+    `phase_unet_variants`; the times are in PERF.md)."""
+    overrides = {}
+    if (getattr(model, "dilated_upconv", None) is False
+            and not getattr(model, "subpixel_decoder", False)
+            and os.environ.get("MP_PREDICT_DILATED", "1") != "0"):
+        overrides["dilated_upconv"] = True
+    pad = int(os.environ.get("MP_PREDICT_LANE_PAD", "8") or 0)
+    if pad and type(model) is UNet and model.lane_pad == 0:
+        ladder = [int(model.init_filters * 2 ** i * model.cf)
+                  for i in range(model.depth + 1)]
+        if any(f % pad for f in ladder):
+            overrides["lane_pad"] = pad
+    return model.twin(**overrides) if overrides else model
+
+
 class MultiViewPredictor:
     """Runs fused multi-view inference for one model configuration on one
     device; reusable across images.
 
     model: an inference `nn.Module` taking (B, C, d, d) and returning
     (B, n_classes, d, d) probabilities, already on `device` and in eval
-    mode. `image` arguments are objects with `.shape`, `.affine` and
-    `.interpolator` (an `image.volume_sampler.VolumeSampler`)."""
+    mode. A U-Net runs in the JAX predictor's inference form, on a twin
+    (`_inference_model`); `self.model` is the model that runs. `image`
+    arguments are objects with `.shape`, `.affine` and `.interpolator`
+    (an `image.volume_sampler.VolumeSampler`)."""
 
     # Memory guards as fractions of the device's memory. The JAX package's
     # constants (3.2e9 per bf16 stage, 11e9 remap peak) were sized for a
@@ -110,12 +146,17 @@ class MultiViewPredictor:
     def __init__(self, model, sample_dim, real_space_span, n_classes, device,
                  chunk=None, logger=None, resampler="auto",
                  stage_dtype="bf16"):
-        self.model = model
+        self.model = _inference_model(model)
         self.dim = int(sample_dim)
         self.span = float(real_space_span)
         self.n_classes = int(n_classes)
         self.device = torch.device(device)
         self.logger = logger
+        if self.model is not model:
+            self._log(f"U-Net inference form: dilated_upconv="
+                      f"{self.model.dilated_upconv}, lane_pad="
+                      f"{self.model.lane_pad} (MP_PREDICT_DILATED, "
+                      f"MP_PREDICT_LANE_PAD)")
         depth = getattr(model, "depth", None)
         if depth and self.dim % (2 ** depth):
             raise ValueError(

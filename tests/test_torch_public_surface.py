@@ -32,9 +32,6 @@ ALLOWED = {
 
 _NOT_PORTED = ("ROADMAP 'Do not port': a workaround for the remote TPU "
                "transport with no job on a local card")
-_TPU_LAYOUT = ("ROADMAP B.1: a TPU-layout rewrite of the same function, "
-               "exact up to reassociation; the port runs the plain layers "
-               "until a card measurement asks for it")
 MODULE_ALLOWED = {
     "ops.pallas_shear": {
         "pass_pallas": "the Pallas entry of the shear pass: the port's "
@@ -62,12 +59,6 @@ MODULE_ALLOWED = {
                                           "sampler's host draw)",
     },
     "models.unet": {
-        "SubpixelUpConv": _NOT_PORTED + " (the sub-pixel decoder, off by "
-                          "default)",
-        "upsample2x": _NOT_PORTED + " (the sub-pixel decoder's upsample)",
-        "FusedBNAffine": _TPU_LAYOUT,
-        "DilatedUpConv": _TPU_LAYOUT,
-        "lane_pad_variables": _TPU_LAYOUT,
         "init_unet": "flax init of (params, batch_stats); a torch model "
                      "owns its parameters (glorot_init in models/unet.py)",
     },

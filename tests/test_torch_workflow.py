@@ -237,3 +237,45 @@ def test_cv_experiment_aborts_split_on_failure(flat_dataset, tmp_path):
     assert not (exp_out / "split_0" / "train_hparams.yaml").exists()
     with pytest.raises(OSError, match="No split_N folders"):
         t_cv_experiment.entry_func(["--CV_dir", str(exp_out / "split_0")])
+
+
+def test_yaml_save_is_never_seen_half_written(tmp_path):
+    """A process reading a project's YAML while the main process saves it
+    (a rank starting `mp train` while rank 0 stamps the file) reads a
+    whole file: 2 s of saves in a loop against a reader thread."""
+    import threading
+    import time
+
+    from multiplanarunet_tpu_torch.hyperparameters.hparams import (
+        YAMLHParams,
+    )
+
+    path = tmp_path / "train_hparams.yaml"
+    path.write_text("build:\n  n_classes: 3\n\nfit:\n  views: 6\n"
+                    + "# padding\n" * 2000)
+    hp = YAMLHParams(path, no_log=True)
+    stop = threading.Event()
+    seen = []
+
+    def read():
+        while not stop.is_set():
+            try:
+                seen.append("fit" in YAMLHParams(
+                    path, no_log=True, no_version_control=True))
+            except Exception:  # an empty or cut file fails to parse
+                seen.append(False)
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    try:
+        deadline = time.monotonic() + 2.0
+        while time.monotonic() < deadline:
+            hp.save_current()
+    finally:
+        stop.set()
+        reader.join(timeout=30)
+    assert not reader.is_alive()
+    assert seen and all(seen), \
+        f"{seen.count(False)} of {len(seen)} reads saw no 'fit' group"
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["train_hparams.yaml"]
