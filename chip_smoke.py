@@ -18,7 +18,13 @@ arm. Then: the channel-grouped remap against the
 ungrouped one, the gather resampler on a full-width 256^3 volume, uint8
 staging, `mp predict` end to end on a two-image NIfTI project, one 512^3
 volume with the kernel held against its plain version at that volume's
-largest shapes, and training: `mp train` (a subprocess, through the mp
+largest shapes, the configuration surface the JAX package takes by name
+(`phase_config_surface`: eighteen more activations on one decoder-sized
+activation against the host, `mp predict` of a 256^3 subject through a
+PowerTransformer + mish project against predict_image, the new scalers'
+host seconds, and centered RMSprop and bf16 optimizer moments at
+train-256's step, each update against the host's), and training: `mp
+train` (a subprocess, through the mp
 entry point) of the same model on a project that the port's `mp
 init_project` makes from its MultiPlanar preset, over 3 + 1 structured
 256^3 subjects (2 epochs of 20 steps of 16, Elastic2D) on the pooled
@@ -50,7 +56,7 @@ width (the shared encoder and two heads, cf 2, depth 4, bf16, batch 16
 per task): a project from `mp init_project --model MultiTask` with task 1
 on the same subjects and task 2 on 3 + 1 structured 192^3 subjects of 4
 classes, `mp train` (a subprocess, 2 epochs of 10 steps, then one more
-with --continue_training), the parameter count against the layer shapes,
+of 2 steps with --continue_training), the parameter count against the layer shapes,
 the step's times, TFLOP/s, peak memory and device-busy share, a float32
 multi-task step on the card against the host, and `mp branch
 --copy_weights` (a subprocess). Last, the
@@ -1489,15 +1495,17 @@ def structured_subject(dev, seed, size=DIM, n_classes=N_CLASSES):
     return vol.cpu().numpy(), lab.to(torch.uint8).cpu().numpy()
 
 
-def write_project(root, views, fusion, dev):
-    """A two-image `mp predict` project in the JAX package's layout:
-    train_hparams.yaml, views.npz, a JAX-format checkpoint of the main
-    path's weights, fusion weights, and 256^3 structured images with
+def write_project(root, views, fusion, dev,
+                  subjects=("subject_1", "subject_2"), edits=()):
+    """A two-image (or `subjects`) `mp predict` project in the JAX
+    package's layout: train_hparams.yaml (PROJECT_YAML with each (old,
+    new) of `edits` replaced), views.npz, a JAX-format checkpoint of the
+    main path's weights, fusion weights, and 256^3 structured images with
     labels."""
     data = root / "data" / "test"
     for sub in ("images", "labels"):
         (data / sub).mkdir(parents=True)
-    for seed, name in enumerate(("subject_1", "subject_2")):
+    for seed, name in enumerate(subjects):
         vol, lab = structured_subject(dev, seed)
         nifti.save(vol, data / "images" / f"{name}.nii.gz", np.eye(4))
         nifti.save(lab, data / "labels" / f"{name}.nii.gz", np.eye(4))
@@ -1509,6 +1517,10 @@ def write_project(root, views, fusion, dev):
                        ("@CF@", CF), ("@DEPTH@", DEPTH),
                        ("@N_VIEWS@", N_VIEWS), ("@SPAN@", DIM - 1)):
         text = text.replace(key, str(value))
+    for old, new in edits:
+        if old not in text:
+            raise AssertionError(f"project YAML lacks {old!r}")
+        text = text.replace(old, new)
     (proj / "train_hparams.yaml").write_text(text)
     np.savez(proj / "views.npz", views)
     jax_format_unet_weights(proj / "model" / "@epoch_01_val_dice_0.10000.npz",
@@ -1519,10 +1531,12 @@ def write_project(root, views, fusion, dev):
     return proj, data
 
 
-def run_mp_predict_counted(proj, out, extra, plans, require_shear=True):
+def run_mp_predict_counted(proj, out, extra, plans, require_shear=True,
+                           images=None):
     """One `mp predict` through its entry point, with the shear-pass count
     set to 0 just before it; each predict_image it makes is wrapped to
-    read its own launches and remap modes. Gates: one call per image, each
+    read its own launches and remap modes (and to append its image to the
+    list `images`, when given). Gates: one call per image, each
     with the launches its views' plans and remap modes give
     (`expected_launches`), and, with require_shear, every view on the
     ungrouped shear remap. Returns (per-image timings, the launches of the
@@ -1531,6 +1545,8 @@ def run_mp_predict_counted(proj, out, extra, plans, require_shear=True):
     original = MultiViewPredictor.predict_image
 
     def counted(self, image, *args, **kwargs):
+        if images is not None:
+            images.append(image)
         before = shear_pass.launches
         result = original(self, image, *args, **kwargs)
         calls.append((image.identifier, shear_pass.launches - before,
@@ -2053,13 +2069,13 @@ def sampler_parts(train_seq, n_batches):
 # of EVICT_BATCH over a LimitationQueue of EVICT_LOADED images, each
 # swapped out after EVICT_ACCESS accesses. The bounded `mp train`: its
 # LimitationQueue holds BOUNDED_LOADED images (below the batch of 16, so
-# the per-image path), 1 epoch of 3 steps.
+# the per-image path), 1 epoch of 2 steps.
 AB_ROUNDS, AB_BATCHES = 5, 8
 CPU_BATCHES, CPU_IMAGE_TOL, CPU_LABEL_SHARE = 3, 1e-5, 0.9999
 EVICT_LOADED, EVICT_ACCESS, EVICT_BATCH, EVICT_BATCHES = 2, 3, 2, 12
 BOUNDED_LOADED = 2
 BOUNDED_ARGS = ["--max_loaded_images", str(BOUNDED_LOADED), "--num_access",
-                "4", "--epochs", "1", "--train_images_per_epoch", "48",
+                "4", "--epochs", "1", "--train_images_per_epoch", "32",
                 "--val_images_per_epoch", "16"]
 
 
@@ -3158,6 +3174,8 @@ def phase_3d(dev, tmp, data, dirs, card):
 MT_TASKS, DIM_T2, N_CLASSES_T2 = ["task_1", "task_2"], 192, 4
 MT_CLASSES, MT_DIMS = [N_CLASSES, N_CLASSES_T2], [DIM, DIM_T2]
 MT_EPOCHS, MT_IMAGES, MT_VAL_IMAGES = 2, 160, 32
+# The --continue_training process: one more epoch of 2 steps
+MT_CONTINUE_IMAGES, MT_CONTINUE_VAL_IMAGES = 32, 16
 
 
 def multitask_param_counts(n_classes, cf=CF, depth=DEPTH, init_filters=64,
@@ -3352,8 +3370,9 @@ def phase_multitask(dev, tmp, dirs, card):
     c_wall, _ = run_mp_script(
         ["train", "--project_dir", str(proj), "--device", str(dev),
          "--continue_training", "--no_images", "--epochs",
-         str(MT_EPOCHS + 1), "--train_images_per_epoch", str(MT_IMAGES),
-         "--val_images_per_epoch", str(MT_VAL_IMAGES)], timeout=900)
+         str(MT_EPOCHS + 1), "--train_images_per_epoch",
+         str(MT_CONTINUE_IMAGES), "--val_images_per_epoch",
+         str(MT_CONTINUE_VAL_IMAGES)], timeout=900)
     build = check_multitask_project(proj, tmp, MT_EPOCHS + 1)
     t_train = time.perf_counter() - t_phase
     shear_pass.launches = 0
@@ -3413,7 +3432,8 @@ def phase_multitask(dev, tmp, dirs, card):
         f"({100 * busy / med:.1f}%), kernels by self device time over 3 "
         f"steps:\n{table}")
     log(f"[{card}] multi-task mp train: {wall:.1f} s wall for {MT_EPOCHS} "
-        f"epochs, --continue_training {c_wall:.1f} s for one more; train "
+        f"epochs, --continue_training {c_wall:.1f} s for one more of "
+        f"{MT_CONTINUE_IMAGES // BATCH} steps; train "
         f"loop per epoch {[round(e[0], 3) for e in epochs]} s, callbacks "
         f"incl. validation {[round(e[1], 3) for e in epochs]} s; steady "
         f"epoch {steady:.3f} s vs {steps} x step median = "
@@ -4043,6 +4063,304 @@ def phase_multi_device(dev, tmp, card, proj, epochs_256, predict_proj, views,
     return paths
 
 
+# ------------------------------------------------------- config surface
+# The configuration surface the JAX package takes by name: its activation
+# names on one decoder activation of predict-256's U-Net (a 46-plane chunk,
+# 96 channels: the first level's 90 filters lane-padded to 8, 256^2), each
+# in float32 against the plain float32 version on the host within
+# CS_ACT_TOL (relative past 1: |card - host| <= CS_ACT_TOL * max(1,
+# |host|); the same NaN and infinities); `mp predict` of one structured
+# 256^3 subject through a PowerTransformer + mish project; the new
+# scalers' host seconds; and the optimizer options, each update on the
+# card against the host's from the same state and gradients.
+CS_ACTIVATIONS = (
+    "celu", "hard_sigmoid", "hard_silu", "hard_swish", "hard_tanh",
+    "identity", "log1mexp", "log_sigmoid", "log_softmax", "mish",
+    "normalize", "relu6", "soft_sign", "softmax", "sparse_plus",
+    "sparse_sigmoid", "squareplus", "standardize")
+CS_ACT_SHAPE, CS_ACT_TOL, CS_ACT_REPS = (46, 96, DIM, DIM), 1e-6, 5
+CS_OPTIMIZERS = (("Adam", {}),
+                 ("RMSprop", {"centered": True}),
+                 ("Adam", {"mu_dtype": "bfloat16"}),
+                 ("Lion", {"mu_dtype": "bfloat16"}),
+                 ("SGD", {"momentum": 0.9, "accumulator_dtype": "bfloat16"}))
+CS_LR, CS_STATE_TOL, CS_STEPS = 5e-5, 1e-6, 6
+CS_PROJECT_EDITS = (('scaler: "RobustScaler"', 'scaler: "PowerTransformer"'),
+                    (f"  depth: {DEPTH}\n",
+                     f"  depth: {DEPTH}\n  activation: \"mish\"\n"))
+
+
+def cs_activations(dev, card):
+    """(a) Each activation name in float32 on the card against the same
+    function on the host, on one randn * 3 tensor of CS_ACT_SHAPE, the
+    difference taken on the card; ms per call (CUDA events) in float32 and
+    bf16 beside relu's."""
+    from multiplanarunet_tpu_torch.models.unet import get_activation
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(CS_ACT_SHAPE, generator=gen, device=dev) * 3.0
+    x_bf = x.to(torch.bfloat16)
+    x_host = x.cpu()
+    rows, worst = [], 0.0
+    for name in ("relu",) + CS_ACTIVATIONS:
+        fn = get_activation(name)
+        ms = cuda_ms(lambda: fn(x), CS_ACT_REPS)
+        ms_bf = cuda_ms(lambda: fn(x_bf), CS_ACT_REPS)
+        if fn(x_bf).dtype != torch.bfloat16:
+            raise AssertionError(f"{name} left bf16")
+        got = fn(x)
+        want = fn(x_host).to(dev)
+        finite = torch.isfinite(want)
+        same_rest = (torch.equal(finite, torch.isfinite(got)) and torch.equal(
+            torch.nan_to_num(want[~finite]), torch.nan_to_num(got[~finite])))
+        err = float(torch.where(finite, (got - want).abs()
+                                / want.abs().clamp_min(1.0), 0.0).max())
+        del got, want, finite
+        worst = max(worst, err)
+        rows.append(f"{name} {ms:.3f} / {ms_bf:.3f} ms, err {err:.3g}")
+        if not (err <= CS_ACT_TOL and same_rest):
+            raise AssertionError(f"activation {name}: card vs host {err:.3g}"
+                                 f" (<= {CS_ACT_TOL:g}), the same non-finite "
+                                 f"values: {same_rest}")
+    log(f"[{card}] (a) activations on {CS_ACT_SHAPE} (randn * 3), float32 / "
+        f"bf16 ms per call (CUDA events, {CS_ACT_REPS} calls), float32 "
+        f"error vs the host (relative past 1, <= {CS_ACT_TOL:g}, non-finite "
+        f"values equal): " + "; ".join(rows))
+    return worst
+
+
+def cs_scaler_seconds(vol):
+    """(c) Host seconds of fit + transform of the new scalers (beside the
+    PowerTransformer timed on the predict subject): box-cox on every 4th
+    voxel of the subject per axis, + 1 (strictly positive; scipy's
+    box-cox likelihood takes over a minute for a whole 256^3 subject,
+    linear in the voxels), the QuantileTransformer's normal
+    output, Normalizer, Binarizer, FunctionTransformer (log1p), and the
+    encoders on the subject's label-like rounding (intensity / 20)."""
+    from multiplanarunet_tpu_torch.preprocessing.scaling import get_scaler
+
+    coded = np.round(vol / 20.0)
+    cases = ((f"PowerTransformer box-cox ({DIM // 4}^3)",
+              vol[::4, ::4, ::4] + 1.0, "PowerTransformer",
+              {"method": "box-cox"}),
+             ("QuantileTransformer normal", vol, "QuantileTransformer",
+              {"output_distribution": "normal"}),
+             ("Normalizer", vol, "Normalizer", {}),
+             ("Binarizer", vol, "Binarizer", {"threshold": 50.0}),
+             ("FunctionTransformer log1p", vol, "FunctionTransformer",
+              {"func": np.log1p}),
+             ("LabelEncoder", coded, "LabelEncoder", {}),
+             ("OrdinalEncoder", coded, "OrdinalEncoder", {}))
+    secs, out = {}, {}
+    for label, data, name, kwargs in cases:
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        scaler = get_scaler(name, **kwargs).fit(data)
+        result = scaler.transform(data)
+        secs[label] = time.perf_counter() - t0
+        if result.shape != data.shape or not np.isfinite(result).all():
+            raise AssertionError(f"{label}: {result.shape}, finite "
+                                 f"{np.isfinite(result).all()}")
+        out[label] = scaler
+    lam = float(out[cases[0][0]].channels[0].lambda_)
+    return secs, lam
+
+
+def cs_predict(dev, tmp, views, fusion, plans, card):
+    """(b) `mp predict` of one structured 256^3 subject through a project
+    whose YAML says `scaler: PowerTransformer` and `activation: mish`
+    (run_mp_predict_counted: 72 launches, gated), the PowerTransformer's
+    fit in its load timed ((c)); then in process the model built from
+    that YAML (mish, gated) and `predict_image` on that subject's
+    ImagePair, scaled by the port's PowerTransformer as mp predict fitted
+    it (one fit: about 50 s of host time at 256^3 with scipy 1.18).
+    Gate: the class maps equal in every voxel. Returns (launches, the
+    subject's volume)."""
+    from multiplanarunet_tpu_torch.preprocessing import scaling
+
+    root = Path(tmp) / "config_surface"
+    root.mkdir()
+    proj, data = write_project(root, views, fusion, dev,
+                               subjects=("subject_1",),
+                               edits=CS_PROJECT_EDITS)
+    fits, images = [], []
+    original_fit = scaling.MultiChannelScaler.fit
+
+    def timed_fit(self, X):
+        t0 = time.perf_counter()
+        result = original_fit(self, X)
+        fits.append(time.perf_counter() - t0)
+        return result
+
+    scaling.MultiChannelScaler.fit = timed_fit
+    try:
+        t0 = time.perf_counter()
+        timings, launches = run_mp_predict_counted(proj, "pred_power", [],
+                                                   plans, images=images)
+        wall = time.perf_counter() - t0
+    finally:
+        scaling.MultiChannelScaler.fit = original_fit
+    if launches != 72:
+        raise AssertionError(f"mp predict (PowerTransformer): {launches} "
+                             f"shear-pass launches, not 72")
+    t = timings["subject_1"]
+
+    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
+    model = load_unet_weights(
+        build_model(hparams["build"], mixed_precision=True,
+                    logger=ScreenLogger(False)),
+        get_best_model(proj / "model")).to(dev)
+    if model.activation != "mish" or hparams["fit"]["scaler"] != \
+            "PowerTransformer":
+        raise AssertionError(f"project built {model.activation}, scaler "
+                             f"{hparams['fit']['scaler']}")
+    predictor = MultiViewPredictor(
+        model, sample_dim=DIM, real_space_span=hparams["fit"]["real_space_span"],
+        n_classes=N_CLASSES, device=dev)
+    (pair,) = images
+    scaler = pair.scaler
+    if len(fits) != 1 or scaler.scaler_name != "PowerTransformer":
+        raise AssertionError(f"mp predict fitted {len(fits)} scalers, "
+                             f"{scaler}")
+    vol = pair.image
+    t0 = time.perf_counter()
+    scaler.transform(vol)
+    transform_s = time.perf_counter() - t0
+    lam = float(scaler.channels[0].lambda_)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cls, _ = predictor.predict_image(pair, views, fusion_params=fusion,
+                                     return_per_view=False)
+    predict_s = time.perf_counter() - t0
+    pred = nifti.load(proj / "pred_power" / "nii_files" / "subject_1" /
+                      "PRED.nii.gz").get_raw_data()
+    agree = float((pred == cls).mean())
+    log(f"[{card}] (b) mp predict, PowerTransformer + mish, one structured "
+        f"{DIM}^3 subject: {wall:.1f} s wall; host load (decode + 1pct + "
+        f"PowerTransformer fit and transform) {t['load']:.3f} s, "
+        f"predict_image {t['predict']:.3f} s, save {t['save']:.3f} s; "
+        f"shear-pass launches {launches} (72); in process predict_image "
+        f"{predict_s:.3f} s; class map equal to mp predict's in "
+        f"{agree:.7f} of voxels (gate: all)")
+    import scipy
+
+    log(f"[{card}] (c) PowerTransformer (yeo-johnson) on that subject: fit "
+        f"{fits[0]:.3f} s (in mp predict's load), transform {transform_s:.3f}"
+        f" s, lambda {lam:.7g} (numpy {np.__version__}, scipy "
+        f"{scipy.__version__})")
+    if pred.shape != cls.shape or not np.array_equal(pred, cls):
+        raise AssertionError("mp predict (PowerTransformer) differs from "
+                             "predict_image")
+    pair.unload()
+    del predictor, model
+    torch.cuda.empty_cache()
+    return launches, vol
+
+
+def cs_check_update(name, kwargs, opt, gen, card):
+    """One more update of `opt` (on the card, after its timed steps) and
+    of a host copy of it (parameters, state and count copied) from the
+    same random gradients. Gates: each float32 tensor (the parameters,
+    each float32 moment) within CS_STATE_TOL of the host's relative to its
+    largest magnitude (a CUDA division by a scalar multiplies by the
+    reciprocal, one rounding more than the host's, so a parameter that an
+    update brings near 0 can differ by far more than 1e-6 of itself), each
+    bf16 moment within one bf16 ulp. Returns the worst relative float32
+    difference."""
+    host_params = [torch.nn.Parameter(p.detach().cpu())
+                   for p in opt.packed.params]
+    host = init_optimizer(name, host_params, lr=CS_LR, **kwargs)
+    for key, value in opt.state.items():
+        host.state[key].copy_(value.cpu())
+    host.count = opt.count
+    for p, q in zip(opt.packed.params, host_params):
+        g = torch.randn(q.shape, generator=gen) * 1e-3
+        q.grad = g
+        p.grad = g.to(p.device)
+    opt.step()
+    host.step()
+    worst = 0.0
+    pairs = [("params", opt.packed.data, host.packed.data)] + [
+        (k, v, host.state[k]) for k, v in opt.state.items()]
+    for key, card_t, host_t in pairs:
+        # the difference taken on the card, in float64
+        a, b = card_t.double(), host_t.to(card_t.device).double()
+        if card_t.dtype == torch.bfloat16:
+            # one bf16 ulp of |b| in [2^(e-1), 2^e): 2^(e-8)
+            exp = torch.frexp(b.abs()).exponent
+            ulp = torch.ldexp(torch.ones_like(b), exp - 8)
+            if not bool(((a - b).abs() <= ulp).all()):
+                raise AssertionError(f"{name} {kwargs}: bf16 {key} more "
+                                     f"than one ulp from the host's")
+            continue
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if rel > CS_STATE_TOL:
+            raise AssertionError(f"{name} {kwargs}: {key} differs from the "
+                                 f"host's by {rel:.3g} relative")
+    return worst
+
+
+def cs_optimizers(dev, card):
+    """(d) train-256's step (bf16 U-Net cf 2, depth 4, batch 16 of 256^2)
+    under each of CS_OPTIMIZERS: its median ms (CUDA events, CS_STEPS
+    steps after 2), the optimizer state's bytes, and one update card vs
+    host (cs_check_update)."""
+    gen = torch.Generator().manual_seed(21)
+    batch = (torch.randn(BATCH, DIM, DIM, N_CHANNELS, generator=gen).to(dev),
+             torch.randint(0, N_CLASSES, (BATCH, DIM, DIM, 1),
+                           generator=gen).to(dev),
+             np.ones(BATCH, np.float32))
+    base = glorot_init(UNet(N_CLASSES, N_CHANNELS, DEPTH, CF,
+                            dtype=torch.bfloat16), seed=0)
+    rows = []
+    for name, kwargs in CS_OPTIMIZERS:
+        model = copy.deepcopy(base).to(dev).train()
+        opt = init_optimizer(name, model.parameters(), lr=CS_LR, **kwargs)
+        step = TrainStep(model, opt, SparseCategoricalCrossentropy(), {})
+        med, q1, q3 = step_time_ms(step, [batch], warmup=2, timed=CS_STEPS)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in opt.state.values())
+        dtypes = sorted({str(t.dtype).split(".")[-1]
+                         for t in opt.state.values()})
+        err = cs_check_update(name, kwargs, opt, gen, card)
+        rows.append(f"{name} {kwargs or '(float32 state)'}: step {med:.2f} "
+                    f"ms ({q1:.2f} / {q3:.2f}), state {state_bytes / 2**20:.1f}"
+                    f" MiB {dtypes}, card vs host {err:.3g}")
+        del step, opt, model
+        torch.cuda.empty_cache()
+    log(f"[{card}] (d) train step (bf16, batch {BATCH}, {DIM}^2, cf {CF}, "
+        f"depth {DEPTH}) per optimizer, median (quartiles) over {CS_STEPS} "
+        f"steps "
+        f"after 2; the update card vs host within {CS_STATE_TOL:g} relative "
+        f"(float32) and one ulp (bf16 moments): " + "; ".join(rows))
+
+
+def phase_config_surface(dev, tmp, views, fusion, plans, card):
+    """The configuration surface the JAX package takes by name, at full
+    width: (a) cs_activations, (b) cs_predict, (c) cs_scaler_seconds, (d)
+    cs_optimizers. Returns (b)'s shear-pass launches (72)."""
+    marks = [time.perf_counter()]
+    torch.cuda.empty_cache()
+    err = cs_activations(dev, card)
+    marks.append(time.perf_counter())
+    launches, vol = cs_predict(dev, tmp, views, fusion, plans, card)
+    marks.append(time.perf_counter())
+    secs, lam = cs_scaler_seconds(vol)
+    log(f"(c) scalers' host seconds (fit + transform, one {DIM}^3 subject): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; box-cox lambda {lam:.7g}")
+    del vol
+    marks.append(time.perf_counter())
+    cs_optimizers(dev, card)
+    marks.append(time.perf_counter())
+    parts = ", ".join(f"({k}) {b - a:.1f} s"
+                      for k, a, b in zip("abcd", marks, marks[1:]))
+    log(f"config surface phase: {marks[-1] - marks[0]:.1f} s ({parts}; "
+        f"activations' worst float32 error {err:.3g})")
+    return launches
+
+
 def main():
     dev = require_cuda()
     torch.manual_seed(0)
@@ -4074,6 +4392,8 @@ def main():
         e, paths[f"{DIM_LARGE}^3"] = phase_large(dev, predictor.model, views, fusion)
         err = max(err, e)
         del predictor
+        paths["mp predict (PowerTransformer, mish)"] = phase_config_surface(
+            dev, tmp, views, fusion, plans, card)
         proj, dirs, epochs_256 = phase_training(dev, tmp, card)
         paths["mp predict (QuantileTransformer)"] = phase_callbacks_tools(
             dev, tmp, proj, dirs, epochs_256, card)

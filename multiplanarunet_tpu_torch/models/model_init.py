@@ -2,7 +2,8 @@
 continue-training restore.
 
 Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet`,
-the `UNet3D` and the `MultiTaskUNet2D`: the model from the build group,
+the `UNet3D`, the `MultiTaskUNet2D` and the `FusionModel`: the model from
+the build group,
 its weights from the JAX package's checkpoint files, and
 `model_initializer` for `mp train` (a fresh glorot-uniform init from a
 seed, `--continue_training` from the last '@epoch_NN' checkpoint with the
@@ -19,6 +20,7 @@ import torch
 
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
+from multiplanarunet_tpu_torch.models.fusion_model import FusionModel
 from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
@@ -30,7 +32,7 @@ from multiplanarunet_tpu_torch.utils.utils import (
 )
 
 MODELS = {"UNet": UNet, "UNet3D": UNet3D,
-          "MultiTaskUNet2D": MultiTaskUNet2D}
+          "MultiTaskUNet2D": MultiTaskUNet2D, "FusionModel": FusionModel}
 
 
 def _build_kwargs(cls, build):
@@ -49,8 +51,12 @@ class UnsupportedModelError(ValueError):
 
 
 def build_model(build_hparams, mixed_precision=False, logger=None):
-    """A UNet, UNet3D or MultiTaskUNet2D (eval mode, on the CPU) from the
-    'build' group; bf16 compute when mixed_precision."""
+    """A UNet, UNet3D, MultiTaskUNet2D or FusionModel (eval mode, on the
+    CPU) from the 'build' group; bf16 compute when mixed_precision (for
+    the classes that have a compute dtype). `flatten_output` makes the
+    U-Nets return (B, prod(spatial), n_classes). Every U-Net pads 'same':
+    a `padding` of another value is logged and ignored, as the JAX models
+    store that field and never read it."""
     logger = logger or ScreenLogger()
     build = dict(build_hparams)
     name = build.get("model_class_name")
@@ -58,16 +64,15 @@ def build_model(build_hparams, mixed_precision=False, logger=None):
         raise UnsupportedModelError(
             f"model_class_name {name!r} is not ported to PyTorch yet (the "
             f"port builds {sorted(MODELS)})")
-    if str(build.get("padding", "same")).lower() != "same":
-        raise UnsupportedModelError(
-            f"padding {build['padding']!r}: the port's U-Nets pad 'same'")
-    if build.get("flatten_output"):
-        raise UnsupportedModelError(
-            "flatten_output: the port's U-Nets return (B, C, *spatial)")
-    kwargs = _build_kwargs(MODELS[name], build)
-    if mixed_precision:
+    if str(build.get("padding") or "same").lower() != "same":
+        logger.warn(f"padding {build['padding']!r} in the build group: the "
+                    f"U-Nets pad 'same' whatever it says, as in the JAX "
+                    f"package")
+    cls = MODELS[name]
+    kwargs = _build_kwargs(cls, build)
+    if mixed_precision and "dtype" in inspect.signature(cls).parameters:
         kwargs["dtype"] = torch.bfloat16
-    model = MODELS[name](**kwargs).eval()
+    model = cls(**kwargs).eval()
     logger(f"Built model: {name}({kwargs})")
     return model
 

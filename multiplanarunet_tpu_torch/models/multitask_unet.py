@@ -33,8 +33,8 @@ from multiplanarunet_tpu_torch.models.unet import (
     ConvBNBlock,
     count_params,
     crop_to_match,
+    flattened,
     get_activation,
-    output_activation,
 )
 
 
@@ -92,12 +92,14 @@ class _TaskDecoder(nn.Module):
 
 class MultiTaskUNet2D(nn.Module):
     """forward: a list of (B_t, n_channels, H_t, W_t) per task -> a list
-    of (B_t, n_classes[t], H_t, W_t) float32 outputs of out_activation."""
+    of (B_t, n_classes[t], H_t, W_t) float32 outputs of out_activation;
+    with flatten_output each (B_t, H_t * W_t, n_classes[t]), as the JAX
+    model returns them."""
 
     def __init__(self, task_names, n_classes, n_channels, dim=None, depth=4,
                  complexity_factor=1.0, init_filters=64, kernel_size=3,
                  activation="relu", out_activation="softmax",
-                 dtype=torch.float32):
+                 dtype=torch.float32, flatten_output=False):
         super().__init__()
         self.task_names = [str(t) for t in task_names]
         self.n_classes = [int(n) for n in n_classes]
@@ -115,8 +117,9 @@ class MultiTaskUNet2D(nn.Module):
                 f"encoder; got {tuple(self.n_channels)}")
         self.depth = int(depth)
         self.dtype = dtype
+        self.flatten_output = bool(flatten_output)
         act = get_activation(activation)
-        out_act = output_activation(out_activation)
+        out_act = get_activation(out_activation)
         cf = float(np.sqrt(complexity_factor))
         k = int(kernel_size)
         self.encoder = _SharedEncoder(self.n_channels[0], self.depth, cf,
@@ -142,5 +145,6 @@ class MultiTaskUNet2D(nn.Module):
         outputs = []
         for name, x in zip(self.task_names, inputs):
             feats, skips = self.encoder(x.to(self.dtype))
-            outputs.append(getattr(self, f"task_{name}")(feats, skips))
+            out = getattr(self, f"task_{name}")(feats, skips)
+            outputs.append(flattened(out) if self.flatten_output else out)
         return outputs

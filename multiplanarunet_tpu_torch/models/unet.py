@@ -63,8 +63,38 @@ def _identity(x):
     return x
 
 
-# flax.linen / jax.nn activation names -> torch (flax's gelu is the tanh
-# approximation; leaky_relu's default slope is 0.01 in both)
+def _softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def _hard_sigmoid(x):
+    return _relu6(x + 3.0) / 6.0
+
+
+def _hard_silu(x):
+    return x * _hard_sigmoid(x)
+
+
+def _standardize(x):
+    """jax.nn.standardize over the channel axis: the variance as
+    E[x^2] - E[x]^2 clipped at 0, epsilon 1e-5."""
+    mean = x.mean(dim=1, keepdim=True)
+    var = torch.clamp_min((x * x).mean(dim=1, keepdim=True) - mean * mean,
+                          0.0)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+# flax.linen / jax.nn activation names -> torch, each in the jax source's
+# form and constants (flax's gelu is the tanh approximation; leaky_relu's
+# slope is 0.01, celu's alpha 1, squareplus's b 4). The JAX models apply
+# softmax, log_softmax, standardize and normalize (flax's name for
+# standardize) over the last axis of NHWC; here over the channel axis,
+# dim 1 of NCHW and NCDHW.
 _ACTIVATIONS = {
     "relu": F.relu,
     "elu": F.elu,
@@ -77,25 +107,54 @@ _ACTIVATIONS = {
     "softplus": F.softplus,
     "leaky_relu": F.leaky_relu,
     "linear": _identity,
+    "identity": _identity,
     None: _identity,
+    "celu": lambda x: (torch.clamp_min(x, 0.0)
+                       + torch.expm1(torch.clamp_max(x, 0.0))),
+    "relu6": _relu6,
+    "hard_sigmoid": _hard_sigmoid,
+    "hard_silu": _hard_silu,
+    "hard_swish": _hard_silu,
+    "hard_tanh": lambda x: torch.clamp(x, -1.0, 1.0),
+    "log1mexp": lambda x: torch.where(x < float(np.log(np.float32(2.0))),
+                                      torch.log(-torch.expm1(-x)),
+                                      torch.log1p(-torch.exp(-x))),
+    "log_sigmoid": lambda x: -_softplus(-x),
+    "mish": lambda x: x * torch.tanh(_softplus(x)),
+    "soft_sign": lambda x: x / (torch.abs(x) + 1.0),
+    "sparse_plus": lambda x: torch.where(
+        x <= -1.0, 0.0, torch.where(x >= 1.0, x, (x + 1.0) ** 2 / 4.0)),
+    "sparse_sigmoid": lambda x: 0.5 * torch.clamp(x + 1.0, 0.0, 2.0),
+    "squareplus": lambda x: (x + torch.sqrt(x * x + 4.0)) / 2.0,
+    "softmax": lambda x: torch.softmax(x, dim=1),
+    "log_softmax": lambda x: torch.log_softmax(x, dim=1),
+    "standardize": _standardize,
+    "normalize": _standardize,
+}
+
+# Names `getattr(flax.linen, name)` resolves in the JAX package that are
+# not activations: decorators and boxing helpers that return an array
+# unchanged only by accident. The port refuses them.
+NOT_ACTIVATIONS = {
+    "add_metadata_axis": "a decorator factory for a module's "
+                         "partitioning metadata",
+    "combine_masks": "combines attention masks (a None-filtering helper)",
+    "compact": "the module-method decorator",
+    "nowrap": "the module-method decorator that skips wrapping",
+    "unbox": "unboxes partitioned parameter metadata",
 }
 
 
 def get_activation(name):
-    """The torch function of a JAX-package activation name."""
+    """The torch function of a JAX-package activation name (the hidden and
+    the out activation alike)."""
     if name not in _ACTIVATIONS:
+        why = (f": {NOT_ACTIVATIONS[name]}, not an activation"
+               if name in NOT_ACTIVATIONS else "")
         raise UnsupportedActivationError(
-            f"Activation {name!r} is not available in the PyTorch port "
-            f"(supported: {sorted(k for k in _ACTIVATIONS if k)})")
+            f"Activation {name!r} is not available in the PyTorch port"
+            f"{why} (supported: {sorted(k for k in _ACTIVATIONS if k)})")
     return _ACTIVATIONS[name]
-
-
-def output_activation(name):
-    """The out activation over NCHW logits: softmax over the class axis,
-    else an elementwise activation."""
-    if name == "softmax":
-        return lambda x: torch.softmax(x, dim=1)
-    return get_activation(name)
 
 
 class _CastConv:
@@ -353,6 +412,12 @@ class SubpixelUpConv(_UpConv):
         return y + self.bias.to(x.dtype).view((1, -1) + (1,) * n)
 
 
+def flattened(out):
+    """(B, C, *spatial) -> (B, prod(spatial), C), the JAX models'
+    `flatten_output` reshape of their channels-last output."""
+    return out.movedim(1, -1).reshape(out.shape[0], -1, out.shape[1])
+
+
 def crop_to_match(skip, up):
     """Center-crop `skip`'s spatial dims (channels first, any number of
     them) down to `up`'s. Returns (cropped, crops) with crops the (n, 2)
@@ -373,7 +438,8 @@ class UNet(nn.Module):
 
     forward: (B, n_channels, *spatial) -> (B, n_classes, *spatial')
     float32 outputs of out_activation (probabilities for the default
-    softmax)."""
+    softmax); with flatten_output, (B, prod(spatial'), n_classes) as the
+    JAX model returns them."""
 
     ndim = 2
 
@@ -381,7 +447,8 @@ class UNet(nn.Module):
                  init_filters=64, kernel_size=3, activation="relu",
                  out_activation="softmax", dtype=torch.float32,
                  subpixel_decoder=False, dilated_upconv=False,
-                 predict_fused_bn=False, predict_skip_bn=False, lane_pad=0):
+                 predict_fused_bn=False, predict_skip_bn=False, lane_pad=0,
+                 flatten_output=False):
         super().__init__()
         self.n_classes = int(n_classes)
         self.n_channels = int(n_channels)
@@ -396,8 +463,9 @@ class UNet(nn.Module):
         self.predict_fused_bn = bool(predict_fused_bn)
         self.predict_skip_bn = bool(predict_skip_bn)
         self.lane_pad = int(lane_pad)
+        self.flatten_output = bool(flatten_output)
         self.act = get_activation(activation)
-        self.out_act = output_activation(out_activation)
+        self.out_act = get_activation(out_activation)
         k = self.kernel_size = int(kernel_size)
 
         n = self.ndim
@@ -491,7 +559,8 @@ class UNet(nn.Module):
             x = getattr(self, f"decoder_L{i}")(torch.cat([skip, x], dim=1))
         self.label_crop = label_crop
         # The out conv runs in float32 whatever the compute dtype
-        return self.out_act(self.out_conv(x.float()))
+        out = self.out_act(self.out_conv(x.float()))
+        return flattened(out) if self.flatten_output else out
 
     @property
     def receptive_field(self):

@@ -31,9 +31,10 @@ class UNet3D(UNet):
                  complexity_factor=1.0, init_filters=64, kernel_size=3,
                  activation="relu", out_activation="softmax",
                  dtype=torch.float32, subpixel_decoder=False,
-                 dilated_upconv=False):
+                 dilated_upconv=False, flatten_output=False):
         super().__init__(n_classes, n_channels, depth, complexity_factor,
                          init_filters, kernel_size, activation,
                          out_activation, dtype,
                          subpixel_decoder=subpixel_decoder,
-                         dilated_upconv=dilated_upconv)
+                         dilated_upconv=dilated_upconv,
+                         flatten_output=flatten_output)

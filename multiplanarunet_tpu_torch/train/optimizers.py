@@ -14,6 +14,14 @@ the same order (optax 0.2.6: `scale_by_adam`, `scale_by_adamax`,
 - Lamb (eps 1e-6) and Lion (b2 0.99, weight_decay 1e-3) have no
   torch.optim class.
 
+RMSprop takes `centered` (optax's scale_by_stddev). Adam, Nadam, AdamW and
+Lion take `mu_dtype`, SGD `accumulator_dtype`: the first moment (the
+momentum trace) is stored in that dtype ("float32", "bfloat16",
+"float16" or None for the parameters' float32), and, as optax does, each
+step computes the new moment in float32 from the stored one and casts it
+only to store it; the bias-corrected moment and the update use the
+float32 value.
+
 Every hyperparameter is held as a float32 value, as inject_hyperparams
 holds it, and the learning rate is settable between steps
 (`learning_rate`), as ReduceLROnPlateau needs.
@@ -47,8 +55,22 @@ def _bias_correction(decay, count):
 
 
 class UnsupportedOptimizerOptionError(ValueError):
-    """An optax option the port does not implement (a non-default dtype, a
-    weight-decay mask, centered RMSprop)."""
+    """An optax option the port does not implement (a weight-decay mask,
+    a moment dtype other than float32, bfloat16 and float16)."""
+
+
+_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _moment_dtype(name, value):
+    """The torch dtype of a mu_dtype / accumulator_dtype string (None:
+    the parameters' float32)."""
+    if value not in _DTYPES:
+        raise UnsupportedOptimizerOptionError(
+            f"{name}={value!r} is not supported by the PyTorch port (it "
+            f"takes {sorted(k for k in _DTYPES if k)} or None)")
+    return _DTYPES[value]
 
 
 class PackedParameters:
@@ -141,11 +163,13 @@ class Optimizer:
             p.grad = None
 
 
-def _check_none(name, value):
-    if value is not None:
+def _check_no_mask(mask):
+    if mask is not None:
         raise UnsupportedOptimizerOptionError(
-            f"{name}={value!r} is not supported by the PyTorch port "
-            f"(float32 state, no mask)")
+            f"mask={mask!r} is not supported by the PyTorch port: optax "
+            f"takes a callable or a pytree over flax's parameter tree, which "
+            f"a YAML cannot express and which the port's parameters, a "
+            f"list of tensors, do not have")
 
 
 class Adam(Optimizer):
@@ -156,22 +180,24 @@ class Adam(Optimizer):
 
     def __init__(self, params, learning_rate, b1=0.9, b2=0.999, eps=1e-8,
                  eps_root=0.0, mu_dtype=None, nesterov=None):
-        _check_none("mu_dtype", mu_dtype)
+        self.mu_dtype = _moment_dtype("mu_dtype", mu_dtype)
         self.b1, self.b2 = _f32(b1), _f32(b2)
         self.eps, self.eps_root = _f32(eps), _f32(eps_root)
         self.nesterov = self._nesterov if nesterov is None else bool(nesterov)
         super().__init__(params, learning_rate)
 
     def _init_state(self, p):
-        return {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+        return {"mu": torch.zeros_like(p, dtype=self.mu_dtype),
+                "nu": torch.zeros_like(p)}
 
     def _decay_weights(self, u, p):
         return u
 
     def _updates(self, g, p):
         b1, b2 = self.b1, self.b2
-        mu, nu = self.state["mu"], self.state["nu"]
-        mu.copy_(_f32(1 - np.float32(b1)) * g + b1 * mu)
+        nu = self.state["nu"]
+        mu = _f32(1 - np.float32(b1)) * g + b1 * self.state["mu"].float()
+        self.state["mu"].copy_(mu)
         nu.copy_(_f32(1 - np.float32(b2)) * (g * g) + b2 * nu)
         count = self.count + 1
         if self.nesterov:
@@ -199,7 +225,7 @@ class AdamW(Adam):
 
     def __init__(self, params, learning_rate, weight_decay=1e-4, mask=None,
                  **kwargs):
-        _check_none("mask", mask)
+        _check_no_mask(mask)
         self.weight_decay = _f32(weight_decay)
         super().__init__(params, learning_rate, **kwargs)
 
@@ -213,13 +239,16 @@ class SGD(Optimizer):
 
     def __init__(self, params, learning_rate, momentum=None, nesterov=False,
                  accumulator_dtype=None):
-        _check_none("accumulator_dtype", accumulator_dtype)
+        self.accumulator_dtype = _moment_dtype("accumulator_dtype",
+                                               accumulator_dtype)
         self.momentum = None if momentum is None else _f32(momentum)
         self.nesterov = bool(nesterov)
         super().__init__(params, learning_rate)
 
     def _init_state(self, p):
-        return {} if self.momentum is None else {"trace": torch.zeros_like(p)}
+        if self.momentum is None:
+            return {}
+        return {"trace": torch.zeros_like(p, dtype=self.accumulator_dtype)}
 
     def _updates(self, g, p):
         if self.momentum is None:
@@ -228,10 +257,12 @@ class SGD(Optimizer):
 
 
 def _trace(u, trace, decay, nesterov):
-    """optax.trace: trace = u + decay * trace; the update is the new trace
-    (nesterov: u + decay * new trace)."""
-    trace.copy_(u + decay * trace)
-    return u + decay * trace if nesterov else trace.clone()
+    """optax.trace: new = u + decay * trace in float32, stored in the
+    trace's dtype; the update is the float32 new trace (nesterov: u +
+    decay * new)."""
+    new = u + decay * trace.float()
+    trace.copy_(new)
+    return u + decay * new if nesterov else new
 
 
 class RMSprop(Optimizer):
@@ -243,9 +274,7 @@ class RMSprop(Optimizer):
     def __init__(self, params, learning_rate, decay=0.9, eps=1e-8,
                  initial_scale=0.0, eps_in_sqrt=True, centered=False,
                  momentum=None, nesterov=False, bias_correction=False):
-        if centered:
-            raise UnsupportedOptimizerOptionError(
-                "centered RMSprop is not supported by the PyTorch port")
+        self.centered = bool(centered)
         self.decay, self.eps = _f32(decay), _f32(eps)
         self.initial_scale = _f32(initial_scale)
         self.eps_in_sqrt = bool(eps_in_sqrt)
@@ -256,16 +285,25 @@ class RMSprop(Optimizer):
 
     def _init_state(self, p):
         state = {"nu": torch.full_like(p, self.initial_scale)}
+        if self.centered:
+            state["mu"] = torch.zeros_like(p)
         if self.momentum is not None:
             state["trace"] = torch.zeros_like(p)
         return state
 
     def _updates(self, g, p):
+        """optax's scale_by_rms, or scale_by_stddev when centered (the
+        variance nu - mu^2 of the bias-corrected moments in the root)."""
         nu = self.state["nu"]
         d = self.decay
         nu.copy_(_f32(1 - np.float32(d)) * (g * g) + d * nu)
-        nu_hat = (nu / _bias_correction(d, self.count + 1)
-                  if self.bias_correction else nu)
+        bc = _bias_correction(d, self.count + 1)
+        nu_hat = nu / bc if self.bias_correction else nu
+        if self.centered:
+            mu = self.state["mu"]
+            mu.copy_(_f32(1 - np.float32(d)) * g + d * mu)
+            mu_hat = mu / bc if self.bias_correction else mu
+            nu_hat = nu_hat - mu_hat * mu_hat
         if self.eps_in_sqrt:
             scaling = torch.rsqrt(nu_hat + self.eps)
         else:
@@ -330,7 +368,7 @@ class Lamb(Adam):
 
     def __init__(self, params, learning_rate, b1=0.9, b2=0.999, eps=1e-6,
                  eps_root=0.0, weight_decay=0.0, mask=None):
-        _check_none("mask", mask)
+        _check_no_mask(mask)
         self.weight_decay = _f32(weight_decay)
         super().__init__(params, learning_rate, b1=b1, b2=b2, eps=eps,
                          eps_root=eps_root)
@@ -355,19 +393,20 @@ class Lion(Optimizer):
 
     def __init__(self, params, learning_rate, b1=0.9, b2=0.99, mu_dtype=None,
                  weight_decay=1e-3, mask=None):
-        _check_none("mu_dtype", mu_dtype)
-        _check_none("mask", mask)
+        _check_no_mask(mask)
+        self.mu_dtype = _moment_dtype("mu_dtype", mu_dtype)
         self.b1, self.b2 = _f32(b1), _f32(b2)
         self.weight_decay = _f32(weight_decay)
         super().__init__(params, learning_rate)
 
     def _init_state(self, p):
-        return {"mu": torch.zeros_like(p)}
+        return {"mu": torch.zeros_like(p, dtype=self.mu_dtype)}
 
     def _updates(self, g, p):
-        mu = self.state["mu"]
+        mu = self.state["mu"].float()
         u = torch.sign(_f32(1 - np.float32(self.b1)) * g + self.b1 * mu)
-        mu.copy_(_f32(1 - np.float32(self.b2)) * g + self.b2 * mu)
+        self.state["mu"].copy_(_f32(1 - np.float32(self.b2)) * g
+                               + self.b2 * mu)
         return u + self.weight_decay * p
 
 

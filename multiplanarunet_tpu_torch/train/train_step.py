@@ -71,6 +71,13 @@ class TrainStep:
 
     def __init__(self, model, optimizer, loss_obj, metric_fns, l1_reg=0.0,
                  l2_reg=0.0):
+        if getattr(model, "flatten_output", False):
+            # The JAX package's step fails here too: its losses broadcast
+            # (B, *spatial, 1) targets against the flattened output
+            raise ValueError(
+                "flatten_output: the model returns (B, prod(spatial), "
+                "n_classes), which the losses cannot hold against (B, "
+                "*spatial, 1) targets; train without flatten_output")
         self.model = model
         self.optimizer = optimizer
         self.loss_obj = loss_obj

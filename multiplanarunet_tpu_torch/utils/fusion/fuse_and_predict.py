@@ -101,7 +101,10 @@ def _inference_model(model):
       * a 2D `UNet` (that class exactly: no UNet3D) with lane_pad 0 whose
         filter ladder holds a count that is not a multiple of
         MP_PREDICT_LANE_PAD (default 8; 0 turns it off) zero-padded to
-        that multiple (`lane_pad_variables`, exact).
+        that multiple (`lane_pad_variables`, exact);
+      * a U-Net built with `flatten_output` returning (B, C, *spatial)
+        again (the JAX predictor reshapes the flattened output back to
+        its planes).
 
     Either way the result is a twin with its own copy of the weights, on
     the model's device, in its dtype and mode (`UNet.twin`); `model`
@@ -121,6 +124,8 @@ def _inference_model(model):
                   for i in range(model.depth + 1)]
         if any(f % pad for f in ladder):
             overrides["lane_pad"] = pad
+    if getattr(model, "flatten_output", False) and hasattr(model, "twin"):
+        overrides["flatten_output"] = False
     return model.twin(**overrides) if overrides else model
 
 

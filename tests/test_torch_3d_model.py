@@ -294,5 +294,26 @@ def test_build_model_and_initializer_build_unet3d(tmp_path):
                          "n_channels": [1, 1], "dim": [16, 32]})
     assert type(multi).__name__ == "MultiTaskUNet2D"
     assert multi.n_classes == [3, 4] and multi.depth == 2
+    # FusionModel from n_inputs and n_classes, as the JAX build_model
+    # builds it: the same probabilities on the same weights
+    from multiplanarunet_tpu.models.model_init import (
+        build_model as j_build_model,
+    )
+
+    fusion_build = {**build, "model_class_name": "FusionModel",
+                    "n_inputs": 3, "n_classes": 4}
+    fusion = build_model(fusion_build, mixed_precision=True)
+    jfusion = j_build_model(fusion_build, mixed_precision=True)
+    rng = np.random.RandomState(4)
+    fparams = {"fusion": {"W": rng.randn(3, 4).astype(np.float32),
+                          "b": rng.randn(1, 4).astype(np.float32)}}
+    with torch.no_grad():
+        fusion.W.copy_(torch.from_numpy(fparams["fusion"]["W"]))
+        fusion.b.copy_(torch.from_numpy(fparams["fusion"]["b"]))
+    x = rng.rand(5, 3, 4).astype(np.float32)
+    want = np.asarray(jfusion.apply({"params": fparams}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = fusion(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     with pytest.raises(UnsupportedModelError):
-        build_model({**build, "model_class_name": "FusionModel"})
+        build_model({**build, "model_class_name": "NoSuchModel"})

@@ -152,8 +152,17 @@ def test_scalers_match_sklearn(name, ignore):
 
 
 def test_unsupported_scaler_and_noop():
-    with pytest.raises(UnsupportedScalerError, match="PowerTransformer"):
-        get_scaler("PowerTransformer")
+    # One output column per category: neither package can fit it on a
+    # volume
+    from multiplanarunet_tpu.preprocessing.scaling import (
+        get_scaler as j_get_scaler,
+    )
+
+    with pytest.raises(UnsupportedScalerError, match="OneHotEncoder"):
+        get_scaler("OneHotEncoder")
+    with pytest.raises(ValueError):
+        j_get_scaler("OneHotEncoder").fit_transform(
+            np.arange(8, dtype=np.float32).reshape(2, 2, 2, 1))
     X = np.ones((3, 3, 3, 2), np.float32)
     noop = NoOpScaler().fit(X)
     assert noop.transform(X) is X
@@ -226,11 +235,14 @@ def _jax_unet_checkpoint(path, seed=0, sharpen=1.0, **kw):
 @pytest.mark.parametrize("extra", [
     {"kernel_size": 5}, {"activation": "elu"},
     {"activation": "gelu", "out_activation": "sigmoid"},
+    {"activation": "mish"}, {"out_activation": "log_softmax"},
+    {"padding": "valid"}, {"flatten_output": True},
 ])
 def test_build_model_honours_unet_fields(tmp_path, extra):
-    """A UNet whose build group sets a non-default kernel size or
-    activation computes what the JAX UNet computes on the same weights
-    (within 1e-5)."""
+    """A UNet whose build group sets a non-default kernel size,
+    activation, padding (the JAX UNet stores it and pads SAME) or
+    flatten_output computes what the JAX UNet computes on the same
+    weights (within 1e-5)."""
     kw = dict(n_classes=3, n_channels=2, depth=2, init_filters=8, **extra)
     jmodel, variables = _jax_unet_checkpoint(tmp_path / "w.npz", **kw)
     build = dict(model_class_name="UNet", dim=16, complexity_factor=1,
@@ -240,23 +252,33 @@ def test_build_model_honours_unet_fields(tmp_path, extra):
     want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
     with torch.inference_mode():
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
-    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
-                               atol=1e-5)
+    if not extra.get("flatten_output"):
+        got = got.permute(0, 2, 3, 1)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     mixed = build_model(build, mixed_precision=True)
     assert mixed.dtype == torch.bfloat16
 
 
 def test_build_model_named_errors():
+    """A model class or an activation name that neither package has: the
+    port raises its named error, the JAX package fails too."""
+    from multiplanarunet_tpu.models.model_init import (
+        build_model as j_build_model,
+    )
+
     base = dict(model_class_name="UNet", n_classes=2, dim=16, depth=2)
     for bad, err in ((dict(model_class_name="NoSuchUNet"),
                       UnsupportedModelError),
-                     (dict(padding="valid"), UnsupportedModelError),
-                     (dict(flatten_output=True), UnsupportedModelError),
-                     (dict(activation="mish"), UnsupportedActivationError),
-                     (dict(out_activation="log_softmax"),
+                     (dict(activation="no_such_activation"),
+                      UnsupportedActivationError),
+                     (dict(out_activation="no_such_activation"),
                       UnsupportedActivationError)):
         with pytest.raises(err):
             build_model({**base, **bad})
+        with pytest.raises((ValueError, AttributeError)):
+            j_build_model({**base, **bad}).init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)))
     # the 3D model builds from the same group
     assert build_model({**base, "model_class_name": "UNet3D"}).ndim == 3
 

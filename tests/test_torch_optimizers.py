@@ -3,12 +3,17 @@
 translated, optax.inject_hyperparams): three steps from the same
 parameters and gradients, the learning rate changed between steps 2 and
 3; after every step the parameters agree within 1e-6 (updates are about
-1e-2). Also the kwarg translation, Keras' eps default, and the optax
-defaults that differ from torch.optim's."""
+1e-2), centered RMSprop and the bfloat16 moments (mu_dtype,
+accumulator_dtype) included: both packages compute each moment in
+float32 and round the same value to bfloat16 to store it, so the
+parameters keep the 1e-6 bound, and the stored moments are bfloat16 and
+within one bfloat16 ulp of optax's. Also the kwarg translation, Keras' eps
+default, and the optax defaults that differ from torch.optim's."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 import optax
 
@@ -36,7 +41,19 @@ CASES = [
     ("Adamax", {"lr": 1e-2, "beta_2": 0.9}),
     ("Lamb", {"lr": 1e-2, "weight_decay": 0.01}),
     ("Lion", {"lr": 1e-2}),
+    ("RMSprop", {"lr": 1e-2, "centered": True}),
+    ("RMSprop", {"lr": 1e-2, "centered": True, "momentum": 0.5,
+                 "nesterov": True}),
+    ("RMSprop", {"lr": 1e-2, "centered": True, "bias_correction": True,
+                 "eps_in_sqrt": False}),
+    ("Adam", {"lr": 1e-2, "mu_dtype": "bfloat16"}),
+    ("Nadam", {"lr": 1e-2, "mu_dtype": "bfloat16"}),
+    ("AdamW", {"lr": 1e-2, "mu_dtype": "bfloat16"}),
+    ("Lion", {"lr": 1e-2, "mu_dtype": "bfloat16"}),
+    ("SGD", {"lr": 1e-2, "momentum": 0.9, "accumulator_dtype": "bfloat16"}),
 ]
+# The name of each case's bfloat16 moment in the port's state
+BF16_MOMENT = {"mu_dtype": "mu", "accumulator_dtype": "trace"}
 SHAPES = [(3, 3, 2, 5), (5,), (7, 4), (1,)]
 
 
@@ -76,6 +93,20 @@ def test_optimizer_matches_optax(name, kwargs):
                 p.detach().numpy(), np.asarray(jparams[str(i)]), rtol=0,
                 atol=1e-6, err_msg=f"{name} step {step} param {i}")
     assert opt.learning_rate == float(np.float32(3e-3))
+    assert opt.packed.data.dtype == torch.float32
+    for key, moment in BF16_MOMENT.items():
+        if key not in kwargs:
+            continue
+        # optax's bfloat16 leaves: the moment of each parameter, by key
+        want = [np.asarray(x, np.float32) for x in jax.tree.leaves(state)
+                if x.dtype == jnp.bfloat16]
+        got = opt.state[moment]
+        assert got.dtype == torch.bfloat16 and len(want) == len(SHAPES)
+        for off, view, w in zip(opt.packed.offsets, opt.packed.param_views,
+                                want):
+            g = got[off:off + view.numel()].float().numpy().reshape(w.shape)
+            ulp = np.spacing(np.abs(w).astype(np.float32)) * 2.0 ** 16
+            assert np.all(np.abs(g - w) <= np.maximum(ulp, 1e-30)), name
 
 
 @pytest.mark.parametrize("name,kwargs", CASES,
@@ -90,7 +121,7 @@ def test_kwarg_translation_matches_injected_hyperparams(name, kwargs):
     want = {k: float(v) for k, v in state.hyperparams.items()}
     got = {k: float(np.float32(v)) for k, v in
            translate_optimizer_kwargs(name, **kwargs).items()
-           if not isinstance(v, bool)}  # flags are static, not injected
+           if not isinstance(v, (bool, str))}  # static, not injected
     assert {k: want[k] for k in got} == got
     opt = init_optimizer(name, [torch.nn.Parameter(torch.zeros(2))],
                          **kwargs)
@@ -116,10 +147,15 @@ def test_eps_default_and_named_errors():
     with pytest.raises(ValueError, match="Unknown optimizer"):
         translate_optimizer_kwargs("Adadelta", lr=1e-3)
     p = [torch.nn.Parameter(torch.zeros(3))]
-    with pytest.raises(topt.UnsupportedOptimizerOptionError):
-        init_optimizer("RMSprop", p, lr=1e-3, centered=True)
-    with pytest.raises(topt.UnsupportedOptimizerOptionError):
-        init_optimizer("AdamW", p, lr=1e-3, mu_dtype="bfloat16")
+    # a weight-decay mask is a callable or a pytree over flax's parameter
+    # tree: a YAML cannot express it, and the port's parameters are a list
+    for name in ("AdamW", "Lamb", "Lion"):
+        with pytest.raises(topt.UnsupportedOptimizerOptionError,
+                           match="YAML"):
+            init_optimizer(name, p, lr=1e-3, mask=lambda params: params)
+    with pytest.raises(topt.UnsupportedOptimizerOptionError,
+                       match="mu_dtype"):
+        init_optimizer("Adam", p, lr=1e-3, mu_dtype="int8")
 
 
 def test_optax_defaults_differ_from_torch_optim():

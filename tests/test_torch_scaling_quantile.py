@@ -38,8 +38,8 @@ def _fit_both(vol, ignore_less_eq, seed=11):
 
 def _check(vol, ignore_less_eq):
     j, t, (j_state, t_state), (j_out, t_out) = _fit_both(vol, ignore_less_eq)
-    assert len(t.quantile_channels) == vol.shape[-1]
-    for sk, ch in zip(j.scalers, t.quantile_channels):
+    assert len(t.channels) == vol.shape[-1]
+    for sk, ch in zip(j.scalers, t.channels):
         np.testing.assert_array_equal(ch.quantiles_, sk.quantiles_[:, 0])
         np.testing.assert_array_equal(ch.references_, sk.references_)
     assert t_out.dtype == j_out.dtype == vol.dtype
@@ -103,11 +103,15 @@ def test_assert_scaler_and_apply_scaling():
         assert t_scaling.assert_scaler(name) and j_scaling.assert_scaler(name)
     assert not t_scaling.assert_scaler("NoSuchScaler")
     assert not j_scaling.assert_scaler("NoSuchScaler")
-    # sklearn names the port does not implement stay refused
-    assert j_scaling.assert_scaler("PowerTransformer")
-    assert not t_scaling.assert_scaler("PowerTransformer")
+    # a name sklearn has but neither package can fit on a volume: the
+    # JAX package accepts the name and fails in the fit, the port refuses
+    # it by name
+    assert j_scaling.assert_scaler("KernelCenterer")
+    assert not t_scaling.assert_scaler("KernelCenterer")
+    with pytest.raises(ValueError):
+        j_scaling.apply_scaling(np.ones((2, 2, 2, 1)), "KernelCenterer")
     with pytest.raises(t_scaling.UnsupportedScalerError):
-        t_scaling.apply_scaling(np.ones((2, 2, 2, 1)), "PowerTransformer")
+        t_scaling.apply_scaling(np.ones((2, 2, 2, 1)), "KernelCenterer")
     vol = _volume((24, 24, 24, 1), seed=5)
     for name in ("QuantileTransformer", "RobustScaler"):
         np.random.seed(0)

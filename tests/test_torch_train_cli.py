@@ -193,9 +193,13 @@ def test_named_errors(trained, tmp_path, monkeypatch):
             ("unknown_model", [('model_class_name: "UNet"',
                                 'model_class_name: "NoSuchUNet"')],
              UnsupportedModelError),
-            ("power", [('scaler: "RobustScaler"',
-                        'scaler: "PowerTransformer"')],
+            # neither package can fit PolynomialFeatures on a volume
+            ("polynomial", [('scaler: "RobustScaler"',
+                             'scaler: "PolynomialFeatures"')],
              UnsupportedScalerError),
+            # the JAX package's losses fail on a flattened output too
+            ("flatten", [("depth: 2", "depth: 2\n  flatten_output: True")],
+             ValueError),
             ("callback", [("callbacks: [*RLOP,",
                            "callbacks: [{class_name: NoSuchCallback}, "
                            "*RLOP,")],
