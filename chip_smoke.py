@@ -20,7 +20,7 @@ staging, `mp predict` end to end on a two-image NIfTI project, one 512^3
 volume with the kernel held against its plain version at that volume's
 largest shapes, the configuration surface the JAX package takes by name
 (`phase_config_surface`: eighteen more activations on one decoder-sized
-activation against the host, `mp predict` of a 256^3 subject through a
+activation against the host, `mp predict` of a 128^3 subject through a
 PowerTransformer + mish project against predict_image, the new scalers'
 host seconds, and centered RMSprop and bf16 optimizer moments at
 train-256's step, each update against the host's), and training: `mp
@@ -63,7 +63,7 @@ multi-task step on the card against the host, and `mp branch
 workflow on the trained project: `mp train_fusion` (a subprocess), the
 fused probabilities of its points path against predict_image's with the
 learned weights, `mp predict` with the learned fusion and `mp summary`
-over its results. Then multi-device and multi-process execution on the
+(through its entry point) over its results. Then multi-device and multi-process execution on the
 one card (`phase_multi_device`): two ranks sharing cuda:0 on a gloo group,
 started from the library layer (DistributedDataParallel and global-batch
 BatchNorm at full width, bf16, global batch 16: the loss stream and a
@@ -71,12 +71,46 @@ parameter checksum bit-equal across the ranks, a float32 two-rank step
 against the one-process step), `mp train` as a 1-rank NCCL group, `mp
 predict` as two processes on cuda:0 against the one-process results,
 predict_image_sharded over [cuda:0, cuda:0] against predict_image, `mp
-train_fusion` as two processes against one, and the named error of `mp
-train --num_devices 2` on one card. Each path's shear-pass launches are
+train_fusion` as two processes against the workflow's one-process run,
+the named error of `mp train --num_devices 2` on one card, and the
+library entry points that place data or start a group on the card when
+given no device. Each path's shear-pass launches are
 counted from 0 just before it and gated against what its plans and remap
 modes say (the training, 3D, multi-task and fusion-training paths
 themselves launch none; the two-process `mp predict` reads its launches
 from the ranks' logs).
+
+The script aims to finish within 600 s on an H100, half its 1200 s
+limit, and prints each phase's host seconds and their sum on a line
+before the kernels line. nvcc builds the kernel in a thread beside the
+main path's set-up; the fused-probability check takes the main path's
+class map of its first volume; the full-width models of the step checks
+are copies of one glorot initialisation per model (glorot_model). Some
+earlier paths run at a cut depth or scale, each keeping its gate:
+
+- U-Net forms: predict-256 in the naive form runs twice on the main
+  path's second volume, against the main path's own runs in the default
+  form (their times and that volume's class map), not in four runs of
+  its own; the bf16 forward timing takes FORMS_REPS (6) rounds after
+  FORMS_WARMUP (2), not 12 after 3;
+- training: the overfit check OVERFIT_STEPS (20) steps, not 50; the
+  sampler A/B AB_ROUNDS (3) rounds, not 5;
+- callbacks and tools: the scaler's host seconds from SCALER_REPS (1)
+  repetition, not 3;
+- config surface (a): the float32 comparison with the host on the first
+  CS_ACT_CHECK_PLANES (4) of the 46 planes; the timing on all 46;
+- config surface (b) and (c): one structured CS_SUBJECT^3 (128^3)
+  subject, not 256^3 (the PowerTransformer's fit grows with the voxels);
+  its launches come from its own plans (72, as at 256^3), its class map
+  is held against predict_image in every voxel, and box-cox still fits
+  a 64^3 subsample;
+- workflow: `mp train_fusion` takes 2^20 points per image (the script's
+  default is 2^22), and `mp summary`, a host-only tool, runs through its
+  entry point instead of a subprocess;
+- multi-device: the two-process `mp train_fusion` takes the workflow's
+  fusion set (linked in its order) and arguments, and is held against
+  the workflow's one-process fit within 1e-6: no one-process run of its
+  own.
 
 Run from the repository root with no arguments:
 
@@ -94,7 +128,11 @@ standard output is a JSON object describing the kernels; the last is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import copy
+import functools
+import io
 import json
 import os
 import shutil
@@ -296,12 +334,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# The first file written for each argument tuple of jax_format_unet_weights
+# (later calls copy it: the draws take about a second at full width)
+_WRITTEN_WEIGHTS = {}
+
+
 def jax_format_unet_weights(path, n_classes, n_channels, depth, cf, seed,
                             init_filters=64, ndim=2):
     """Write a UNet (ndim 2) or UNet3D (ndim 3) checkpoint in the JAX
     package's .npz format from numpy alone: flax key names, HWIO (DHWIO)
     kernels drawn glorot-uniform from a seed, zero biases, BN scale 1 /
     bias 0 / mean 0 / var 1."""
+    key = (n_classes, n_channels, depth, cf, seed, init_filters, ndim)
+    first = _WRITTEN_WEIGHTS.get(key)
+    if first is not None and first.is_file():
+        if first != Path(path):
+            shutil.copyfile(first, path)
+        return
+    _WRITTEN_WEIGHTS[key] = Path(path)
     rng = np.random.RandomState(seed)
     entries = {}
 
@@ -459,7 +509,14 @@ def phase_environment():
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
-    k = _build.kernels()
+    return card
+
+
+def phase_kernel_build(build):
+    """The kernel library from `build` (a future of _build.kernels(),
+    started beside the main path's set-up, which needs no kernel): its
+    build time and the ptxas report, gated."""
+    k = build.result()
     log(f"kernel library {k.path.name}: built in {k.build_seconds:.2f} s")
     # ptxas -v: per function "N bytes stack frame, N bytes spill stores, N
     # bytes spill loads", then "Used N registers"; every instantiation must
@@ -479,7 +536,6 @@ def phase_environment():
                 log(f"  ptxas: {line.strip()}")
         raise AssertionError("a kernel instantiation has a stack frame or "
                              "spills")
-    return card
 
 
 def phase_kernel_vs_plain(dev, main_plans):
@@ -667,7 +723,7 @@ def phase_main_path(dev, predictor, images, views, fusion):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     shear_pass.launches = 0
-    seconds, per_volume_launches, shares = [], [], []
+    seconds, per_volume_launches, shares, maps = [], [], [], []
     for i, img in enumerate(images):
         before = shear_pass.launches
         t0 = time.perf_counter()
@@ -676,6 +732,7 @@ def phase_main_path(dev, predictor, images, views, fusion):
                                            return_per_view=False)
         seconds.append(time.perf_counter() - t0)  # ends in a host fetch
         per_volume_launches.append(shear_pass.launches - before)
+        maps.append(fused)
         ms = predictor.stage_ms()
         shares.append(ms)
         if (fused.shape != (DIM,) * 3 or fused.dtype != np.uint8
@@ -716,12 +773,11 @@ def phase_main_path(dev, predictor, images, views, fusion):
         f"H100 SXM's 989 dense bf16 TFLOP/s")
 
     # The fused probabilities of one volume: finite, summing to one, and
-    # their argmax is the class map
+    # their argmax is its class map above
     probs, _ = predictor.predict_image(images[0], views, fusion_params=fusion,
                                        return_per_view=False,
                                        return_probs=True)
-    cls, _ = predictor.predict_image(images[0], views, fusion_params=fusion,
-                                     return_per_view=False)
+    cls = maps[0]
     agree = float((probs.argmax(-1) == cls).mean())
     sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
     log(f"fused probabilities: finite {bool(np.isfinite(probs).all())}, "
@@ -729,7 +785,8 @@ def phase_main_path(dev, predictor, images, views, fusion):
         f"{agree:.6f}")
     if not (np.isfinite(probs).all() and sum_err < 1e-4 and agree > 0.999):
         raise AssertionError("fused probabilities are wrong")
-    return launches
+    runs = [(secs, ms["unet"]) for secs, ms in zip(seconds, shares)]
+    return launches, (runs, maps)
 
 
 # ------------------------------------------------------------- U-Net forms
@@ -750,7 +807,7 @@ UNET_ARMS = (
 # random weights have near-ties that one bf16 rounding flips (0.9966 of
 # voxels in a 32^3 CPU rehearsal of the per-view gate)
 FORMS_F32_TOL, FORMS_AGREEMENT = 1e-4, 0.99
-FORMS_WARMUP, FORMS_REPS = 3, 12
+FORMS_WARMUP, FORMS_REPS = 2, 6
 # The main path's build group, as `mp init_project` writes it
 BUILD_MAIN = {"model_class_name": "UNet", "n_classes": N_CLASSES,
               "n_channels": N_CHANNELS, "dim": DIM, "depth": DEPTH,
@@ -773,7 +830,8 @@ def unet_form(model):
         "lane_pad") if getattr(model, k, None)} or "naive"
 
 
-def phase_unet_variants(dev, tmp, predictor, img, views, fusion, card):
+def phase_unet_variants(dev, tmp, predictor, img, views, fusion, card,
+                        main):
     """The U-Net's forms on predict-256's model (cf 2, depth 4, 7
     classes), on one U-Net chunk of the main path (`_chunk_for` of its
     plane stack) of random 256^2 planes:
@@ -786,11 +844,13 @@ def phase_unet_variants(dev, tmp, predictor, img, views, fusion, card):
        FORMS_REPS after FORMS_WARMUP), its peak memory, and its argmax
        against the naive form's (gate FORMS_AGREEMENT, finite);
     3. TFLOP/s of each form on the naive unpadded count;
-    4. predict-256 on one volume with the predictor's default form
-       against the naive form (MP_PREDICT_DILATED=0,
-       MP_PREDICT_LANE_PAD=0), in the order naive, default, default,
-       naive: s/volume, U-Net ms and the class maps' agreement (gate
-       FORMS_AGREEMENT; 72 shear-pass launches each, gated).
+    4. predict-256 of the main path's second volume `img` in the naive
+       form (MP_PREDICT_DILATED=0, MP_PREDICT_LANE_PAD=0), twice, against
+       the main path's runs in the predictor's default form (`main`:
+       its (s, U-Net ms) per volume and class maps, from
+       phase_main_path): s/volume, U-Net ms and the class maps'
+       agreement on that volume (gate FORMS_AGREEMENT; 72 shear-pass
+       launches each, gated).
 
     Returns the shear-pass launches of step 4."""
     t_phase = time.perf_counter()
@@ -885,28 +945,29 @@ def phase_unet_variants(dev, tmp, predictor, img, views, fusion, card):
     if unet_form(plain.model) != "naive":
         raise AssertionError(f"MP_PREDICT_DILATED=0 / MP_PREDICT_LANE_PAD=0"
                              f" left the form {unet_form(plain.model)}")
-    runs = {"naive": [], "default": []}
-    maps = {}
+    main_runs, main_maps = main
+    runs = {"naive": [], "default": main_runs[1:]}
+    maps = {"default": main_maps[1]}
     launches = 0
-    for name in ("naive", "default", "default", "naive"):
-        pred = plain if name == "naive" else predictor
+    for _ in range(2):
         shear_pass.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cls, _ = pred.predict_image(img, views, fusion_params=fusion,
-                                    n_planes="same+20",
-                                    return_per_view=False)
+        cls, _ = plain.predict_image(img, views, fusion_params=fusion,
+                                     n_planes="same+20",
+                                     return_per_view=False)
         secs = time.perf_counter() - t0
         if shear_pass.launches != 12 * N_VIEWS:
-            raise AssertionError(f"{name} predict: {shear_pass.launches} "
+            raise AssertionError(f"naive predict: {shear_pass.launches} "
                                  f"shear-pass launches")
         launches += shear_pass.launches
-        runs[name].append((secs, pred.stage_ms()["unet"]))
-        maps[name] = cls
+        runs["naive"].append((secs, plain.stage_ms()["unet"]))
+        maps["naive"] = cls
     same = float((maps["naive"] == maps["default"]).mean())
-    log(f"[{card}] predict-{DIM}, one volume, naive form vs the predictor's "
-        f"default {unet_form(predictor.model)} (naive, default, default, "
-        f"naive): s/volume naive {[round(r[0], 3) for r in runs['naive']]}"
+    log(f"[{card}] predict-{DIM}, naive form (this volume, twice) vs the "
+        f"predictor's default {unet_form(predictor.model)} (the main path's "
+        f"volumes after the first): s/volume naive "
+        f"{[round(r[0], 3) for r in runs['naive']]}"
         f", default {[round(r[0], 3) for r in runs['default']]}; U-Net ms "
         f"naive {[round(r[1], 1) for r in runs['naive']]}, default "
         f"{[round(r[1], 1) for r in runs['default']]}; class maps equal "
@@ -1496,17 +1557,17 @@ def structured_subject(dev, seed, size=DIM, n_classes=N_CLASSES):
 
 
 def write_project(root, views, fusion, dev,
-                  subjects=("subject_1", "subject_2"), edits=()):
+                  subjects=("subject_1", "subject_2"), edits=(), size=DIM):
     """A two-image (or `subjects`) `mp predict` project in the JAX
     package's layout: train_hparams.yaml (PROJECT_YAML with each (old,
     new) of `edits` replaced), views.npz, a JAX-format checkpoint of the
-    main path's weights, fusion weights, and 256^3 structured images with
-    labels."""
+    main path's weights, fusion weights, and structured images (size^3,
+    1 mm) with labels."""
     data = root / "data" / "test"
     for sub in ("images", "labels"):
         (data / sub).mkdir(parents=True)
     for seed, name in enumerate(subjects):
-        vol, lab = structured_subject(dev, seed)
+        vol, lab = structured_subject(dev, seed, size)
         nifti.save(vol, data / "images" / f"{name}.nii.gz", np.eye(4))
         nifti.save(lab, data / "labels" / f"{name}.nii.gz", np.eye(4))
     proj = root / "project"
@@ -1736,9 +1797,11 @@ DEPTH_3D, CF_3D, DIM_3D = 3, 1.0, 64
 # PARAM_SHARE the share of parameters that must be within it
 F32_BATCH, PARAM_TOL, PARAM_SHARE = 2, 1e-2, 0.99
 # The overfit check: OVERFIT_STEPS bf16 Adam steps at lr 1e-3 on one batch
-# must bring the loss below OVERFIT_RATIO of its first value (a CPU
-# rehearsal at depth 2, dim 32, batch 4 reaches 0.009)
-OVERFIT_STEPS, OVERFIT_RATIO = 50, 0.5
+# must bring the loss below OVERFIT_RATIO of its first value (on the card
+# the loss was at 0.07 of its first value after 20 steps and at 0.034
+# after 50; a CPU rehearsal at depth 2, dim 32, batch 4 needs the ratio
+# raised)
+OVERFIT_STEPS, OVERFIT_RATIO = 20, 0.5
 
 
 def write_train_project(root, dev):
@@ -1946,11 +2009,13 @@ def profile_steps(step, batches, n=3):
     return busy, events.table(sort_by="self_device_time_total", row_limit=12)
 
 
-def fresh_step(dtype, dev, lr, seed=0, three_d=False, multitask=False):
-    """A glorot-initialised (from `seed`) full-width UNet (the 3D preset's
-    UNet3D with three_d, the MultiTask preset's two-task model with
-    multitask) in train mode on `dev` with its Adam train step (the
-    default loss and metric)."""
+@functools.cache
+def glorot_model(dtype, seed=0, three_d=False, multitask=False):
+    """The glorot-initialised (from `seed`) full-width UNet (the 3D
+    preset's UNet3D with three_d, the MultiTask preset's two-task model
+    with multitask) on the host, built once: glorot_init draws its
+    weights on one host core (about 1.5 s for the 2D model's 62 M), and
+    every caller takes a copy."""
     if multitask:
         model = MultiTaskUNet2D(MT_TASKS, MT_CLASSES, [N_CHANNELS] * 2,
                                 MT_DIMS, DEPTH, CF, dtype=dtype)
@@ -1958,7 +2023,15 @@ def fresh_step(dtype, dev, lr, seed=0, three_d=False, multitask=False):
         model = UNet3D(N_CLASSES, N_CHANNELS, DEPTH_3D, CF_3D, dtype=dtype)
     else:
         model = UNet(N_CLASSES, N_CHANNELS, DEPTH, CF, dtype=dtype)
-    model = glorot_init(model, seed).to(dev).train()
+    return glorot_init(model, seed)
+
+
+def fresh_step(dtype, dev, lr, seed=0, three_d=False, multitask=False):
+    """A copy of glorot_model(dtype, seed, three_d, multitask) in train
+    mode on `dev` with its Adam train step (the default loss and
+    metric)."""
+    model = copy.deepcopy(glorot_model(dtype, seed, three_d, multitask))
+    model = model.to(dev).train()
     opt = init_optimizer("Adam", model.parameters(), lr=lr, epsilon=1e-8)
     step = (MultiTaskTrainStep if multitask else TrainStep)(
         model, opt, SparseCategoricalCrossentropy(),
@@ -2070,7 +2143,7 @@ def sampler_parts(train_seq, n_batches):
 # swapped out after EVICT_ACCESS accesses. The bounded `mp train`: its
 # LimitationQueue holds BOUNDED_LOADED images (below the batch of 16, so
 # the per-image path), 1 epoch of 2 steps.
-AB_ROUNDS, AB_BATCHES = 5, 8
+AB_ROUNDS, AB_BATCHES = 3, 8
 CPU_BATCHES, CPU_IMAGE_TOL, CPU_LABEL_SHARE = 3, 1e-5, 0.9999
 EVICT_LOADED, EVICT_ACCESS, EVICT_BATCH, EVICT_BATCHES = 2, 3, 2, 12
 BOUNDED_LOADED = 2
@@ -2590,7 +2663,7 @@ PLOT_WARNINGS = ("Could not save sample images", "Could not plot views",
                  "SaveOutputAs2DImage failed")
 PLOT_FILES = ("images/train_images.png", "views.png", "logs/curve.png",
               "images/epoch_001.png", "images/outputs/output_epoch_001.png")
-SCALER_REPS = 3
+SCALER_REPS = 1
 
 
 def importable(name):
@@ -3448,12 +3521,15 @@ def phase_multitask(dev, tmp, dirs, card):
 
 # ------------------------------------------------------------------ workflow
 # `mp train_fusion` on the trained train-256 project: 4 images (the val
-# subject + 3 random train subjects) in 2 rounds of 2, at the script's
-# defaults (30 epochs, batches of 2^17 points, 2^22 points per image,
-# early stopping 3, same+20 planes); the fused probabilities of the points
-# path against predict_image's within FUSED_TOL
+# subject + 3 random train subjects) in 2 rounds of 2, 2^20 points per
+# image (the script's default 2^22 cut, so that the two-process run of
+# phase_multi_device, which passes each rank's points through .npz files,
+# moves a quarter of the bytes), otherwise at the script's defaults (30
+# epochs, batches of 2^17 points, early stopping 3, same+20 planes); the
+# fused probabilities of the points path against predict_image's within
+# FUSED_TOL
 FUSION_ARGS = ["--overwrite", "--images_per_round", "2", "--min_val_images",
-               "4", "--seed", "0"]
+               "4", "--max_points_per_image", str(2 ** 20), "--seed", "0"]
 FUSED_TOL = 1e-4
 # The fit timed alone in-process: one round's worth of points (2 images x
 # 2^22), FIT_EPOCHS epochs at the script's defaults, every epoch run
@@ -3534,9 +3610,11 @@ def phase_workflow(dev, proj, dirs, card):
     with the learned weights on val_0 (gather resampler, within
     FUSED_TOL), `mp predict` with the learned fusion (its log names the
     fusion file, its shear-pass launches equal the plans', it writes
-    csv/results.csv) and `mp summary` over its output (exit 0, its overall
-    fused mean dice equal to the mean of results.csv's MJ column to its 3
-    decimals). Returns the shear-pass launches of the mp predict run."""
+    csv/results.csv) and `mp summary` over its output (through its entry
+    point: a host-only tool; its overall fused mean dice equal to the mean
+    of results.csv's MJ column to its 3 decimals). Returns (the shear-pass
+    launches of the mp predict run, the learned fusion W and b: the
+    reference of phase_multi_device's two-process run)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     fusion_wall, _ = run_mp_script(
@@ -3632,17 +3710,20 @@ def phase_workflow(dev, proj, dirs, card):
         f"{predict_wall:.1f} s")
 
     # mp summary over the predictions
-    summary_wall, report = run_mp_script(["summary", "--dir", str(out)],
-                                         timeout=300)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        port_mp.entry_func(["summary", "--dir", str(out)])
+    summary_wall, report = time.perf_counter() - t0, printed.getvalue()
     overall = next(line for line in report.splitlines()
                    if line.startswith("Overall fused mean dice:"))
     want = f"{np.nanmean(mj):.3f}"
     if overall.split(":")[1].split()[0] != want:
         raise AssertionError(f"mp summary '{overall}' vs the MJ column's "
                              f"mean {want}")
-    log(f"mp summary ({summary_wall:.1f} s): '{overall}' (MJ mean {want})")
+    log(f"mp summary ({summary_wall:.1f} s, in process): '{overall}' (MJ "
+        f"mean {want})")
     log(f"workflow phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, fusion["fusion"]
 
 
 # ------------------------------------------------------------ multi-device
@@ -3654,12 +3735,6 @@ DP_WORKER_FLAG = "--data-parallel-worker"
 DP_GLOBAL_BATCH, DP_STEPS, DP_F32_BATCH, DP_LR = 16, 3, 4, 5e-5
 # `mp train` as a 1-rank NCCL group: 2 epochs of 10 steps of 16
 NCCL_EPOCHS, NCCL_IMAGES, NCCL_VAL_IMAGES = 2, 160, 32
-# `mp train_fusion` in 1 and 2 processes: the 3 train subjects as the
-# fusion set (no random top-up, so both runs map the same images in the
-# same order), rounds of 2 (rank 1 idle in round 2)
-MD_FUSION_ARGS = ["--overwrite", "--images_per_round", "2",
-                  "--min_val_images", "3", "--epochs", "5",
-                  "--max_points_per_image", str(2 ** 20), "--seed", "0"]
 SHARDED_AGREEMENT = 0.9999
 
 
@@ -3713,8 +3788,7 @@ def dp_trainer(dtype, dev):
     """A Trainer of the glorot-initialised (seed 0) full-width UNet in
     `dtype`, compiled with Adam at DP_LR; data-parallel when a process
     group is active."""
-    model = glorot_init(UNet(N_CLASSES, N_CHANNELS, DEPTH, CF, dtype=dtype),
-                        0)
+    model = copy.deepcopy(glorot_model(dtype))
     trainer = Trainer(model, logger=ScreenLogger(False), device=dev)
     return trainer.compile_model("Adam", {"lr": DP_LR, "epsilon": 1e-8},
                                  "SparseCategoricalCrossentropy", [])
@@ -3969,27 +4043,38 @@ def md_sharded(dev, card, predict_proj, views, fusion, plans):
     return launches
 
 
-def md_two_process_fusion(card, tmp, proj):
-    """e. `mp train_fusion` as 1 and as 2 processes on cuda:0 (a copy of the
-    trained project whose val set is its 3 train subjects). Gates: one
-    fusion checkpoint, W and b within 1e-6 of the 1-process fit;
-    .points_tmp removed; rank 1's log written."""
+def md_two_process_fusion(card, tmp, proj, one):
+    """e. `mp train_fusion` as 2 processes on cuda:0 with the workflow
+    phase's inputs: a copy of the trained project without the workflow's
+    outputs, whose val set is the workflow's fusion set (val_0 and the
+    training images its main process drew at random, linked in the order
+    its log mapped them, so no image is drawn), with FUSION_ARGS: the
+    same images in the same rounds of 2. The workflow's 1-process fit
+    `one` ({"W", "b"}) is the reference. Gates: one fusion checkpoint, W
+    and b within 1e-6 of the 1-process fit; .points_tmp removed; rank 1's
+    log written."""
+    mapped = [line.split("Mapping views over ")[1].rstrip(".")
+              for line in (proj / "logs" / "train_fusion.txt").read_text()
+              .splitlines() if "Mapping views over " in line]
     copy_dir = Path(tmp) / "fusion_project"
     shutil.copytree(proj, copy_dir, ignore=shutil.ignore_patterns(
-        "pred*", "fusion_weights"))
+        "pred*", "fusion_weights", "logs"))
     hp = copy_dir / "train_hparams.yaml"
-    text = hp.read_text()
-    train_dir = YAMLHParams(hp, no_log=True)["train_data"]["base_dir"]
-    val_dir = YAMLHParams(hp, no_log=True)["val_data"]["base_dir"]
-    hp.write_text(text.replace(f"base_dir: {val_dir}",
-                               f"base_dir: {train_dir}"))
+    hparams = YAMLHParams(hp, no_log=True)
+    val_dir = hparams["val_data"]["base_dir"]
+    sources = [Path(hparams[f"{split}_data"]["base_dir"])
+               for split in ("val", "train")]
+    fusion_set = copy_dir / "fusion_set"
+    for k, ident in enumerate(mapped):
+        name = f"{ident}.nii.gz"
+        src = next(d for d in sources if (d / "images" / name).is_file())
+        for sub in ("images", "labels"):
+            (fusion_set / sub).mkdir(parents=True, exist_ok=True)
+            (fusion_set / sub / f"{k:02d}_{name}").symlink_to(src / sub / name)
+    hp.write_text(hp.read_text().replace(f"base_dir: {val_dir}",
+                                         f"base_dir: {fusion_set}"))
     fusion_dir = copy_dir / "model" / "fusion_weights"
-    args = ["--project_dir", str(copy_dir), *MD_FUSION_ARGS]
-    one_wall, _ = run_mp_script(["train_fusion", *args, "--device", "cuda:0"],
-                                timeout=600)
-    (one_file,) = fusion_dir.glob("*_fusion_weights.npz")
-    one = checkpoint.load_weights(one_file)[0]["fusion"]
-    one_file.unlink()
+    args = ["--project_dir", str(copy_dir), *FUSION_ARGS]
     two_wall, _ = launch_ranks(
         [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp",
          "train_fusion", *args, "--device", "cuda:0"], 2, timeout=600)
@@ -4002,9 +4087,9 @@ def md_two_process_fusion(card, tmp, proj):
     if err > 1e-6 or not (copy_dir / "logs" /
                           "train_fusion_rank1.txt").exists():
         raise AssertionError(f"2-process fusion fit differs by {err}")
-    log(f"[{card}] mp train_fusion over the 3 train subjects (rounds of 2, "
-        f"rank 1 idle in round 2): 1 process {one_wall:.1f} s, 2 processes "
-        f"on cuda:0 {two_wall:.1f} s wall; fusion W, b max abs diff {err:.3g}"
+    log(f"[{card}] mp train_fusion as 2 processes on cuda:0 (the workflow "
+        f"phase's images {mapped}, rounds of 2): {two_wall:.1f} s wall; "
+        f"fusion W, b max abs diff to the workflow's 1-process fit {err:.3g}"
         f" (<= 1e-6); one checkpoint, .points_tmp removed")
 
 
@@ -4040,15 +4125,66 @@ def md_too_few_cards(proj):
         f"'{message}' before any process started")
 
 
+def md_device_defaults(dev):
+    """g. The library entry points that place data or start a process
+    group, called with no device: shard_batch's tensors and plane_points'
+    points land on the card, and initialize_distributed (1 process) and
+    maybe_initialize_distributed (under the MPUNET_* markers) start an
+    NCCL group on this rank's card (one all_reduce through it), each
+    group then destroyed."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from multiplanarunet_tpu_torch.ops.interp import plane_points
+    from multiplanarunet_tpu_torch.parallel import distributed as tdist
+    from multiplanarunet_tpu_torch.parallel.mesh import shard_batch
+
+    got = {}
+    x, y = shard_batch((np.ones((2, 3), np.float32), torch.zeros(2)))
+    got["shard_batch"] = f"{x.device}, {y.device}"
+    got["plane_points"] = str(plane_points(
+        geometry.plane_basis(np.array([0.3, -0.5, 0.8])), 1.5, 31.0,
+        8).device)
+
+    def group(start):
+        start()
+        try:
+            one = torch.ones(1, device=dev)
+            dist.all_reduce(one)
+            return (f"{dist.get_backend()} on cuda:"
+                    f"{torch.cuda.current_device()}, all_reduce "
+                    f"{float(one):g}")
+        finally:
+            tdist.shutdown_distributed()
+
+    got["initialize_distributed"] = group(
+        lambda: tdist.initialize_distributed(
+            f"localhost:{_free_port()}", 1, 0,
+            timeout=timedelta(seconds=120)))
+    markers = {"MPUNET_COORDINATOR_ADDRESS": f"localhost:{_free_port()}",
+               "MPUNET_NUM_PROCESSES": "1", "MPUNET_PROCESS_ID": "0"}
+    with mock.patch.dict(os.environ, markers):
+        got["maybe_initialize_distributed"] = group(
+            tdist.maybe_initialize_distributed)
+    want = {"shard_batch": "cuda:0, cuda:0", "plane_points": "cuda:0",
+            "initialize_distributed": "nccl on cuda:0, all_reduce 1",
+            "maybe_initialize_distributed": "nccl on cuda:0, all_reduce 1"}
+    log(f"device defaults with no device given: {got}")
+    if got != want:
+        raise AssertionError(f"device defaults {got}, want {want}")
+
+
 def phase_multi_device(dev, tmp, card, proj, epochs_256, predict_proj, views,
-                       fusion, plans):
+                       fusion, plans, fusion_ref):
     """Multi-device and multi-process execution on this one card: a. the
     library layer as two ranks on gloo; b. `mp train` as a 1-rank NCCL
     group; c. `mp predict` as two processes; d. predict_image_sharded over
-    [cuda:0, cuda:0]; e. `mp train_fusion` as two processes; f. the named
-    error for more cards than visible. Returns the shear-pass launches of
-    its paths (the mapping of mp train_fusion takes the gather path and
-    launches none)."""
+    [cuda:0, cuda:0]; e. `mp train_fusion` as two processes against the
+    workflow's one-process fit `fusion_ref`; f. the named error for more
+    cards than visible; g. the device defaults of the library entry
+    points. Returns the shear-pass launches of its paths (the mapping of
+    mp train_fusion takes the gather path and launches none)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     md_library_layer(dev, tmp, card)
@@ -4057,8 +4193,9 @@ def phase_multi_device(dev, tmp, card, proj, epochs_256, predict_proj, views,
         card, predict_proj, plans)}
     paths["predict_image_sharded"] = md_sharded(dev, card, predict_proj,
                                                 views, fusion, plans)
-    md_two_process_fusion(card, tmp, proj)
+    md_two_process_fusion(card, tmp, proj, fusion_ref)
     md_too_few_cards(proj)
+    md_device_defaults(dev)
     log(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s")
     return paths
 
@@ -4070,7 +4207,7 @@ def phase_multi_device(dev, tmp, card, proj, epochs_256, predict_proj, views,
 # in float32 against the plain float32 version on the host within
 # CS_ACT_TOL (relative past 1: |card - host| <= CS_ACT_TOL * max(1,
 # |host|); the same NaN and infinities); `mp predict` of one structured
-# 256^3 subject through a PowerTransformer + mish project; the new
+# 128^3 subject through a PowerTransformer + mish project; the new
 # scalers' host seconds; and the optimizer options, each update on the
 # card against the host's from the same state and gradients.
 CS_ACTIVATIONS = (
@@ -4079,6 +4216,14 @@ CS_ACTIVATIONS = (
     "normalize", "relu6", "soft_sign", "softmax", "sparse_plus",
     "sparse_sigmoid", "squareplus", "standardize")
 CS_ACT_SHAPE, CS_ACT_TOL, CS_ACT_REPS = (46, 96, DIM, DIM), 1e-6, 5
+# The host comparison takes the first CS_ACT_CHECK_PLANES planes of that
+# tensor (25 M values, an eleventh of the host's work; the timing takes
+# all 46)
+CS_ACT_CHECK_PLANES = 4
+# (b)'s subject: the PowerTransformer's yeo-johnson fit (scipy's Brent
+# search) grows with the voxels, about 49 s at 256^3 on the host; at 128^3
+# it is an eighth of that, and the views and passes, so the launches, stay
+CS_SUBJECT = 128
 CS_OPTIMIZERS = (("Adam", {}),
                  ("RMSprop", {"centered": True}),
                  ("Adam", {"mu_dtype": "bfloat16"}),
@@ -4092,15 +4237,17 @@ CS_PROJECT_EDITS = (('scaler: "RobustScaler"', 'scaler: "PowerTransformer"'),
 
 def cs_activations(dev, card):
     """(a) Each activation name in float32 on the card against the same
-    function on the host, on one randn * 3 tensor of CS_ACT_SHAPE, the
-    difference taken on the card; ms per call (CUDA events) in float32 and
-    bf16 beside relu's."""
+    function on the host, on the first CS_ACT_CHECK_PLANES planes of one
+    randn * 3 tensor of CS_ACT_SHAPE, the difference taken on the card;
+    ms per call (CUDA events) on the whole tensor in float32 and bf16
+    beside relu's."""
     from multiplanarunet_tpu_torch.models.unet import get_activation
 
     gen = torch.Generator(device=dev).manual_seed(13)
     x = torch.randn(CS_ACT_SHAPE, generator=gen, device=dev) * 3.0
     x_bf = x.to(torch.bfloat16)
-    x_host = x.cpu()
+    x_check = x[:CS_ACT_CHECK_PLANES]
+    x_host = x_check.cpu()
     rows, worst = [], 0.0
     for name in ("relu",) + CS_ACTIVATIONS:
         fn = get_activation(name)
@@ -4108,7 +4255,7 @@ def cs_activations(dev, card):
         ms_bf = cuda_ms(lambda: fn(x_bf), CS_ACT_REPS)
         if fn(x_bf).dtype != torch.bfloat16:
             raise AssertionError(f"{name} left bf16")
-        got = fn(x)
+        got = fn(x_check)
         want = fn(x_host).to(dev)
         finite = torch.isfinite(want)
         same_rest = (torch.equal(finite, torch.isfinite(got)) and torch.equal(
@@ -4124,24 +4271,27 @@ def cs_activations(dev, card):
                                  f"values: {same_rest}")
     log(f"[{card}] (a) activations on {CS_ACT_SHAPE} (randn * 3), float32 / "
         f"bf16 ms per call (CUDA events, {CS_ACT_REPS} calls), float32 "
-        f"error vs the host (relative past 1, <= {CS_ACT_TOL:g}, non-finite "
-        f"values equal): " + "; ".join(rows))
+        f"error vs the host on its first {CS_ACT_CHECK_PLANES} planes "
+        f"(relative past 1, <= {CS_ACT_TOL:g}, non-finite values equal): "
+        + "; ".join(rows))
     return worst
 
 
 def cs_scaler_seconds(vol):
     """(c) Host seconds of fit + transform of the new scalers (beside the
-    PowerTransformer timed on the predict subject): box-cox on every 4th
-    voxel of the subject per axis, + 1 (strictly positive; scipy's
-    box-cox likelihood takes over a minute for a whole 256^3 subject,
-    linear in the voxels), the QuantileTransformer's normal
+    PowerTransformer timed on the predict subject): box-cox on a 64^3
+    subsample of the subject (every size // 64-th voxel per axis), + 1
+    (strictly positive; scipy's box-cox likelihood takes over a minute
+    for a whole 256^3 subject, linear in the voxels), the
+    QuantileTransformer's normal
     output, Normalizer, Binarizer, FunctionTransformer (log1p), and the
     encoders on the subject's label-like rounding (intensity / 20)."""
     from multiplanarunet_tpu_torch.preprocessing.scaling import get_scaler
 
     coded = np.round(vol / 20.0)
-    cases = ((f"PowerTransformer box-cox ({DIM // 4}^3)",
-              vol[::4, ::4, ::4] + 1.0, "PowerTransformer",
+    step = max(1, vol.shape[0] // 64)
+    cases = ((f"PowerTransformer box-cox ({vol.shape[0] // step}^3)",
+              vol[::step, ::step, ::step] + 1.0, "PowerTransformer",
               {"method": "box-cox"}),
              ("QuantileTransformer normal", vol, "QuantileTransformer",
               {"output_distribution": "normal"}),
@@ -4166,23 +4316,38 @@ def cs_scaler_seconds(vol):
     return secs, lam
 
 
-def cs_predict(dev, tmp, views, fusion, plans, card):
-    """(b) `mp predict` of one structured 256^3 subject through a project
-    whose YAML says `scaler: PowerTransformer` and `activation: mish`
-    (run_mp_predict_counted: 72 launches, gated), the PowerTransformer's
-    fit in its load timed ((c)); then in process the model built from
-    that YAML (mish, gated) and `predict_image` on that subject's
-    ImagePair, scaled by the port's PowerTransformer as mp predict fitted
-    it (one fit: about 50 s of host time at 256^3 with scipy 1.18).
-    Gate: the class maps equal in every voxel. Returns (launches, the
-    subject's volume)."""
+def cs_predict(dev, tmp, views, fusion, card):
+    """(b) `mp predict` of one structured CS_SUBJECT^3 subject through a
+    project whose YAML says `scaler: PowerTransformer` and `activation:
+    mish` (run_mp_predict_counted: the launches of the subject's plans,
+    72, gated), the PowerTransformer's fit in its load timed ((c)); then
+    in process the model built from that YAML (mish, gated) and
+    `predict_image` on that subject's ImagePair, scaled by the port's
+    PowerTransformer as mp predict fitted it. Gate: the class maps equal
+    in every voxel. Returns (launches, the subject's volume)."""
     from multiplanarunet_tpu_torch.preprocessing import scaling
 
     root = Path(tmp) / "config_surface"
     root.mkdir()
     proj, data = write_project(root, views, fusion, dev,
                                subjects=("subject_1",),
-                               edits=CS_PROJECT_EDITS)
+                               edits=CS_PROJECT_EDITS, size=CS_SUBJECT)
+    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
+    model = load_unet_weights(
+        build_model(hparams["build"], mixed_precision=True,
+                    logger=ScreenLogger(False)),
+        get_best_model(proj / "model")).to(dev)
+    if model.activation != "mish" or hparams["fit"]["scaler"] != \
+            "PowerTransformer":
+        raise AssertionError(f"project built {model.activation}, scaler "
+                             f"{hparams['fit']['scaler']}")
+    predictor = MultiViewPredictor(
+        model, sample_dim=DIM, real_space_span=hparams["fit"]["real_space_span"],
+        n_classes=N_CLASSES, device=dev)
+    subject = nifti.load(data / "images" / "subject_1.nii.gz")
+    plans = view_plans(predictor, Image(subject.get_fdata()[..., None],
+                                        np.eye(4)), views)
+    del subject
     fits, images = [], []
     original_fit = scaling.MultiChannelScaler.fit
 
@@ -4204,19 +4369,6 @@ def cs_predict(dev, tmp, views, fusion, plans, card):
         raise AssertionError(f"mp predict (PowerTransformer): {launches} "
                              f"shear-pass launches, not 72")
     t = timings["subject_1"]
-
-    hparams = YAMLHParams(proj / "train_hparams.yaml", no_log=True)
-    model = load_unet_weights(
-        build_model(hparams["build"], mixed_precision=True,
-                    logger=ScreenLogger(False)),
-        get_best_model(proj / "model")).to(dev)
-    if model.activation != "mish" or hparams["fit"]["scaler"] != \
-            "PowerTransformer":
-        raise AssertionError(f"project built {model.activation}, scaler "
-                             f"{hparams['fit']['scaler']}")
-    predictor = MultiViewPredictor(
-        model, sample_dim=DIM, real_space_span=hparams["fit"]["real_space_span"],
-        n_classes=N_CLASSES, device=dev)
     (pair,) = images
     scaler = pair.scaler
     if len(fits) != 1 or scaler.scaler_name != "PowerTransformer":
@@ -4236,7 +4388,7 @@ def cs_predict(dev, tmp, views, fusion, plans, card):
                       "PRED.nii.gz").get_raw_data()
     agree = float((pred == cls).mean())
     log(f"[{card}] (b) mp predict, PowerTransformer + mish, one structured "
-        f"{DIM}^3 subject: {wall:.1f} s wall; host load (decode + 1pct + "
+        f"{CS_SUBJECT}^3 subject: {wall:.1f} s wall; host load (decode + 1pct + "
         f"PowerTransformer fit and transform) {t['load']:.3f} s, "
         f"predict_image {t['predict']:.3f} s, save {t['save']:.3f} s; "
         f"shear-pass launches {launches} (72); in process predict_image "
@@ -4311,8 +4463,7 @@ def cs_optimizers(dev, card):
              torch.randint(0, N_CLASSES, (BATCH, DIM, DIM, 1),
                            generator=gen).to(dev),
              np.ones(BATCH, np.float32))
-    base = glorot_init(UNet(N_CLASSES, N_CHANNELS, DEPTH, CF,
-                            dtype=torch.bfloat16), seed=0)
+    base = glorot_model(torch.bfloat16)
     rows = []
     for name, kwargs in CS_OPTIMIZERS:
         model = copy.deepcopy(base).to(dev).train()
@@ -4336,7 +4487,7 @@ def cs_optimizers(dev, card):
         f"(float32) and one ulp (bf16 moments): " + "; ".join(rows))
 
 
-def phase_config_surface(dev, tmp, views, fusion, plans, card):
+def phase_config_surface(dev, tmp, views, fusion, card):
     """The configuration surface the JAX package takes by name, at full
     width: (a) cs_activations, (b) cs_predict, (c) cs_scaler_seconds, (d)
     cs_optimizers. Returns (b)'s shear-pass launches (72)."""
@@ -4344,10 +4495,11 @@ def phase_config_surface(dev, tmp, views, fusion, plans, card):
     torch.cuda.empty_cache()
     err = cs_activations(dev, card)
     marks.append(time.perf_counter())
-    launches, vol = cs_predict(dev, tmp, views, fusion, plans, card)
+    launches, vol = cs_predict(dev, tmp, views, fusion, card)
     marks.append(time.perf_counter())
     secs, lam = cs_scaler_seconds(vol)
-    log(f"(c) scalers' host seconds (fit + transform, one {DIM}^3 subject): "
+    log(f"(c) scalers' host seconds (fit + transform, one "
+        f"{vol.shape[0]}^3 subject): "
         + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
         + f"; box-cox lambda {lam:.7g}")
     del vol
@@ -4362,51 +4514,82 @@ def phase_config_surface(dev, tmp, views, fusion, plans, card):
 
 
 def main():
+    t_start = time.perf_counter()
     dev = require_cuda()
     torch.manual_seed(0)
-    card = phase_environment()
+    # Host seconds of each phase, in order
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    # nvcc runs in a thread beside the environment and the main path's
+    # set-up, which need no kernel
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    build = pool.submit(_build.kernels)
+    card = phase("environment", phase_environment)
     # Shear-pass launches of each path, each counted from 0 just before it
     # (the kernel vs plain comparisons are not counted)
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
-        predictor, images, views, fusion, plans = setup_main_path(dev, tmp)
-        err = phase_kernel_vs_plain(dev, plans)
-        phase_oracle(dev)
-        paths[f"main {DIM}^3"] = phase_main_path(dev, predictor, images, views,
-                                              fusion)
-        paths["U-Net forms A/B"] = phase_unet_variants(
-            dev, tmp, predictor, images[1], views, fusion, card)
-        phase_reference_swap(predictor, images[0], views, fusion)
-        times = phase_timing(dev, plans)
-        e, paths[f"grouped {DIM}^3"] = phase_grouped_remap(
-            dev, predictor, images[0], views, fusion, plans)
+        predictor, images, views, fusion, plans = phase(
+            "main-path set-up", setup_main_path, dev, tmp)
+        phase("kernel build", phase_kernel_build, build)
+        pool.shutdown()
+        err = phase("kernel vs plain", phase_kernel_vs_plain, dev, plans)
+        phase("oracle", phase_oracle, dev)
+        paths[f"main {DIM}^3"], main_runs = phase(
+            "main path", phase_main_path, dev, predictor, images, views,
+            fusion)
+        paths["U-Net forms A/B"] = phase(
+            "U-Net forms", phase_unet_variants, dev, tmp, predictor,
+            images[1], views, fusion, card, main_runs)
+        phase("reference swap", phase_reference_swap, predictor, images[0],
+              views, fusion)
+        times = phase("timing", phase_timing, dev, plans)
+        e, paths[f"grouped {DIM}^3"] = phase(
+            "grouped remap", phase_grouped_remap, dev, predictor, images[0],
+            views, fusion, plans)
         err = max(err, e)
-        paths[f"gather {DIM}^3"] = phase_gather(dev, predictor, images[0],
-                                             views, fusion)
-        paths["per-view API"] = phase_per_view(dev, predictor, images[0],
-                                               views, tmp, card)
+        paths[f"gather {DIM}^3"] = phase("gather", phase_gather, dev,
+                                         predictor, images[0], views, fusion)
+        paths["per-view API"] = phase("per-view", phase_per_view, dev,
+                                      predictor, images[0], views, tmp, card)
         del images
-        phase_u8(dev)
-        paths["mp predict"], predict_proj = phase_mp_predict(
-            dev, predictor, views, fusion, plans, tmp)
-        e, paths[f"{DIM_LARGE}^3"] = phase_large(dev, predictor.model, views, fusion)
+        phase("u8", phase_u8, dev)
+        paths["mp predict"], predict_proj = phase(
+            "mp predict", phase_mp_predict, dev, predictor, views, fusion,
+            plans, tmp)
+        e, paths[f"{DIM_LARGE}^3"] = phase(f"{DIM_LARGE}^3", phase_large, dev,
+                                           predictor.model, views, fusion)
         err = max(err, e)
         del predictor
-        paths["mp predict (PowerTransformer, mish)"] = phase_config_surface(
-            dev, tmp, views, fusion, plans, card)
-        proj, dirs, epochs_256 = phase_training(dev, tmp, card)
-        paths["mp predict (QuantileTransformer)"] = phase_callbacks_tools(
-            dev, tmp, proj, dirs, epochs_256, card)
-        paths["3D (in-process)"] = phase_3d(dev, tmp, proj.parent / "data",
-                                            dirs, card)
-        paths["multi-task (in-process)"] = phase_multitask(dev, tmp, dirs,
-                                                           card)
-        paths["mp predict (learned fusion)"] = phase_workflow(dev, proj, dirs,
-                                                             card)
-        paths.update(phase_multi_device(dev, tmp, card, proj, epochs_256,
-                                        predict_proj, views, fusion, plans))
+        paths["mp predict (PowerTransformer, mish)"] = phase(
+            "config surface", phase_config_surface, dev, tmp, views, fusion,
+            card)
+        proj, dirs, epochs_256 = phase("training", phase_training, dev, tmp,
+                                       card)
+        paths["mp predict (QuantileTransformer)"] = phase(
+            "callbacks and tools", phase_callbacks_tools, dev, tmp, proj,
+            dirs, epochs_256, card)
+        paths["3D (in-process)"] = phase("3D", phase_3d, dev, tmp,
+                                         proj.parent / "data", dirs, card)
+        paths["multi-task (in-process)"] = phase(
+            "multi-task", phase_multitask, dev, tmp, dirs, card)
+        paths["mp predict (learned fusion)"], fusion_ref = phase(
+            "workflow", phase_workflow, dev, proj, dirs, card)
+        paths.update(phase("multi-device", phase_multi_device, dev, tmp,
+                           card, proj, epochs_256, predict_proj, views,
+                           fusion, plans, fusion_ref))
     view0 = [times["stack"], times["remap"]]
     log(f"shear-pass launches per path: {paths}")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in seconds.items())
+        + f"; sum {sum(seconds.values()):.1f} s (wall "
+        f"{time.perf_counter() - t_start:.1f} s)")
     log(f"card: {card}")
     log(json.dumps({"kernels": [{
         "name": "shear_pass",

@@ -98,6 +98,11 @@ def get_argparser():
                              "per-channel affine uint8 codes (half the bf16 "
                              "transfer, dequantized on device; max intensity "
                              "error = channel range/510)")
+    parser.add_argument("--no_fuse_views", action="store_true",
+                        help="Dispatch each view's programs separately "
+                             "instead of the fused multi-view graph (the "
+                             "default below the big-volume HBM threshold); "
+                             "debugging/benchmark knob")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: 'cuda' (default) or 'cuda:N' "
                              "(raises when no card is visible), or 'cpu'")
@@ -447,6 +452,10 @@ def entry_func(args=None):
             compute_now=False)
         views = np.load(Path(project_dir) / "views.npz")["arr_0"]
         logger(f"Using {len(views)} views")
+        if args.no_fuse_views:
+            logger("--no_fuse_views: no change; this package always "
+                   "dispatches the views one at a time, the form the "
+                   "flag selects")
 
         model = build_model(
             hparams["build"],

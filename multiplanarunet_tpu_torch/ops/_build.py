@@ -28,8 +28,12 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("shear_pass.cu",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+# --split-compile=0 runs nvcc's optimisation of the module's functions on
+# every host core; the SASS is the same as a serial compile's, function
+# for function
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 
 class KernelBuildError(RuntimeError):

@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multiplanarunet_tpu_torch._device import resolve_device
+
 # Points per gather call in the chunked samplers: bounds the temporaries
 # (coordinates, int64 indices, gathered rows) whatever the volume size
 _CHUNK_POINTS = 1 << 24
@@ -128,11 +130,14 @@ def grid_gather(values, origin, spacing, points, method="linear", fill=None,
 
 
 # --------------------------------------------------------------------- planes
-def plane_points(basis, offset, span, dim, device="cpu"):
+def plane_points(basis, offset, span, dim, device=None):
     """(d, d, 3) float32 real-space positions of one oblique plane:
     point(i, j) = u * g[i] + v * g[j] + n_hat * offset with
     g = linspace(-span//2, span//2, dim); basis is the (u, v, n_hat)
-    column matrix of `ops.geometry.plane_basis`."""
+    column matrix of `ops.geometry.plane_basis`. On `device`: the card
+    by default (no card raises CudaUnavailableError), the CPU only when
+    named."""
+    device = resolve_device(device)
     hd = _f32(np.floor_divide(np.float32(span), np.float32(2.0)))
     g = torch.linspace(-hd, hd, int(dim), dtype=torch.float32, device=device)
     b = _as_f32(basis, device)

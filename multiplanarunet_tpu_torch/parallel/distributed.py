@@ -15,7 +15,8 @@ drives both packages:
 
 `maybe_initialize_distributed` starts the default process group over a
 tcp:// address with an explicit timeout: NCCL when the rank's device is a
-card, gloo on the CPU (or as the caller names it). The host collectives
+card (the rank's own card when no device is named), gloo on the CPU
+(named as `device="cpu"`) or as the caller names it. The host collectives
 (`process_barrier`, `broadcast_from_main`) go through a separate gloo
 group with the JAX package's one-hour barrier timeout: ranks reach them
 minutes apart, after each has predicted its own share of a cohort, and a
@@ -101,23 +102,28 @@ def maybe_initialize_distributed(logger=None, device=None, backend=None):
     """Entry-point hook (`mp train` / `mp predict` / `mp predict_3D` / `mp
     train_fusion`): start the process group when a launch marker is set
     (see `launch_config`), no-op otherwise. `device` is this rank's
-    device (it picks the backend when `backend` is None). Returns
-    (process count, process index)."""
+    device, this rank's card when None (it picks the backend when
+    `backend` is None). Returns (process count, process index)."""
     cfg = launch_config()
     if cfg is None:
         return process_count(), process_index()
     n, i = initialize_distributed(*cfg, device=device, backend=backend)
     if logger is not None:
         logger(f"Distributed: process {i + 1}/{n} "
-               f"({dist.get_backend()} group, device {device})")
+               f"({dist.get_backend()} group, device "
+               f"{device or f'cuda:{torch.cuda.current_device()}'})")
     return n, i
 
 
 def initialize_distributed(coordinator_address, num_processes, process_id,
                            device=None, backend=None, timeout=None):
     """Start the default process group at tcp://coordinator_address (no-op
-    if one is active): `backend` or, by default, nccl for a CUDA `device`
-    and gloo otherwise, with `timeout` (DEVICE_TIMEOUT by default; a gloo
+    if one is active) on `device`: this rank's card when None or 'cuda'
+    without an index (cuda:LOCAL_RANK, else process_id modulo the visible
+    cards; set as the current device; no card raises
+    CudaUnavailableError), the CPU only when named. `backend` or, by
+    default, nccl for a CUDA `device` and gloo on the CPU, with `timeout`
+    (DEVICE_TIMEOUT by default; a gloo
     group that also carries the host collectives gets HOST_TIMEOUT), and
     the gloo host group beside an nccl one. A start-up that fails raises:
     an explicit configuration never falls back to running each process
@@ -130,7 +136,13 @@ def initialize_distributed(coordinator_address, num_processes, process_id,
                 f"a process group of {dist.get_world_size()} processes is "
                 f"already active; asked for {num_processes}")
         return process_count(), process_index()
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        index = device.index
+        if index is None:
+            index = int(os.environ.get(
+                "LOCAL_RANK", process_id % max(1, torch.cuda.device_count())))
+        device = require_cuda(index)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if timeout is None:

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from multiplanarunet_tpu_torch._device import resolve_device
+
 DATA_AXIS = "data"
 
 
@@ -71,9 +73,10 @@ def _tree_map(fn, tree):
 def shard_batch(batch, mesh=None, device=None):
     """This rank's share of a global batch (a pytree of arrays or tensors:
     its LOCAL slice, as `local_batch_slice` sizes it) as tensors on
-    `device` (the CPU by default). The mesh only names the layout: each
-    rank holds its own rows, and no rows cross ranks."""
-    device = torch.device("cpu" if device is None else device)
+    `device`: the card by default (no card raises CudaUnavailableError),
+    the CPU only when named. The mesh only names the layout: each rank
+    holds its own rows, and no rows cross ranks."""
+    device = resolve_device(device)
     return _tree_map(
         lambda x: torch.as_tensor(np.asarray(x) if not isinstance(
             x, torch.Tensor) else x).to(device, non_blocking=True), batch)

@@ -430,6 +430,31 @@ def test_mp_predict_single_file_and_u8(project):
     _compare(project, "port_u8", "jax_learned")
 
 
+def test_mp_predict_no_fuse_views(project):
+    """The JAX package's --no_fuse_views parses and changes nothing: the
+    same files with the same class maps and result tables as a run
+    without it, and one log line saying the views go one at a time."""
+    run_port(project, "port_fused")
+    run_port(project, "port_no_fuse", "--no_fuse_views")
+
+    def files(out):
+        return sorted(p.relative_to(project / out)
+                      for p in (project / out).rglob("*") if p.is_file())
+
+    assert files("port_no_fuse") == files("port_fused")
+    for case in ("case_a", "case_b"):
+        np.testing.assert_array_equal(_pred(project, "port_no_fuse", case),
+                                      _pred(project, "port_fused", case))
+    for table in (project / "port_fused" / "csv").iterdir():
+        assert (project / "port_no_fuse" / "csv" / table.name
+                ).read_text() == table.read_text()
+    _compare(project, "port_no_fuse", "jax_learned")
+    log = (project / "port_no_fuse" / "predict_log.txt").read_text()
+    assert log.count("one at a time") == 1
+    assert "one at a time" not in (
+        project / "port_fused" / "predict_log.txt").read_text()
+
+
 def test_mp_predict_continue(project):
     """--continue skips the images already in nii_files and updates the
     reloaded result tables; without it an existing out_dir raises."""

@@ -134,7 +134,8 @@ start3, local3 = local_batch_slice(int(data["x3d"].shape[0]))
 tr3 = trainer_for(UNet3D(3, 1, depth=1, init_filters=4), "w3d.npz")
 sl = slice(start3, start3 + local3)
 res["loss3d"] = float(tr3.train_step(
-    *shard_batch((data["x3d"][sl], data["y3d"][sl], data["w3d"][sl]))
+    *shard_batch((data["x3d"][sl], data["y3d"][sl], data["w3d"][sl]),
+                 device=cpu)
 )["loss"])
 flat_params(tr3.model, "3d")
 trm = trainer_for(MultiTaskUNet2D(("a", "b"), (3, 4), (1, 1), depth=1,
@@ -506,7 +507,7 @@ def test_explicit_multiprocess_startup_failure_raises(tmp_path):
         "initialize_distributed, process_count\n"
         "try:\n"
         f"    initialize_distributed('localhost:{_free_port()}', 2, 0, "
-        "timeout=timedelta(seconds=3))\n"
+        "device='cpu', timeout=timedelta(seconds=3))\n"
         "except RuntimeError as e:\n"
         "    print('RAISED', process_count(), str(e)[:80])\n"
         "else:\n"

@@ -80,7 +80,7 @@ def test_plane_points_and_pack_corners_match_jax():
     basis = jgeo.plane_basis(np.array([0.3, -0.5, 0.8]))
     for span, dim, off in ((31.0, 32, 0.0), (40.5, 24, -3.25)):
         np.testing.assert_allclose(
-            tint.plane_points(basis, off, span, dim).numpy(),
+            tint.plane_points(basis, off, span, dim, device="cpu").numpy(),
             np.asarray(jint.plane_points(jnp.asarray(basis), off, span,
                                          dim)), atol=1e-5)
     rng = np.random.RandomState(3)
