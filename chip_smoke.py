@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (multiplanarunet_tpu_torch) on one NVIDIA
-GPU: builds the CUDA shear-pass kernel from csrc/ (no instantiation may
-keep a stack frame or spill), holds it against its plain PyTorch version
-on every specialisation, checks the predictor's geometry with a one-hot
+GPU: builds the CUDA kernels from csrc/ (one nvcc per source, in
+parallel; no instantiation may keep a stack frame or spill), holds the
+shear pass against its plain PyTorch version on every specialisation and
+the threefry2x32 draws against theirs, bit for bit, at the training
+paths' sizes (`phase_threefry`: Elastic2D and Elastic3D batches, a 256^3
+permutation, the full-width 2D init; with one Elastic2D batch on the card
+against the CPU from one key), checks the predictor's geometry with a one-hot
 oracle (shear, gather and auto's fallback), then drives fused multi-view
 inference at full width (U-Net complexity_factor 2, depth 4, dim 256, 7
 classes; 6 views + learned fusion over 256^3 volumes, bench.py's
@@ -78,14 +82,18 @@ given no device. Each path's shear-pass launches are
 counted from 0 just before it and gated against what its plans and remap
 modes say (the training, 3D, multi-task and fusion-training paths
 themselves launch none; the two-process `mp predict` reads its launches
-from the ranks' logs).
+from the ranks' logs). Each phase's threefry launches are counted from 0
+at its start, and each `mp train` and `mp train_fusion` reports its own
+in its log: every one of them, and the in-process training, 3D and
+multi-task checks, must have drawn through the kernel.
 
 The script aims to finish within 600 s on an H100, half its 1200 s
 limit, and prints each phase's host seconds and their sum on a line
 before the kernels line. nvcc builds the kernel in a thread beside the
 main path's set-up; the fused-probability check takes the main path's
 class map of its first volume; the full-width models of the step checks
-are copies of one glorot initialisation per model (glorot_model). Some
+are copies of one initialisation per model (glorot_model, drawn on the
+card). Some
 earlier paths run at a cut depth or scale, each keeping its gate:
 
 - U-Net forms: predict-256 in the naive form runs twice on the main
@@ -149,6 +157,7 @@ import torch
 from torch import nn
 
 from multiplanarunet_tpu_torch._device import require_cuda
+from multiplanarunet_tpu_torch.augmentation.augmenters import Elastic2D
 from multiplanarunet_tpu_torch.bin import mp as port_mp
 from multiplanarunet_tpu_torch.bin import train_fusion as port_train_fusion
 from multiplanarunet_tpu_torch.callbacks.validation import Validation
@@ -176,9 +185,10 @@ from multiplanarunet_tpu_torch.models.model_init import (
     load_unet_weights,
 )
 from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
+from multiplanarunet_tpu_torch.models import unet as unet_module
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
-from multiplanarunet_tpu_torch.ops import _build, geometry
+from multiplanarunet_tpu_torch.ops import _build, elastic, geometry, prng
 from multiplanarunet_tpu_torch.ops.interp import (
     map_view_pred_to_voxels,
     sample_plane_stack_packed,
@@ -513,11 +523,12 @@ def phase_environment():
 
 
 def phase_kernel_build(build):
-    """The kernel library from `build` (a future of _build.kernels(),
-    started beside the main path's set-up, which needs no kernel): its
+    """The kernel libraries from `build` (a future of _build.kernels(),
+    started beside the main path's set-up, which needs no kernel): their
     build time and the ptxas report, gated."""
     k = build.result()
-    log(f"kernel library {k.path.name}: built in {k.build_seconds:.2f} s")
+    log(f"kernel libraries {[p.name for p in k.paths.values()]}: built in "
+        f"{k.build_seconds:.2f} s (one nvcc per source, in parallel)")
     # ptxas -v: per function "N bytes stack frame, N bytes spill stores, N
     # bytes spill loads", then "Used N registers"; every instantiation must
     # keep no stack frame and spill nothing
@@ -613,6 +624,160 @@ def phase_kernel_vs_plain(dev, main_plans):
             raise AssertionError(f"shear_resample kernel vs plain {e}")
         worst = max(worst, e)
     return worst
+
+
+# ------------------------------------------------------------ threefry2x32
+# The card's int32 rate, for the threefry kernel's bound: 64 int32 lanes
+# per SM (NVIDIA's Hopper architecture white paper) x 132 SMs x 1.98 GHz
+# (the H100 SXM's boost clock)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per value of csrc/threefry.cu: the counter split and
+# the two first key adds (3), 20 rounds of add, funnel shift and xor (60),
+# 5 key injections of two adds (10) and the closing xor (1); the uniform
+# adds a shift and an or (its float steps run on the float32 pipe)
+THREEFRY_OPS = {prng.BITS: 74, prng.UNIFORM: 76}
+# An Elastic2D batch on the card against the CPU from one key: the fields
+# agree bit for bit, the 129-tap blur sums in another order (float32,
+# relative error below 129 * 2^-24 of the field's absolute sum, which at
+# alpha 450 bounds the displacement's error by 3.5e-3 pixel), and a
+# unit-range white-noise image moves by at most that; a label flips only
+# where a fraction lies that close to the nearest-neighbour tie at 0.5
+ELASTIC_CARD_TOL, ELASTIC_CARD_SHARE = 4e-3, 0.999
+
+
+def threefry_bound_ms(n, mode):
+    """The least milliseconds the card could take for n draws: the larger
+    of the int32 operations over the int32 rate and the 4 bytes written
+    per value over HBM's rate."""
+    return max(n * THREEFRY_OPS[mode] / INT32_OPS_PER_S,
+               4 * n / HBM_BYTES_PER_S) * 1e3
+
+
+def threefry_cases():
+    """The draws of the training paths at their full sizes, as (name, [(key,
+    shape, mode, scale)], permuted n or None): Elastic2D's two fields of a
+    train-256 batch, Elastic3D's three of a train3d-64 batch, the
+    permutation of a 256^3 volume's voxels (--max_points_per_image: 3
+    rounds of 2^24 sort keys) and the 2D model's glorot init (cf 2, depth
+    4: every kernel in flax's shape with its scope's key and scale)."""
+    key = prng.fold_in(prng.PRNGKey(7), 1)
+    with torch.device("meta"):
+        model = UNet(N_CLASSES, N_CHANNELS, DEPTH, CF)
+    init = [(unet_module.scope_key(prng.PRNGKey(0), path[:-1], 1), shape,
+             prng.UNIFORM, unet_module.glorot_scale(shape))
+            for _, path, shape in checkpoint.flax_variables(model)
+            if path[-1] == "kernel"]
+    n_perm = DIM ** 3
+    perm_keys = []
+    pkey = prng.PRNGKey(1000)
+    for _ in range(prng.num_shuffle_rounds(n_perm)):
+        pkey, sub = prng.split(pkey)
+        perm_keys.append((sub, (n_perm,), prng.BITS, 1.0))
+    return [
+        (f"Elastic2D, train-256 batch ({BATCH} x {DIM}^2 x 2)",
+         [(k, (BATCH, DIM, DIM), prng.UNIFORM, 1.0)
+          for k in prng.split(key)], None),
+        (f"Elastic3D, train3d-64 batch ({BATCH} x {DIM_3D}^3 x 3)",
+         [(k, (BATCH,) + (DIM_3D,) * 3, prng.UNIFORM, 1.0)
+          for k in prng.split(key, 3)], None),
+        (f"permutation of {DIM}^3 voxels ({len(perm_keys)} rounds)",
+         perm_keys, n_perm),
+        (f"2D init (cf {CF:g}, depth {DEPTH})", init, None),
+    ]
+
+
+def _draw_all(draws, dev, fn):
+    """fn's draws of every (key, shape, mode, scale), flat, in order."""
+    out = []
+    for key, shape, mode, scale in draws:
+        lo, span = (-1.0, 2.0) if mode == prng.UNIFORM else (0.0, 1.0)
+        out.append(fn(key, int(np.prod(shape)), mode, span, lo, scale,
+                      device=dev))
+    return out
+
+
+def phase_threefry(dev, card):
+    """The threefry kernel against its plain version on the card, bit for
+    bit, at the training paths' sizes (threefry_cases), and the full
+    permutation through each; kernel, plain and torch.rand ms beside the
+    bound at each size; one Elastic2D batch on the card against the same
+    key on the CPU (fields equal bit for bit there too). Returns the
+    kernel's numbers for the kernels line."""
+    rows = []
+    for name, draws, n_perm in threefry_cases():
+        got = _draw_all(draws, dev, prng.threefry2x32)
+        want = _draw_all(draws, dev, prng.threefry2x32_reference)
+        n = sum(g.numel() for g in got)
+        err = 0.0
+        for g, w in zip(got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"threefry kernel differs from its "
+                                     f"plain version: {name}")
+            if g.dtype == torch.float32:
+                err = max(err, (g - w).abs().max().item())
+        del got, want
+        reps = 10 if n < 3e7 else 4
+        ms = cuda_ms(lambda: _draw_all(draws, dev, prng.threefry2x32), reps)
+        plain_ms = cuda_ms(lambda: _draw_all(
+            draws, dev, prng.threefry2x32_reference), 2)
+        rand_ms = cuda_ms(lambda: torch.rand(n, device=dev), reps)
+        bound = sum(threefry_bound_ms(int(np.prod(shape)), mode)
+                    for _, shape, mode, _ in draws)
+        extra = ""
+        if n_perm:
+            key = prng.PRNGKey(1000)
+            perm = prng.permutation(key, n_perm, device=dev)
+            if not torch.equal(perm, prng.permutation_reference(key, n_perm,
+                                                                dev)):
+                raise AssertionError("permutation through the kernel "
+                                     "differs from the plain version's")
+            if not torch.equal(torch.sort(perm).values,
+                               torch.arange(n_perm, device=dev)):
+                raise AssertionError("permutation is not one")
+            p_ms = cuda_ms(lambda: prng.permutation(key, n_perm, device=dev),
+                           2)
+            pp_ms = cuda_ms(lambda: prng.permutation_reference(
+                key, n_perm, dev), 1)
+            extra = (f"; the whole permutation (draws + stable sorts + "
+                     f"gathers) {p_ms:.3f} ms, with the plain draws "
+                     f"{pp_ms:.3f} ms, indices equal")
+        log(f"[{card}] threefry2x32 {name}: {n} values in {len(draws)} "
+            f"launches, bit-equal to the plain version; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms (int32 "
+            f"operations; the kernel at {100 * bound / ms:.1f}% of it), "
+            f"torch.rand of as many {rand_ms:.4f} ms (for scale){extra}")
+        rows.append(dict(name=name, n=n, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, err=err))
+
+    # One Elastic2D batch of train-256 on the card and on the CPU
+    aug = Elastic2D(alpha=[0, 450], sigma=[20, 30], apply_prob=1.0, seed=7)
+    key, alphas, sigmas, apply = aug.draw_batch_params(BATCH)
+    rng = np.random.RandomState(7)
+    images = rng.rand(BATCH, DIM, DIM, N_CHANNELS).astype(np.float32)
+    labels = rng.randint(0, N_CLASSES, (BATCH, DIM, DIM)).astype(np.float32)
+    bg = np.zeros((BATCH, N_CHANNELS), np.float32)
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        out[name] = [t.cpu() for t in elastic.elastic_deform_2d_batch(
+            key, torch.from_numpy(images).to(d),
+            torch.from_numpy(labels).to(d), alphas, sigmas, apply, bg)]
+    fields_equal = torch.equal(
+        prng.uniform(key, (BATCH, DIM, DIM), -1.0, 1.0, device=dev).cpu(),
+        prng.uniform(key, (BATCH, DIM, DIM), -1.0, 1.0, device="cpu"))
+    img_err = (out["card"][0] - out["cpu"][0]).abs().max().item()
+    share = (out["card"][1] == out["cpu"][1]).float().mean().item()
+    log(f"[{card}] Elastic2D batch ({BATCH} x {DIM}^2, alpha up to 450, "
+        f"sigma 20-30) from one key, card vs CPU: noise fields bit-equal "
+        f"{fields_equal}; images max abs err {img_err:.3g} (<= "
+        f"{ELASTIC_CARD_TOL}), labels equal on {share:.6f} of pixels (>= "
+        f"{ELASTIC_CARD_SHARE})")
+    if not (fields_equal and img_err <= ELASTIC_CARD_TOL
+            and share >= ELASTIC_CARD_SHARE):
+        raise AssertionError("Elastic2D on the card differs from the CPU")
+    return dict(ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                max_abs_err=max(r["err"] for r in rows))
 
 
 def oracle_labels(size=64):
@@ -1850,6 +2015,21 @@ def write_train_project(root, dev):
     return proj, dirs
 
 
+# Threefry launches that `mp train` and `mp train_fusion` subprocesses
+# logged, by path
+LOGGED_DRAWS = {}
+
+
+def logged_draws(text):
+    """The threefry launches a script's log reports on its last such line
+    (a run appends to the log of an earlier one)."""
+    found = [int(line.rsplit(":", 1)[1]) for line in text.splitlines()
+             if "threefry2x32 launches: " in line]
+    if not found:
+        raise AssertionError("the script's log reports no threefry launches")
+    return found[-1]
+
+
 def run_mp_train(proj, dev, n_epochs=TRAIN_EPOCHS, images=TRAIN_IMAGES,
                  val_images=VAL_IMAGES, sampler="Sampler: pooled path",
                  no_images=True):
@@ -1875,6 +2055,8 @@ def run_mp_train(proj, dev, n_epochs=TRAIN_EPOCHS, images=TRAIN_IMAGES,
     if sampler not in text:
         raise AssertionError(f"mp train's log lacks {sampler!r}: it did not "
                              f"sample on the pooled path")
+    LOGGED_DRAWS[f"mp train {proj.parent.name}/{proj.name}"] = logged_draws(
+        text)
     return wall, epochs
 
 
@@ -2011,11 +2193,10 @@ def profile_steps(step, batches, n=3):
 
 @functools.cache
 def glorot_model(dtype, seed=0, three_d=False, multitask=False):
-    """The glorot-initialised (from `seed`) full-width UNet (the 3D
-    preset's UNet3D with three_d, the MultiTask preset's two-task model
-    with multitask) on the host, built once: glorot_init draws its
-    weights on one host core (about 1.5 s for the 2D model's 62 M), and
-    every caller takes a copy."""
+    """The full-width UNet (the 3D preset's UNet3D with three_d, the
+    MultiTask preset's two-task model with multitask) on the host with
+    the JAX package's initial weights from PRNGKey(seed), drawn on the
+    card (glorot_init), built once: every caller takes a copy."""
     if multitask:
         model = MultiTaskUNet2D(MT_TASKS, MT_CLASSES, [N_CHANNELS] * 2,
                                 MT_DIMS, DEPTH, CF, dtype=dtype)
@@ -2340,10 +2521,11 @@ def pool_build_blocks(seq):
 
 def check_pooled_card_vs_cpu(seq, n_batches, card):
     """Pooled batches of copies of `seq` on the card and on the CPU (own
-    pools, no augmenters: Elastic2D's fields come from device generators)
-    from the same numpy seed: images within CPU_IMAGE_TOL of the largest
-    |intensity|, labels equal on CPU_LABEL_SHARE of pixels, weights equal,
-    and the batch contract. Gates the card pool's bytes: the bytes that
+    pools, no augmenters: the warp's blur sums in another order on each,
+    so phase_threefry holds an Elastic2D batch card vs CPU at its own
+    tolerance) from the same numpy seed: images within CPU_IMAGE_TOL of
+    the largest |intensity|, labels equal on CPU_LABEL_SHARE of pixels,
+    weights equal, and the batch contract. Gates the card pool's bytes: the bytes that
     building it allocated (`pool_build_blocks`), equal to capacity x
     padded shape x (C x 4 + label itemsize). Returns the card pool's
     bytes."""
@@ -3621,6 +3803,8 @@ def phase_workflow(dev, proj, dirs, card):
         ["train_fusion", "--project_dir", str(proj), "--device", str(dev),
          *FUSION_ARGS], timeout=600)
     fusion_file, fusion, numbers = check_fusion_outputs(proj)
+    LOGGED_DRAWS["mp train_fusion"] = logged_draws(
+        (proj / "logs" / "train_fusion.txt").read_text())
     n_epochs = [int(f.split()[1]) for f in numbers["fits"]]
     log(f"[{card}] mp train_fusion: {fusion_wall:.1f} s wall, 2 rounds of 2 "
         f"images; points per round {numbers['points']} ("
@@ -4517,12 +4701,15 @@ def main():
     t_start = time.perf_counter()
     dev = require_cuda()
     torch.manual_seed(0)
-    # Host seconds of each phase, in order
-    seconds = {}
+    # Host seconds of each phase, in order, and the threefry launches of
+    # this process in each (counted from 0 at its start)
+    seconds, draws = {}, {}
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
+        prng.threefry2x32.launches = 0
         result = fn(*args)
+        draws[name] = prng.threefry2x32.launches
         seconds[name] = time.perf_counter() - t0
         return result
 
@@ -4540,6 +4727,7 @@ def main():
         phase("kernel build", phase_kernel_build, build)
         pool.shutdown()
         err = phase("kernel vs plain", phase_kernel_vs_plain, dev, plans)
+        threefry = phase("threefry vs plain", phase_threefry, dev, card)
         phase("oracle", phase_oracle, dev)
         paths[f"main {DIM}^3"], main_runs = phase(
             "main path", phase_main_path, dev, predictor, images, views,
@@ -4586,6 +4774,19 @@ def main():
                            fusion, plans, fusion_ref))
     view0 = [times["stack"], times["remap"]]
     log(f"shear-pass launches per path: {paths}")
+    # The threefry kernel's comparisons with its plain version do not
+    # count; every path that trains draws through it: each `mp train` and
+    # `mp train_fusion` (their logs) and the in-process training, 3D and
+    # multi-task checks (init, sampler batches)
+    del draws["threefry vs plain"]
+    drawn = {**{f"{k} (in-process)": v for k, v in draws.items() if v},
+             **LOGGED_DRAWS}
+    log(f"threefry2x32 launches per path: {drawn}")
+    idle = [k for k in ("training", "3D", "multi-task") if not draws[k]]
+    idle += [k for k, v in LOGGED_DRAWS.items() if not v]
+    if idle or not any(k.startswith("mp train_fusion") for k in drawn):
+        raise AssertionError(f"paths that draw launched no threefry "
+                             f"kernel: {idle or 'mp train_fusion'}")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f} s (wall "
@@ -4603,6 +4804,19 @@ def main():
         "bound_ms": sum(t["bound_ms"] for t in view0),
         "bound_by": "bytes",
         "library_ms": sum(t["library_ms"] for t in view0),
+    }, {
+        "name": "threefry2x32",
+        "route": "cuda",
+        "source": "multiplanarunet_tpu_torch/csrc/threefry.cu",
+        "replaces": "jax.random threefry2x32 under XLA, "
+                    "multiplanarunet_tpu/ops/elastic.py:124-126",
+        "launches": sum(drawn.values()),
+        "max_abs_err": threefry["max_abs_err"],
+        "ms": threefry["ms"],
+        "plain_ms": threefry["plain_ms"],
+        "bound_ms": threefry["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,12 @@ slices or boxes on its device in one call of
 `ops.elastic.elastic_deform_{2d,3d}_batch`.
 
 Per batch, the host draws apply_mask, then alphas, then sigmas from the
-augmenter's numpy RandomState, in the JAX package's order (and, without a
-seed, one randint(2**31) for the noise stream's seed, as the JAX package
-draws its PRNG key's). The noise fields come from a torch.Generator on the
-batch's device seeded with that seed; the JAX package's come from its
-PRNG, so the fields themselves differ.
+augmenter's numpy RandomState, in the JAX package's order, and derives the
+batch's key as the JAX package does: fold_in(PRNGKey(seed), count), the
+count starting at 1 (without a seed, PRNGKey of one randint(2**31) drawn
+at construction). The noise fields come from that key through `ops.prng`
+on the batch's device, so a seeded augmenter deforms a batch as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multiplanarunet_tpu_torch.ops import prng
 from multiplanarunet_tpu_torch.ops.elastic import (
     elastic_deform_2d_batch,
     elastic_deform_3d_batch,
@@ -56,29 +58,39 @@ class Elastic(Augmenter):
         self.apply_prob = apply_prob
         self.weight = aug_weight
         self._rng = np.random.RandomState(seed)
-        self.noise_seed = int(seed if seed is not None
-                              else self._rng.randint(2 ** 31))
-        self._generators = {}
+        self._key = prng.PRNGKey(seed if seed is not None
+                                 else self._rng.randint(2 ** 31))
+        self._count = 0
 
     def _draw(self, value, n):
         if isinstance(value, (list, tuple)):
             return self._rng.uniform(value[0], value[1], size=n)
         return np.full(n, float(value))
 
+    def _next_count(self):
+        """The next batch's count: its key is fold_in(base_key, count)."""
+        self._count += 1
+        return self._count
+
+    @property
+    def base_key(self):
+        """The fixed base PRNG key; fold_in(base_key, count) with
+        `draw_batch_params_host`'s count is `draw_batch_params`' key."""
+        return self._key
+
     def draw_batch_params(self, batch_size):
-        """One batch's host draws: (alphas, sigmas, apply_mask)."""
+        """One batch's draws: (key, alphas, sigmas, apply_mask), in the
+        JAX package's order."""
+        count, *params = self.draw_batch_params_host(batch_size)
+        return (prng.fold_in(self._key, count), *params)
+
+    def draw_batch_params_host(self, batch_size):
+        """`draw_batch_params` with the batch's count in place of its key:
+        (count, alphas, sigmas, apply_mask)."""
         apply_mask = self._rng.rand(batch_size) <= self.apply_prob
         alphas = self._draw(self._alpha, batch_size)
         sigmas = self._draw(self._sigma, batch_size)
-        return alphas, sigmas, apply_mask
-
-    def generator(self, device):
-        """The noise stream on `device` (one per device, seeded alike)."""
-        device = torch.device(device)
-        if device not in self._generators:
-            self._generators[device] = torch.Generator(
-                device=device).manual_seed(self.noise_seed)
-        return self._generators[device]
+        return self._next_count(), alphas, sigmas, apply_mask
 
     def __call__(self, batch_x, batch_y, batch_w=None, bg_values=None):
         """Deform (B, *spatial, C) images and (B, *spatial[, 1]) labels;
@@ -90,15 +102,14 @@ class Elastic(Augmenter):
                if batch_y is None else batch_y.float())
         if lab.shape[-1] == 1 and lab.dim() == batch_x.dim():
             lab = lab[..., 0]
-        alphas, sigmas, apply_mask = self.draw_batch_params(B)
+        key, alphas, sigmas, apply_mask = self.draw_batch_params(B)
         if bg_values is None:
             bg = np.zeros((B, C), np.float32)
         else:
             bg = np.array(np.broadcast_to(
                 np.asarray(bg_values, np.float32).reshape(B, -1), (B, C)))
-        x_out, y_out = type(self).deform_fn(
-            batch_x, lab, alphas, sigmas, apply_mask, bg,
-            generator=self.generator(dev))
+        x_out, y_out = type(self).deform_fn(key, batch_x, lab, alphas,
+                                            sigmas, apply_mask, bg)
         if batch_w is not None:
             batch_w = np.asarray(batch_w, np.float32).copy()
             batch_w[apply_mask] = self.weight

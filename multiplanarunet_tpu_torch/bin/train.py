@@ -170,7 +170,7 @@ def get_data_sequences(project_dir, hparams, logger, args, device):
         base_path=project_dir, device=device)
 
 
-def get_model(project_dir, train_seq, hparams, logger, args):
+def get_model(project_dir, train_seq, hparams, logger, args, device=None):
     from multiplanarunet_tpu_torch.models.model_init import model_initializer
     from multiplanarunet_tpu_torch.utils.utils import (
         estimate_class_frequencies,
@@ -180,7 +180,7 @@ def get_model(project_dir, train_seq, hparams, logger, args):
     model, init_epoch, restored_lr = model_initializer(
         hparams=hparams, continue_training=args.continue_training,
         project_dir=project_dir, logger=logger,
-        initialize_from=args.initialize_from)
+        initialize_from=args.initialize_from, device=device)
     if isinstance(hparams["build"].get("n_classes"), (list, tuple)):
         # Multi-task: per-task output layers, which the shared class
         # frequency estimate cannot bias
@@ -210,6 +210,7 @@ def run(project_dir, logger, args, device):
         remove_validation_callbacks,
     )
     from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
+    from multiplanarunet_tpu_torch.ops import prng
     from multiplanarunet_tpu_torch.parallel.distributed import is_main_process
     from multiplanarunet_tpu_torch.train.trainer import Trainer
 
@@ -222,7 +223,7 @@ def run(project_dir, logger, args, device):
     train, val = get_data_sequences(project_dir, hparams, logger, args,
                                     device)
     model, init_epoch, restored_lr = get_model(project_dir, train, hparams,
-                                               logger, args)
+                                               logger, args, device)
     logger(f"Using device {device}")
     trainer = Trainer(model, logger=logger, device=device,
                       pad_global_batch=args.num_devices > 1)
@@ -266,6 +267,9 @@ def run(project_dir, logger, args, device):
         if is_main_process():
             save_final_weights(trainer, project_dir, logger)
     hparams.save_current()  # the main process only
+    # The random draws' kernel launches of this process (weights and
+    # augmentation; 0 on the CPU, where the plain version draws)
+    logger(f"threefry2x32 launches: {prng.threefry2x32.launches}")
     return trainer
 
 

@@ -14,9 +14,12 @@ confusion counts) is fetched per epoch.
 
 The numpy draws are the JAX package's, in its order (the image top-up,
 the 80/20 split, one draw per round that seeds the epoch shuffles), so
---seed leaves numpy's stream where the JAX package leaves it. The shuffles
-themselves and the --max_points_per_image subsets come from torch
-generators, not from jax.random.
+--seed leaves numpy's stream where the JAX package leaves it. The epoch
+shuffles and the --max_points_per_image subsets are the JAX package's
+jax.random draws, through `ops.prng`: each epoch splits the round's key
+PRNGKey(that draw) and shuffles with `permutation(epoch key, n_train)`;
+the subset of image i of round r is the first max_points of
+`permutation(PRNGKey(r * 1000 + i), n_voxels)`.
 
 Under a launch marker (MPUNET_* or torchrun's) each process is one rank
 of a gloo group: the main process's draw of the image set is broadcast,
@@ -130,6 +133,7 @@ def _fit_fusion(points, targets, n_views, n_classes, args, logger,
         FusionModel,
         params_tree,
     )
+    from multiplanarunet_tpu_torch.ops import prng
     from multiplanarunet_tpu_torch.train.optimizers import Adam
 
     points = torch.as_tensor(points).to(torch.float32)
@@ -158,15 +162,13 @@ def _fit_fusion(points, targets, n_views, n_classes, args, logger,
         opt.step()
         return loss.detach()
 
-    # The epoch shuffles' generator is seeded by the draw the JAX package
-    # makes for its PRNGKey
-    gen = torch.Generator(device=dev).manual_seed(
-        int(np.random.randint(2 ** 31)))
+    key = prng.PRNGKey(np.random.randint(2 ** 31))
     best_dice, wait = -1.0, 0
     best = (fm.W.detach().clone(), fm.b.detach().clone())
     t0, epochs_run = time.perf_counter(), 0
     for epoch in range(args.epochs):
-        idx = torch.randperm(n_tr, generator=gen, device=dev)
+        key, epoch_key = prng.split(key)
+        idx = prng.permutation(epoch_key, n_tr, device=dev)
         idx = idx[: n_batches * bs].reshape(n_batches, bs)
         mean_loss = torch.stack([step(Xtr[b], ytr[b]) for b in idx]).mean()
         counts = val_counts(fm, Xval, yval, n_classes)
@@ -239,6 +241,7 @@ def run(project_dir, args, device, logger):
         build_model,
         load_unet_weights,
     )
+    from multiplanarunet_tpu_torch.ops import prng
     from multiplanarunet_tpu_torch.parallel.distributed import (
         process_barrier,
         process_count,
@@ -303,12 +306,10 @@ def run(project_dir, args, device, logger):
             with image.loaded_in_context():
                 logger(f"Mapping views over {image.identifier}...")
                 # Each image's subset depends on (round, index) alone
-                gen = torch.Generator(device=device).manual_seed(
-                    rnd * 1000 + i)
                 pts, tgt = predictor.predict_views_points(
                     image, views, n_planes=args.n_planes,
                     max_points=args.max_points_per_image or None,
-                    generator=gen)
+                    key=prng.PRNGKey(rnd * 1000 + i))
                 if n_procs > 1:
                     np.savez(points_tmp / f"r{rnd}_i{i:04d}.npz",
                              pts=pts.cpu().numpy(), tgt=tgt.cpu().numpy())
@@ -353,6 +354,9 @@ def run(project_dir, args, device, logger):
     if device.type == "cuda":
         logger(f"Peak allocated device memory: "
                f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB")
+    # The random draws' kernel launches of this process (shuffles and
+    # point subsets; 0 on the CPU, where the plain version draws)
+    logger(f"threefry2x32 launches: {prng.threefry2x32.launches}")
     return fusion_params
 
 

@@ -8,6 +8,7 @@ from multiplanarunet_tpu_torch.models.fusion_model import (  # noqa: F401
 from multiplanarunet_tpu_torch.models.model_init import (  # noqa: F401
     MODELS,
     build_model,
+    init_model_variables,
     model_initializer,
 )
 from multiplanarunet_tpu_torch.models.multitask_unet import (  # noqa: F401

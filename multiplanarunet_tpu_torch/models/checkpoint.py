@@ -88,11 +88,14 @@ _BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
 
 def _kernel_to_torch(arr):
     """A flax conv kernel (*spatial, I, O) as torch's (O, I, *spatial); any
-    other array as it is."""
+    other array as it is (numpy arrays and tensors alike)."""
     if arr.ndim < 4:
         return arr
     n = arr.ndim
-    return arr.transpose((n - 1, n - 2) + tuple(range(n - 2)))
+    order = (n - 1, n - 2) + tuple(range(n - 2))
+    if isinstance(arr, torch.Tensor):
+        return arr.permute(order)
+    return arr.transpose(order)
 
 
 def _kernel_to_flax(arr):
@@ -116,9 +119,25 @@ def _flax_key(torch_key):
     return coll, tuple(mods) + (flax_leaf,)
 
 
+def flax_variables(model):
+    """[(collection, flax path, flax shape)] of every entry of `model`'s
+    state that has a flax counterpart, in state-dict order: conv kernels
+    in flax's (*spatial, I, O) order, the rest as torch holds them."""
+    out = []
+    for key, ref in model.state_dict().items():
+        flax = _flax_key(key)
+        if flax is not None:
+            shape = tuple(ref.shape)
+            if len(shape) >= 4:
+                shape = shape[2:] + (shape[1], shape[0])
+            out.append(flax + (shape,))
+    return out
+
+
 def unet_state_dict_from_jax(params, batch_stats, model):
     """Map a flax UNet, UNet3D or MultiTaskUNet2D variable tree onto
-    `model`'s state dict.
+    `model`'s state dict. The tree's leaves are numpy arrays (the state
+    is then on the host) or tensors (the state stays on their device).
 
     Conv kernels go HWIO -> OIHW (DHWIO -> OIDHW in 3D); BatchNorm
     scale/bias/mean/var go to weight/bias/running_mean/running_var.
@@ -140,12 +159,16 @@ def unet_state_dict_from_jax(params, batch_stats, model):
                 raise KeyError(f"{coll}/{'/'.join(path)} missing (needed "
                                f"for {key})")
             node = node[p]
-        arr = _kernel_to_torch(np.asarray(node, np.float32))
+        if isinstance(node, torch.Tensor):
+            arr = _kernel_to_torch(node.float())
+        else:
+            arr = _kernel_to_torch(np.asarray(node, np.float32))
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{coll}/{'/'.join(path)} has shape "
                              f"{tuple(arr.shape)} (as {key}); the model "
                              f"needs {tuple(ref.shape)}")
-        state[key] = torch.from_numpy(np.array(arr))
+        state[key] = (arr.contiguous() if isinstance(arr, torch.Tensor)
+                      else torch.from_numpy(np.array(arr)))
         used.add((coll,) + path)
     for coll, tree in trees.items():
         for path in _leaf_paths(tree):

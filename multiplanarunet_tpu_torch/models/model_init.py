@@ -5,10 +5,11 @@ Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet`,
 the `UNet3D`, the `MultiTaskUNet2D` and the `FusionModel`: the model from
 the build group,
 its weights from the JAX package's checkpoint files, and
-`model_initializer` for `mp train` (a fresh glorot-uniform init from a
-seed, `--continue_training` from the last '@epoch_NN' checkpoint with the
-epoch and learning rate of logs/training.csv, or `--initialize_from` a
-weight file, restored by name).
+`model_initializer` for `mp train` (a fresh init equal to the JAX
+package's from PRNGKey(0), `--continue_training` from the last
+'@epoch_NN' checkpoint with the epoch and learning rate of
+logs/training.csv, or `--initialize_from` a weight file, restored by
+name).
 """
 
 from __future__ import annotations
@@ -18,12 +19,14 @@ from pathlib import Path
 
 import torch
 
+from multiplanarunet_tpu_torch._device import resolve_device
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
 from multiplanarunet_tpu_torch.models.fusion_model import FusionModel
 from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
-from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
+from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init, init_unet
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
+from multiplanarunet_tpu_torch.ops import prng
 from multiplanarunet_tpu_torch.parallel.distributed import is_main_process
 from multiplanarunet_tpu_torch.utils.utils import (
     clear_csv_after_epoch,
@@ -86,12 +89,28 @@ def load_unet_weights(model, path):
     return model
 
 
+def init_model_variables(model, key=None, device=None):
+    """The variables the JAX package's `init_model_variables` gives the
+    same model from `key` (a `prng.PRNGKey`, PRNGKey(0) when None):
+    {"params": ..., "batch_stats": ...} in flax's layout, as tensors on
+    `device` (the card unless the caller names the CPU); a FusionModel's
+    are constant, {"params": {"fusion": {"W": ones, "b": zeros}}}."""
+    if isinstance(model, FusionModel):
+        device = resolve_device(device)
+        return {"params": {"fusion": {
+            name: torch.as_tensor(v, device=device)
+            for name, v in model.init_params()["fusion"].items()}}}
+    key = prng.PRNGKey(0) if key is None else key
+    params, batch_stats = init_unet(model, key, device)
+    return {"params": params, "batch_stats": batch_stats}
+
+
 def model_initializer(hparams, continue_training=False, project_dir=None,
-                      logger=None, initialize_from=None):
-    """Build a model from hparams (`build_model`) and initialise it:
-    glorot-uniform from seed 0 (the JAX package initialises from
-    PRNGKey(0)), then, with
-    continue_training, the last '@epoch_NN' checkpoint of
+                      logger=None, initialize_from=None, device=None):
+    """Build a model from hparams (`build_model`) and initialise it with
+    the JAX package's initial weights from PRNGKey(0) (`glorot_init`,
+    drawn on `device`: the card unless the caller names the CPU), then,
+    with continue_training, the last '@epoch_NN' checkpoint of
     <project_dir>/model restored by name, the rows of
     logs/training.csv past its epoch dropped and its learning rate
     recovered; or with initialize_from, that file restored by name.
@@ -101,7 +120,8 @@ def model_initializer(hparams, continue_training=False, project_dir=None,
     mixed = bool(hparams.get("fit", {}).get("mixed_precision", False))
     model = build_model(hparams["build"], mixed_precision=mixed,
                         logger=logger)
-    glorot_init(model, seed=0)
+    if not isinstance(model, FusionModel):
+        glorot_init(model, seed=0, device=device)
 
     init_epoch, restored_lr = 0, None
     weights_path = None

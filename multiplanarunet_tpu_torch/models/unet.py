@@ -23,11 +23,11 @@ the biased variance max(0, E[x^2] - E[x]^2), running = 0.99 * running +
 `parallel.distributed`), the batch statistics are those of the global batch
 over every rank, as the JAX package's sharded step computes them, so every
 rank keeps the same running statistics. Weights come from the JAX package's
-checkpoints through `models.checkpoint`, or from `glorot_init`
-(glorot-uniform kernels of every conv rank, zero biases, the JAX model's
-init). `label_crop` holds the (n, 2) skip crops of the last forward, the
-JAX model's sown `label_crop` (zero when the input side is divisible by
-2^depth).
+checkpoints through `models.checkpoint`, or from `glorot_init`, which
+gives the weights the JAX package's flax init gives from the same
+PRNGKey, bit for bit (`init_unet`). `label_crop` holds the (n, 2) skip
+crops of the last forward, the JAX model's sown `label_crop` (zero when
+the input side is divisible by 2^depth).
 
 The JAX model's inference forms are fields here too, each computing the
 same function with the same parameters (so a checkpoint loads into any
@@ -44,6 +44,7 @@ five, `UNet3D` the two decoder forms, as in the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import inspect
 
 import numpy as np
@@ -52,6 +53,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from multiplanarunet_tpu_torch._device import resolve_device
+from multiplanarunet_tpu_torch.models import checkpoint
+from multiplanarunet_tpu_torch.ops import prng
 from multiplanarunet_tpu_torch.parallel.distributed import data_group_active
 
 
@@ -583,22 +587,74 @@ def count_params(model):
     return sum(p.numel() for p in model.parameters())
 
 
-def glorot_init(model, seed=0):
-    """Initialise `model` in place as the JAX U-Nets initialise: every
-    conv kernel of any rank glorot-uniform (fan_in = k^n * cin, fan_out =
-    k^n * cout), biases zero, every BatchNorm at scale 1 / bias 0 / mean
-    0 / var 1. Draws come from a CPU torch.Generator seeded with `seed`,
-    in module order."""
-    gen = torch.Generator().manual_seed(int(seed))
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, nn.modules.conv._ConvNd):
-                w = torch.empty(mod.weight.shape, dtype=torch.float32)
-                nn.init.xavier_uniform_(w, generator=gen)
-                mod.weight.copy_(w)
-                mod.bias.zero_()
-            elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
-                mod.reset_parameters()
+def scope_key(key, path, counter):
+    """The key flax's `make_rng('params')` gives the `counter`-th draw of
+    the module scope at `path` under root key `key`
+    (`flax/core/scope.py:_fold_in_static` without the rng separator,
+    flax's default): fold_in of the first 4 bytes, big-endian, of the
+    SHA-1 of the path's names and the counter."""
+    h = hashlib.sha1()
+    for x in (*path, counter):
+        if isinstance(x, str):
+            h.update(x.encode("utf-8"))
+        else:
+            h.update(int(x).to_bytes((int(x).bit_length() + 7) // 8, "big"))
+    return prng.fold_in(key, int.from_bytes(h.digest()[:4], "big"))
+
+
+def glorot_scale(shape):
+    """The float32 factor sqrt(3 * variance) of glorot-uniform for a flax
+    conv kernel shape (*spatial, I, O): variance = 1 / fan_avg rounded to
+    float32, then 3 * variance and its root in float32, as
+    `jax.nn.initializers.variance_scaling` computes it."""
+    field = float(np.prod(shape[:-2]))
+    fan_in, fan_out = shape[-2] * field, shape[-1] * field
+    variance = np.float32(1.0 / ((fan_in + fan_out) / 2))
+    return np.sqrt(np.float32(3) * variance)
+
+
+def glorot_uniform(key, shape, device):
+    """`jax.nn.initializers.glorot_uniform()(key, shape, float32)`:
+    uniform in [-1, 1) times `glorot_scale(shape)`, in float32."""
+    return prng.uniform(key, shape, -1.0, 1.0, device=device,
+                        scale=glorot_scale(shape))
+
+
+def init_unet(model, key, device=None):
+    """The flax (params, batch_stats) trees that the JAX package's
+    `init_unet` (and `init_model_variables`) gives the same UNet, UNet3D
+    or MultiTaskUNet2D from `key` (a `prng.PRNGKey`), as tensors on
+    `device` (the card unless the caller names the CPU): each conv kernel
+    glorot-uniform in flax's shape from its scope's first make_rng key
+    (a kernel is each conv scope's first parameter), every bias 0, every
+    BatchNorm at scale 1, mean 0, var 1. The module paths are the flax
+    scope paths (`checkpoint.flax_variables`), so every form and the lane
+    padding draw what the JAX model of that build draws."""
+    device = resolve_device(device)
+    trees = {"params": {}, "batch_stats": {}}
+    for coll, path, shape in checkpoint.flax_variables(model):
+        if path[-1] == "kernel":
+            value = glorot_uniform(scope_key(key, path[:-1], 1), shape,
+                                   device)
+        else:
+            fill = 1.0 if path[-1] in ("scale", "var") else 0.0
+            value = torch.full(shape, fill, dtype=torch.float32,
+                               device=device)
+        node = trees[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+    return trees["params"], trees["batch_stats"]
+
+
+def glorot_init(model, seed=0, device=None):
+    """Initialise `model` in place with the weights the JAX package's
+    flax init gives the same model from PRNGKey(seed) (`init_unet`),
+    drawn on `device` (the card unless the caller names the CPU) and
+    loaded through the checkpoint converter. Returns the model."""
+    params, stats = init_unet(model, prng.PRNGKey(seed), device)
+    model.load_state_dict(
+        checkpoint.unet_state_dict_from_jax(params, stats, model))
     return model
 
 

@@ -23,9 +23,11 @@ The 3D warp samples through the plain trilinear pool gather
 package uses its corner-packed gather: the same function up to the order
 of the eight-corner sum.
 
-`elastic_deform_{2d,3d}_fields` take the noise fields as arguments (the
-tests feed them the JAX draws); `elastic_deform_{2d,3d}_batch` draw them
-from a torch.Generator.
+`elastic_deform_{2d,3d}_fields` take the noise fields as arguments;
+`elastic_deform_{2d,3d}_batch` draw them from a PRNG key as the JAX
+functions do (`split(key)` or `split(key, 3)`, then `uniform(k, (B, d,
+d[, d]), -1, 1)` per axis, through `ops.prng` on the images' device), so
+the same key gives the JAX package's fields bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multiplanarunet_tpu_torch.ops import prng
 from multiplanarunet_tpu_torch.ops.interp import grid_gather_pool
 
 # scipy's gaussian_filter truncates at 4 sigma by default
@@ -147,17 +150,16 @@ def elastic_deform_2d_fields(images, labels, fx, fy, alphas, sigmas,
     return im_out, lab_out
 
 
-def elastic_deform_2d_batch(images, labels, alphas, sigmas, apply_mask,
-                            bg_values, generator=None, radius=64):
-    """`elastic_deform_2d_fields` with the noise fields drawn uniform in
-    [-1, 1) from `generator` (on the images' device)."""
+def elastic_deform_2d_batch(key, images, labels, alphas, sigmas,
+                            apply_mask, bg_values, radius=64):
+    """`elastic_deform_2d_fields` with the two noise fields drawn as the
+    JAX function draws them from `key` (a `prng.PRNGKey`), on the images'
+    device."""
     B, d = images.shape[:2]
-    noise = torch.rand((2, B, d, d), generator=generator,
-                       device=images.device)
-    noise = noise * 2.0 - 1.0
-    return elastic_deform_2d_fields(images, labels, noise[0], noise[1],
-                                    alphas, sigmas, apply_mask, bg_values,
-                                    radius)
+    fx, fy = (prng.uniform(k, (B, d, d), -1.0, 1.0, device=images.device)
+              for k in prng.split(key))
+    return elastic_deform_2d_fields(images, labels, fx, fy, alphas, sigmas,
+                                    apply_mask, bg_values, radius)
 
 
 def elastic_deform_3d_fields(images, labels, f0, f1, f2, alphas, sigmas,
@@ -199,14 +201,13 @@ def elastic_deform_3d_fields(images, labels, f0, f1, f2, alphas, sigmas,
     return im_out, lab_out
 
 
-def elastic_deform_3d_batch(images, labels, alphas, sigmas, apply_mask,
-                            bg_values, generator=None, radius=52):
-    """`elastic_deform_3d_fields` with the three noise fields drawn uniform
-    in [-1, 1) from `generator` (on the images' device)."""
+def elastic_deform_3d_batch(key, images, labels, alphas, sigmas,
+                            apply_mask, bg_values, radius=52):
+    """`elastic_deform_3d_fields` with the three noise fields drawn as the
+    JAX function draws them from `key` (a `prng.PRNGKey`), on the images'
+    device."""
     B, d = images.shape[:2]
-    noise = torch.rand((3, B, d, d, d), generator=generator,
-                       device=images.device)
-    noise = noise * 2.0 - 1.0
-    return elastic_deform_3d_fields(images, labels, noise[0], noise[1],
-                                    noise[2], alphas, sigmas, apply_mask,
-                                    bg_values, radius)
+    fields = [prng.uniform(k, (B, d, d, d), -1.0, 1.0, device=images.device)
+              for k in prng.split(key, 3)]
+    return elastic_deform_3d_fields(images, labels, *fields, alphas, sigmas,
+                                    apply_mask, bg_values, radius)

@@ -25,7 +25,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from multiplanarunet_tpu_torch.ops._build import kernels
+from multiplanarunet_tpu_torch.ops._build import KernelLaunchError, kernels
 
 _TAPS = {"linear": 2, "cubic": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,10 +136,6 @@ def tile_plan(shape, op, method, dtype, aligned=True):
         raise ValueError(f"shear pass window needs {smem} bytes of shared "
                          f"memory per block (limit {SMEM_LIMIT})")
     return TilePlan(ep, tt, iw, rb, q_span, r_max, pitch, align, smem)
-
-
-class KernelLaunchError(RuntimeError):
-    """A CUDA kernel launch returned an error code."""
 
 
 def _f32(x):

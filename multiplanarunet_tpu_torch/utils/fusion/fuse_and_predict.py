@@ -54,7 +54,7 @@ import torch
 
 from multiplanarunet_tpu_torch._device import resolve_device
 from multiplanarunet_tpu_torch.models.unet import UNet
-from multiplanarunet_tpu_torch.ops import geometry
+from multiplanarunet_tpu_torch.ops import geometry, prng
 from multiplanarunet_tpu_torch.ops.interp import (
     accum_view_pred_affine,
     map_view_pred_affine,
@@ -656,7 +656,7 @@ class MultiViewPredictor:
 
     @torch.inference_mode()
     def predict_views_points(self, image, views, n_planes="same+20",
-                             max_points=None, generator=None):
+                             max_points=None, key=None):
         """Fusion-training points of one labelled image, left on the
         device: (points (n_pts, n_views, n_classes) float32, targets
         (n_pts,) int32). Each view's mapped volume (the exact gather path)
@@ -665,18 +665,16 @@ class MultiViewPredictor:
 
         max_points: when the image has more voxels, keep a uniform random
         subset of that many, the first max_points of
-        torch.randperm(n_vox, generator=generator) (a generator on this
-        predictor's device; seed 0 when None). The JAX package draws its
-        subset from jax.random.PRNGKey(seed) instead, so the two packages
-        pick different voxels for the same seed."""
+        `prng.permutation(key, n_vox)` on this predictor's device (key
+        PRNGKey(0) when None): the JAX package's subset for the same
+        key."""
         true_shape = tuple(int(s) for s in image.shape[:3])
         n_vox = int(np.prod(true_shape))
         idx = None
         if max_points and n_vox > int(max_points):
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            idx = torch.randperm(n_vox, generator=generator,
-                                 device=self.device)[:int(max_points)]
+            key = prng.PRNGKey(0) if key is None else key
+            idx = prng.permutation(key, n_vox,
+                                   device=self.device)[:int(max_points)]
         labels = np.asarray(image.labels).reshape(-1)
         tgt_dtype = np.uint8 if self.n_classes <= 256 else np.int32
         targets = torch.from_numpy(labels.astype(tgt_dtype)).to(self.device)

@@ -212,7 +212,7 @@ def test_unet3d_checkpoint_round_trip_port_flax_port(tmp_path):
     init) and its UNet3D gives the port's outputs within 1e-5; the port
     reads the file back bit-exactly."""
     d = 16
-    model = glorot_init(UNet3D(**KW), seed=7)
+    model = glorot_init(UNet3D(**KW), seed=7, device="cpu")
     opt = init_optimizer("Adam", model.parameters(), lr=LR)
     x, y, w = _batch(8, d)
     TrainStep(model, opt, SparseCategoricalCrossentropy(), {})(
@@ -247,7 +247,7 @@ def test_glorot_init_covers_conv3d_and_batchnorm3d():
         if isinstance(mod, torch.nn.BatchNorm3d):
             mod.running_mean.fill_(3.0)
             mod.weight.data.fill_(2.0)
-    glorot_init(model, seed=1)
+    glorot_init(model, seed=1, device="cpu")
     n_conv = 0
     for mod in model.modules():
         if isinstance(mod, torch.nn.Conv3d):
@@ -262,8 +262,8 @@ def test_glorot_init_covers_conv3d_and_batchnorm3d():
         elif isinstance(mod, torch.nn.BatchNorm3d):
             assert (mod.weight == 1).all() and (mod.running_mean == 0).all()
     assert n_conv == 2 * 5 + 2 + 1
-    a = glorot_init(UNet3D(**KW), seed=2).state_dict()
-    b = glorot_init(UNet3D(**KW), seed=2).state_dict()
+    a = glorot_init(UNet3D(**KW), seed=2, device="cpu").state_dict()
+    b = glorot_init(UNet3D(**KW), seed=2, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
@@ -284,7 +284,8 @@ def test_build_model_and_initializer_build_unet3d(tmp_path):
     path = tmp_path / "w.npz"
     jckpt.save_weights(path, params, stats)
     hp = {"build": build, "fit": {"mixed_precision": False}}
-    restored, epoch, lr = model_initializer(hp, initialize_from=path)
+    restored, epoch, lr = model_initializer(hp, initialize_from=path,
+                                             device="cpu")
     assert epoch == 0 and lr is None and restored.training
     want = _port(params, stats).state_dict()
     for k, v in restored.state_dict().items():

@@ -22,6 +22,7 @@ SLICE_MODULES = [
     "multiplanarunet_tpu_torch.ops.shear_plan",
     "multiplanarunet_tpu_torch.ops._build",
     "multiplanarunet_tpu_torch.ops.shear_pass",
+    "multiplanarunet_tpu_torch.ops.prng",
     "multiplanarunet_tpu_torch.ops.shear",
     "multiplanarunet_tpu_torch.ops.interp",
     "multiplanarunet_tpu_torch.models.unet",

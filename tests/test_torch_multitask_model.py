@@ -383,19 +383,20 @@ def test_build_model_and_initializer(jmodel, tmp_path):
                  depth=2, init_filters=8, complexity_factor=1,
                  l1_reg=False, l2_reg=False)
     hp = {"build": build, "fit": {"mixed_precision": False}}
-    fresh, epoch, lr = model_initializer(hp)
+    fresh, epoch, lr = model_initializer(hp, device="cpu")
     assert type(fresh) is MultiTaskUNet2D and fresh.training
     assert epoch == 0 and lr is None and fresh.dim == list(DIMS)
     conv = fresh.task_b.decoder_L0_conv_up
     lim = np.sqrt(6.0 / (4 * (conv.in_channels + conv.out_channels)))
     assert conv.weight.abs().max() <= lim and not conv.bias.any()
-    again, _, _ = model_initializer(hp)
+    again, _, _ = model_initializer(hp, device="cpu")
     assert all(torch.equal(v, again.state_dict()[k])
                for k, v in fresh.state_dict().items())
     params, stats = _variables(jmodel, seed=15)
     path = tmp_path / "w.npz"
     jckpt.save_weights(path, params, stats)
-    restored, _, _ = model_initializer(hp, initialize_from=path)
+    restored, _, _ = model_initializer(hp, initialize_from=path,
+                                       device="cpu")
     want = _port(params, stats).state_dict()
     for k, v in restored.state_dict().items():
         assert torch.equal(v, want[k]), k
@@ -406,7 +407,7 @@ def test_build_model_and_initializer(jmodel, tmp_path):
     (tmp_path / "logs" / "training.csv").write_text(
         "epoch,loss,lr\n0,1.0,0.001\n1,0.9,0.0005\n2,0.8,0.0001\n")
     cont, epoch, lr = model_initializer(hp, continue_training=True,
-                                        project_dir=tmp_path)
+                                        project_dir=tmp_path, device="cpu")
     assert epoch == 2 and lr == pytest.approx(0.0005)
     for k, v in cont.state_dict().items():
         assert torch.equal(v, want[k]), k

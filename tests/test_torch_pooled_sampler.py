@@ -231,19 +231,27 @@ def test_pooled_batches_match_jax(queues, fraction, force):
 
 def test_pooled_elastic_weights_and_draws_match_jax(queues):
     """With Elastic2D (seeded), the augmented samples' weights equal the
-    JAX package's on both its paths, and the augmenter's host draws leave
-    its RandomState where the JAX host walk leaves it. The noise fields
-    come from different generators, so the deformed planes differ."""
+    JAX package's on both its paths, the augmenter's host draws leave its
+    RandomState where the JAX host walk leaves it, and the deformed planes
+    are the JAX package's: the same batch keys give the same noise fields,
+    so the images agree as the unaugmented batches do (within 1e-5 of the
+    batch's largest intensity) and the labels on >= 0.999 of pixels (the
+    2D warp's tolerance on equal fields, tests/test_torch_sampler.py)."""
     jseq, tseq = _sequences(queues, augmenters=ELASTIC)
     jwalk, _ = _sequences(queues, augmenters=ELASTIC)
     jwalk.disable_fused_finish = True
-    weights = {}
+    batches = {}
     for name, seq in (("jax", jseq), ("walk", jwalk), ("port", tseq)):
         np.random.seed(4)
-        weights[name] = [seq[i][2] for i in range(3)]
+        batches[name] = [seq[i] for i in range(3)]
+    weights = {k: [b[2] for b in v] for k, v in batches.items()}
     for ref in ("jax", "walk"):
         for got, want in zip(weights["port"], weights[ref]):
             np.testing.assert_array_equal(got, want)
+        for (tX, ty, _), (jX, jy, _) in zip(batches["port"], batches[ref]):
+            _assert_images_close(tX.numpy(), jX)
+            equal = (ty.numpy() == np.asarray(jy)).mean()
+            assert equal >= 0.999, (ref, equal)
     assert any((w != 1.0).any() for w in weights["port"])
     state = lambda s: s.list_of_augmenters[0]._rng.randint(1 << 30)  # noqa
     assert state(tseq) == state(jwalk)

@@ -23,9 +23,6 @@ ALLOWED = {
     "models": {
         "FusionLayer": "flax submodule of FusionModel; the port's "
                        "FusionModel holds its W and b itself",
-        "init_model_variables": "flax init of a variable tree; a torch "
-                                "model owns its parameters (glorot_init "
-                                "in models/unet.py)",
     },
 }
 
@@ -52,16 +49,6 @@ MODULE_ALLOWED = {
         "Trainer.synced_dispatch": _NOT_PORTED + " (the gloo compile-skew "
                                    "barrier)",
     },
-    "augmentation.augmenters": {
-        "Elastic.base_key": _NOT_PORTED + " (the fused sampler's PRNG "
-                            "key; the port runs the host walk)",
-        "Elastic.draw_batch_params_host": _NOT_PORTED + " (the fused "
-                                          "sampler's host draw)",
-    },
-    "models.unet": {
-        "init_unet": "flax init of (params, batch_stats); a torch model "
-                     "owns its parameters (glorot_init in models/unet.py)",
-    },
     "utils.compilation_cache": {
         "enable_compilation_cache": _NOT_PORTED + " (the XLA compile "
                                     "cache)",
@@ -69,9 +56,6 @@ MODULE_ALLOWED = {
     "models.fusion_model": {
         "FusionLayer": ALLOWED["models"]["FusionLayer"],
         "FusionLayer.regularizer": "FusionModel.regularizer holds it",
-    },
-    "models.model_init": {
-        "init_model_variables": ALLOWED["models"]["init_model_variables"],
     },
     "train.train_step": {
         **{name: _FLAX_STATE for name in ALLOWED["train"]},

@@ -230,15 +230,18 @@ def test_smooth_fields_match_scipy():
 @pytest.mark.parametrize("seed", [5, None])
 def test_elastic2d_host_draws_match_jax(seed):
     """Same seed, same order of numpy draws: the same samples augmented,
-    aug_weight on exactly those, and the augmenter's RandomState left in
-    the same state (seed None draws the noise seed first, as the JAX
-    package draws its key's)."""
+    aug_weight on exactly those, the augmenter's RandomState left in the
+    same state (seed None draws the key's seed first, as the JAX package
+    does), the same base key and the JAX package's deformed batches
+    (images within 1e-4, labels equal on >= 0.999 of pixels, as for its
+    fields above)."""
     kw = dict(alpha=[0, 450], sigma=[20, 30], apply_prob=0.5)
     if seed is None:
         np.random.seed(0)  # RandomState(None) draws OS entropy: compare
         j = JElastic2D(**kw)                       # states instead
         t = Elastic2D(**kw)
         t._rng.set_state(j._rng.get_state())
+        t._key = np.asarray(j.base_key)
     else:
         j, t = JElastic2D(seed=seed, **kw), Elastic2D(seed=seed, **kw)
     rng = np.random.RandomState(1)
@@ -255,4 +258,7 @@ def test_elastic2d_host_draws_match_jax(seed):
         changed = ~np.isclose(tx.numpy(), x).all(axis=(1, 2, 3))
         np.testing.assert_array_equal(changed, jw != 1.0)
         assert ty.shape == (8, 16, 16) and tx.dtype == torch.float32
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-4)
+        assert (ty.numpy() == np.asarray(jy)).mean() >= 0.999
     assert t._rng.randint(1 << 30) == j._rng.randint(1 << 30)
+    np.testing.assert_array_equal(t.base_key, np.asarray(j.base_key))

@@ -46,6 +46,7 @@ from multiplanarunet_tpu_torch.models.fusion_model import (
     params_tree,
 )
 from multiplanarunet_tpu_torch.models.unet import UNet
+from multiplanarunet_tpu_torch.ops import prng as tprng
 from multiplanarunet_tpu_torch.train.optimizers import Adam
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
@@ -140,8 +141,9 @@ def test_predict_views_mapped_matches_jax(setup):
 def test_predict_views_points_full_and_subsets(setup):
     """max_points=None: the mapped volumes reshaped, the labels as int32.
     With max_points: rows and targets are the same subset of those, the
-    first max_points of torch.randperm under the caller's generator; the
-    same seed gives the same subset, another seed another."""
+    first max_points of jax.random.permutation under the caller's key (the
+    JAX package's subset, exactly); the same key gives the same subset,
+    another key another, and no key PRNGKey(0)'s."""
     _, tpred, _, timg, views = setup
     mapped = tpred.predict_views_mapped(timg, views, n_planes="same")
     pts, tgt = tpred.predict_views_points(timg, views, n_planes="same")
@@ -150,19 +152,19 @@ def test_predict_views_points_full_and_subsets(setup):
     np.testing.assert_array_equal(pts.numpy(), full)
     np.testing.assert_array_equal(tgt.numpy(), timg.labels.reshape(-1))
     subsets = []
-    for seed in (7, 7, 8):
-        gen = torch.Generator().manual_seed(seed)
+    for seed in (7, 7, 8, None):
+        key = None if seed is None else tprng.PRNGKey(seed)
         p, t = tpred.predict_views_points(timg, views, n_planes="same",
-                                          max_points=500, generator=gen)
-        idx = torch.randperm(full.shape[0],
-                             generator=torch.Generator().manual_seed(seed))
-        idx = idx[:500].numpy()
+                                          max_points=500, key=key)
+        idx = np.asarray(jax.random.permutation(
+            jax.random.PRNGKey(seed or 0), full.shape[0]))[:500]
         assert p.shape == (500, 2, N_CLASSES) and t.shape == (500,)
         np.testing.assert_array_equal(p.numpy(), full[idx])
         np.testing.assert_array_equal(t.numpy(), tgt.numpy()[idx])
         subsets.append(idx)
     np.testing.assert_array_equal(subsets[0], subsets[1])
     assert not np.array_equal(subsets[0], subsets[2])
+    assert not np.array_equal(subsets[0], subsets[3])
 
 
 # ------------------------------------------------------------ fusion fit
@@ -254,14 +256,14 @@ def _epoch_lines(log):
     dict(learning_rate=0.05, epochs=12, early_stopping=2),
     dict(learning_rate=1e-3, epochs=4, early_stopping=3,
          dice_weight="Uniform"),
+    dict(batch_size=512, learning_rate=0.05, epochs=12, early_stopping=1),
 ])
 def test_fit_fusion_matches_jax(kw):
-    """One batch per epoch (batch_size >= n_tr): the GDL is a sum over the
-    batch's voxels, so the two packages' different epoch permutations do
-    not matter. The same numpy seed gives the same split, the same
-    val_dice per epoch (1e-6), the same early-stopping epoch (both
-    configurations stop early), the same best weights (1e-5) and the same
-    next numpy draw."""
+    """The same numpy seed gives the same split, the same epoch shuffles
+    (so the same batches where an epoch has several), the same val_dice
+    per epoch (1e-6), the same early-stopping epoch (both configurations
+    stop early), the same best weights (1e-5) and the same next numpy
+    draw."""
     V, C = 3, 4
     X, y = _points(4000, V, C, seed=3)
     args = _Args(**kw)
@@ -294,6 +296,34 @@ def test_fit_fusion_matches_jax(kw):
                                    rtol=0, atol=1e-5)
     assert nxt["port"] == nxt["jax"]
     assert any("fit:" in m for m in logs["port"])
+
+
+def test_fit_fusion_epoch_shuffles_are_jax_permutations(monkeypatch):
+    """Each epoch's batch order is the JAX package's, index for index:
+    key = PRNGKey(the round's numpy draw), then per epoch key, ekey =
+    split(key) and permutation(ekey, n_train)."""
+    V, C, n = 2, 3, 3000
+    X, y = _points(n, V, C, seed=5)
+    seen = []
+    permutation = tprng.permutation
+
+    def recording(key, m, device=None):
+        seen.append(permutation(key, m, device).numpy())
+        return torch.from_numpy(seen[-1])
+    monkeypatch.setattr(tprng, "permutation", recording)
+    np.random.seed(3)
+    t_train_fusion._fit_fusion(
+        torch.from_numpy(X), torch.from_numpy(y), V, C,
+        _Args(batch_size=256, epochs=3, early_stopping=5), lambda *a: None)
+    np.random.seed(3)
+    np.random.permutation(n)
+    key = jax.random.PRNGKey(np.random.randint(2 ** 31))
+    n_tr = n - max(1, int(0.2 * n))
+    assert len(seen) == 3
+    for got in seen:
+        key, ekey = jax.random.split(key)
+        np.testing.assert_array_equal(
+            got, np.asarray(jax.random.permutation(ekey, n_tr)))
 
 
 def test_fit_fusion_keeps_the_best_epoch():

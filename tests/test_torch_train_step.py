@@ -196,7 +196,7 @@ def test_port_weights_load_in_jax_and_back(tmp_path):
     """A port-initialised, port-trained model saved by the port: the JAX
     package's load_weights reads it and its UNet gives the port's outputs
     (within 1e-5); the port reads the file back bit-exactly."""
-    model = glorot_init(UNet(**KW), seed=7)
+    model = glorot_init(UNet(**KW), seed=7, device="cpu")
     opt = init_optimizer("Adam", model.parameters(), lr=LR)
     step = TrainStep(model, opt, SparseCategoricalCrossentropy(), {})
     x, y, w = _batch(8, 16)
@@ -227,7 +227,7 @@ def test_glorot_init_matches_flax_statistics():
     """glorot-uniform kernels: every conv kernel inside +-sqrt(6 / (fan_in +
     fan_out)) with the uniform's variance, biases zero, BN at identity."""
     model = glorot_init(UNet(n_classes=4, n_channels=1, depth=2,
-                             init_filters=16), seed=1)
+                             init_filters=16), seed=1, device="cpu")
     for name, p in model.named_parameters():
         if p.dim() == 4:
             o, i, kh, kw = p.shape
@@ -238,8 +238,8 @@ def test_glorot_init_matches_flax_statistics():
                                            rtol=0.1)
         elif name.endswith("bias"):
             assert not p.any(), name
-    a = glorot_init(UNet(**KW), seed=2).state_dict()
-    b = glorot_init(UNet(**KW), seed=2).state_dict()
+    a = glorot_init(UNet(**KW), seed=2, device="cpu").state_dict()
+    b = glorot_init(UNet(**KW), seed=2, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
@@ -251,7 +251,8 @@ def test_bf16_step_close_to_f32_and_overfits():
     y = (x[..., :1] > 0.3).astype(np.int32) + (x[..., 1:] > 0.8)
     losses = {}
     for dtype in (torch.float32, torch.bfloat16):
-        model = glorot_init(UNet(**KW, dtype=dtype), seed=4)
+        model = glorot_init(UNet(**KW, dtype=dtype), seed=4,
+                            device="cpu")
         opt = init_optimizer("Adam", model.parameters(), lr=1e-3)
         step = TrainStep(model, opt, SparseCategoricalCrossentropy(), {})
         losses[dtype] = [step(torch.from_numpy(x), torch.from_numpy(y),

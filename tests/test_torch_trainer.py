@@ -42,7 +42,7 @@ class Replay:
 
 def _trainer(lr=1e-3):
     model = glorot_init(UNet(n_classes=3, n_channels=1, depth=2,
-                             init_filters=4), seed=0)
+                             init_filters=4), seed=0, device="cpu")
     return Trainer(model, logger=ScreenLogger(False),
                    device="cpu").compile_model(
         "Adam", {"lr": lr}, "SparseCategoricalCrossentropy",

@@ -58,7 +58,7 @@ def _variables(model, seed):
     batch_stats) trees: glorot kernels, random biases, BatchNorm
     parameters and statistics (drawn on the port's model, which is
     cheaper than a flax init)."""
-    glorot_init(model, seed)
+    glorot_init(model, seed, device="cpu")
     rng = np.random.RandomState(seed)
     positive = ("running_var", "bn.weight", "bn_up.weight")
     with torch.no_grad():
@@ -383,8 +383,9 @@ def test_build_model_honours_the_jax_fields(unet2d):
 def test_glorot_init_treats_up_conv_forms_as_the_conv():
     """glorot_init draws the same kernels for every decoder form (each
     holds the plain 2^n conv's weight), so a seed gives one model."""
-    a = glorot_init(UNet(**KW), seed=3).state_dict()
+    a = glorot_init(UNet(**KW), seed=3, device="cpu").state_dict()
     for form in ("dilated_upconv", "subpixel_decoder"):
-        b = glorot_init(UNet(**KW, **{form: True}), seed=3).state_dict()
+        b = glorot_init(UNet(**KW, **{form: True}), seed=3,
+                        device="cpu").state_dict()
         assert list(a) == list(b)
         assert all(torch.equal(a[k], b[k]) for k in a)
