@@ -4,7 +4,8 @@ GPU: builds the CUDA kernels from csrc/ (one nvcc per source, in
 parallel; no instantiation may keep a stack frame or spill), holds the
 shear pass against its plain PyTorch version on every specialisation and
 the threefry2x32 draws against theirs, bit for bit, at the training
-paths' sizes (`phase_threefry`: Elastic2D and Elastic3D batches, a 256^3
+paths' sizes (`phase_threefry`: Elastic2D and Elastic3D batches, a rank's
+share of the Elastic2D fields drawn from a start offset, a 256^3
 permutation, the full-width 2D init; with one Elastic2D batch on the card
 against the CPU from one key), checks the predictor's geometry with a one-hot
 oracle (shear, gather and auto's fallback), then drives fused multi-view
@@ -72,7 +73,9 @@ one card (`phase_multi_device`): two ranks sharing cuda:0 on a gloo group,
 started from the library layer (DistributedDataParallel and global-batch
 BatchNorm at full width, bf16, global batch 16: the loss stream and a
 parameter checksum bit-equal across the ranks, a float32 two-rank step
-against the one-process step), `mp train` as a 1-rank NCCL group, `mp
+against the one-process step, the ranks' rows of a seeded Elastic2D's
+global batch against one process's draw, the pad row of a global batch
+of 3), `mp train` as a 1-rank NCCL group, `mp
 predict` as two processes on cuda:0 against the one-process results,
 predict_image_sharded over [cuda:0, cuda:0] against predict_image, `mp
 train_fusion` as two processes against the workflow's one-process run,
@@ -696,9 +699,52 @@ def _draw_all(draws, dev, fn):
     return out
 
 
+def threefry_rank_share(dev, card):
+    """A data-parallel rank's share of train-256's Elastic2D fields: rows
+    8-15 of each (16, 256, 256) field, drawn alone from a start offset.
+    The kernel must equal its plain version and the slice of the kernel's
+    whole draw bit for bit; its ms beside the int32 bound, the plain ms
+    and torch.rand of as many. Returns its row of phase_threefry."""
+    key = prng.fold_in(prng.PRNGKey(7), 1)
+    first, per_row = BATCH // 2, DIM * DIM
+    n, offset = (BATCH - first) * per_row, first * per_row
+
+    keys = prng.split(key)
+
+    def share(fn):
+        return [fn(k, n, prng.UNIFORM, 2.0, -1.0, 1.0, device=dev,
+                   offset=offset) for k in keys]
+
+    got, want = share(prng.threefry2x32), share(prng.threefry2x32_reference)
+    whole = [prng.threefry2x32(k, BATCH * per_row, prng.UNIFORM, 2.0, -1.0,
+                               1.0, device=dev)[offset:] for k in keys]
+    err = max(max((g - w).abs().max().item(), (g - f).abs().max().item())
+              for g, w, f in zip(got, want, whole))
+    if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               and torch.equal(g.view(torch.int32), f.view(torch.int32))
+               for g, w, f in zip(got, want, whole)):
+        raise AssertionError("threefry kernel from an offset differs from "
+                             "its plain version or from the whole draw")
+    ms = cuda_ms(lambda: share(prng.threefry2x32), 10)
+    plain_ms = cuda_ms(lambda: share(prng.threefry2x32_reference), 2)
+    rand_ms = cuda_ms(lambda: torch.rand(2 * n, device=dev), 10)
+    bound = 2 * threefry_bound_ms(n, prng.UNIFORM)
+    name = (f"Elastic2D, a rank's share of train-256 (rows {first}-"
+            f"{BATCH - 1} of {BATCH} x {DIM}^2 x 2, offset {offset})")
+    log(f"[{card}] threefry2x32 {name}: {2 * n} values in 2 launches, "
+        f"bit-equal to the plain version and to the rows of the whole "
+        f"draw (max abs err {err}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms (int32 operations; the "
+        f"kernel at {100 * bound / ms:.1f}% of it), torch.rand of as many "
+        f"{rand_ms:.4f} ms (for scale)")
+    return dict(name=name, n=2 * n, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                err=err)
+
+
 def phase_threefry(dev, card):
     """The threefry kernel against its plain version on the card, bit for
-    bit, at the training paths' sizes (threefry_cases), and the full
+    bit, at the training paths' sizes (threefry_cases) and at a rank's
+    share of the Elastic2D fields (threefry_rank_share), and the full
     permutation through each; kernel, plain and torch.rand ms beside the
     bound at each size; one Elastic2D batch on the card against the same
     key on the CPU (fields equal bit for bit there too). Returns the
@@ -748,6 +794,7 @@ def phase_threefry(dev, card):
             f"torch.rand of as many {rand_ms:.4f} ms (for scale){extra}")
         rows.append(dict(name=name, n=n, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, err=err))
+    rows.append(threefry_rank_share(dev, card))
 
     # One Elastic2D batch of train-256 on the card and on the CPU
     aug = Elastic2D(alpha=[0, 450], sigma=[20, 30], apply_prob=1.0, seed=7)
@@ -3917,6 +3964,14 @@ def phase_workflow(dev, proj, dirs, card):
 # DP_F32_BATCH against the one-process step on the same batch
 DP_WORKER_FLAG = "--data-parallel-worker"
 DP_GLOBAL_BATCH, DP_STEPS, DP_F32_BATCH, DP_LR = 16, 3, 4, 5e-5
+# The ranks' share of a seeded Elastic2D (the MultiPlanar preset's kwargs)
+# over DP_GLOBAL_BATCH, DP_ELASTIC_BATCHES batches, against one process's
+# draw over the global batch on the same card: the fields bit-equal, the
+# images within DP_ELASTIC_TOL, the labels on DP_ELASTIC_SHARE of pixels;
+# and the padded global batch of DP_PAD_BATCH over the two ranks
+DP_ELASTIC = dict(alpha=[0, 450], sigma=[20, 30], apply_prob=0.333, seed=7)
+DP_ELASTIC_BATCHES, DP_ELASTIC_TOL, DP_ELASTIC_SHARE = 2, 1e-5, 0.9999
+DP_PAD_BATCH = 3
 # `mp train` as a 1-rank NCCL group: 2 epochs of 10 steps of 16
 NCCL_EPOCHS, NCCL_IMAGES, NCCL_VAL_IMAGES = 2, 160, 32
 SHARDED_AGREEMENT = 0.9999
@@ -3997,8 +4052,9 @@ def dp_worker(out):
     started with DP_WORKER_FLAG under the MPUNET_* markers): a gloo group
     on cuda:0; DP_STEPS bf16 steps on this rank's half of the global
     batch, each timed between synchronisations; the gradient-sized
-    all-reduce alone; one float32 step on its half of the f32 batch.
-    Writes rank<r>.json (and rank 0 the f32 step's state) to `out`."""
+    all-reduce alone; one float32 step on its half of the f32 batch; its
+    shares (dp_rank_share). Writes rank<r>.json, share<r>.pt (and rank 0
+    the f32 step's state) to `out`."""
     import torch.distributed as dist
 
     from multiplanarunet_tpu_torch.parallel.distributed import (
@@ -4041,8 +4097,48 @@ def dp_worker(out):
     res["loss32"] = loss
     if rank == 0:
         torch.save({"update": update, "stats": stats}, out / "f32_step.pt")
+    torch.save(dp_rank_share(dev, n, rank), out / f"share{rank}.pt")
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     shutdown_distributed()
+
+
+def dp_elastic(aug, x, y, dev, start=0):
+    """aug's DP_ELASTIC_BATCHES batches of rows [start, start + len(x))
+    of the global batch (x, y) on `dev`: per batch its noise fields and
+    its (images, labels, weights)."""
+    out = []
+    for _ in range(DP_ELASTIC_BATCHES):
+        X, Y = (torch.from_numpy(a).to(dev) for a in (x, y))
+        key = prng.fold_in(aug.base_key, aug._count + 1)
+        fields = elastic.noise_fields(key, 2, X, DP_GLOBAL_BATCH, start)
+        xo, yo, wo = aug(X, Y, np.ones(len(x), np.float32),
+                         np.zeros((len(x), 1)))
+        out.append((torch.stack(fields).cpu(), xo.cpu(), yo.cpu(), wo))
+    return out
+
+
+def dp_rank_share(dev, n, rank):
+    """This rank's rows of a seeded Elastic2D's global batch (its share
+    set, as the Trainer sets it), and its padded share of a global batch
+    of DP_PAD_BATCH through Trainer.pad_share (gloo's all_gather, staged
+    through the host)."""
+    local = DP_GLOBAL_BATCH // n
+    aug = Elastic2D(**DP_ELASTIC)
+    aug.share = (DP_GLOBAL_BATCH, rank * local)
+    x, y = dp_batch(DP_GLOBAL_BATCH, 3)
+    rows = slice(rank * local, (rank + 1) * local)
+    elastic_rows = dp_elastic(aug, x[rows], y[rows], dev, rank * local)
+    trainer = Trainer(nn.Identity(), logger=ScreenLogger(False), device=dev,
+                      pad_global_batch=True)
+    trainer._share = trainer._batch_share(DP_PAD_BATCH)
+    _, _, local, valid = trainer._share
+    x, y = dp_batch(DP_PAD_BATCH, 4)
+    rows = slice(rank * local, rank * local + valid)
+    X, Y, W, _ = trainer.pad_share(torch.from_numpy(x[rows]).to(dev),
+                                   torch.from_numpy(y[rows]).to(dev),
+                                   np.ones(valid, np.float32))
+    return {"elastic": elastic_rows,
+            "padded": (X.cpu(), Y.cpu(), W.cpu())}
 
 
 def md_library_layer(dev, tmp, card):
@@ -4050,7 +4146,9 @@ def md_library_layer(dev, tmp, card):
     the loss stream and a parameter checksum bit-equal across the ranks;
     the float32 two-rank step, TF32 off, against the one-process float32
     step on the same global batch: loss within 1e-4 relative, BN running
-    statistics within 1e-5, parameter updates as in compare_f32_step)."""
+    statistics within 1e-5, parameter updates as in compare_f32_step;
+    the ranks' shares of a seeded Elastic2D and of a padded batch,
+    md_rank_shares)."""
     out = Path(tmp) / "dp_library"
     out.mkdir()
     x, y = dp_batch(DP_F32_BATCH, 2)
@@ -4090,6 +4188,53 @@ def md_library_layer(dev, tmp, card):
             and diff.max().item() <= 2 * DP_LR * (1 + 1e-3)):
         raise AssertionError("the two-rank f32 step disagrees with the "
                              "one-process step")
+    md_rank_shares(dev, out, card)
+
+
+def md_rank_shares(dev, out, card):
+    """The ranks' shares of md_library_layer's run (dp_rank_share) against
+    one process on the same card: the seeded Elastic2D rows together
+    equal to the global batch's draw (the fields bit for bit, the images
+    within DP_ELASTIC_TOL, the labels on DP_ELASTIC_SHARE of pixels, the
+    weights exactly); the padded batch of DP_PAD_BATCH: rank 1's pad row
+    is the global batch's row 0 (rank 0's row 0, bit for bit), weight 0."""
+    ranks = [torch.load(out / f"share{r}.pt", weights_only=False)
+             for r in range(2)]
+    x, y = dp_batch(DP_GLOBAL_BATCH, 3)
+    whole = dp_elastic(Elastic2D(**DP_ELASTIC), x, y, dev)
+    fields_equal, img_err, share, w_equal, applied = True, 0.0, 1.0, True, []
+    for i, (fields, xo, yo, wo) in enumerate(whole):
+        parts = [r["elastic"][i] for r in ranks]
+        fields_equal &= torch.equal(
+            torch.cat([p[0] for p in parts], 1).view(torch.int32),
+            fields.view(torch.int32))
+        img_err = max(img_err, (torch.cat([p[1] for p in parts])
+                                - xo).abs().max().item())
+        share = min(share, (torch.cat([p[2] for p in parts]) == yo)
+                    .float().mean().item())
+        w = np.concatenate([p[3] for p in parts])
+        w_equal &= bool(np.array_equal(w, wo))
+        applied.append(np.flatnonzero(wo != 1.0).tolist())
+    (X0, Y0, W0), (X1, Y1, W1) = (r["padded"] for r in ranks)
+    px, py = dp_batch(DP_PAD_BATCH, 4)
+    pad_ok = (torch.equal(X1[1], X0[0]) and torch.equal(Y1[1], Y0[0])
+              and torch.equal(X0, torch.from_numpy(px[:2]))
+              and torch.equal(X1[0], torch.from_numpy(px[2]))
+              and W0.tolist() == [1.0, 1.0] and W1.tolist() == [1.0, 0.0])
+    log(f"[{card}] rank shares: a seeded Elastic2D ({DP_ELASTIC}) over a "
+        f"global batch of {DP_GLOBAL_BATCH} on 2 gloo ranks, "
+        f"{DP_ELASTIC_BATCHES} batches, against one process's draw: noise "
+        f"fields bit-equal {fields_equal}, images max abs err {img_err:.3g}"
+        f" (<= {DP_ELASTIC_TOL}), labels equal on {share:.6f} of pixels "
+        f"(>= {DP_ELASTIC_SHARE}), weights equal {w_equal} (augmented rows "
+        f"{applied}); batch {DP_PAD_BATCH} padded to 4: rank 1's pad row is "
+        f"rank 0's row 0 with weight 0: {pad_ok}")
+    if not (fields_equal and img_err <= DP_ELASTIC_TOL
+            and share >= DP_ELASTIC_SHARE and w_equal and pad_ok
+            and any(any(r >= DP_GLOBAL_BATCH // 2 for r in rows)
+                    for rows in applied)):
+        raise AssertionError("the ranks' shares differ from the global "
+                             "batch of one process")
 
 
 def md_nccl_train(dev, tmp, card, proj, epochs_256):

@@ -13,6 +13,16 @@ count starting at 1 (without a seed, PRNGKey of one randint(2**31) drawn
 at construction). The noise fields come from that key through `ops.prng`
 on the batch's device, so a seeded augmenter deforms a batch as the JAX
 package's does.
+
+Under data-parallel training (`mp train --num_devices N`, one rank per
+card) each rank holds its own augmenter, built from the same YAML, and
+the Trainer sets its `share`: (global batch, this rank's first row). The
+augmenter then draws the global batch's host parameters (B_global of
+each, so every rank's RandomState advances as the JAX augmenter's does
+over the global batch), keeps its rows and draws its rows of the global
+noise fields alone (`ops.prng` from a start offset). The ranks' rows
+together are the JAX package's one-process draw over the global batch,
+the reference for N devices on one machine.
 """
 
 from __future__ import annotations
@@ -45,7 +55,14 @@ class Augmenter:
 
 class Elastic(Augmenter):
     """Random elastic deformation of every batch element (on its
-    device)."""
+    device).
+
+    `share` is None (the batch is the whole batch), or (global_batch,
+    start): the batch is rows [start, start + B) of a global batch of
+    global_batch, whose draws it makes and whose rows it keeps. A start
+    past the global batch (a rank whose share holds no valid row, only
+    weight-0 rows that the Trainer replaces) takes the global rows [0,
+    B)."""
 
     deform_fn = None  # set by subclasses
     __name__ = "Elastic"
@@ -61,6 +78,7 @@ class Elastic(Augmenter):
         self._key = prng.PRNGKey(seed if seed is not None
                                  else self._rng.randint(2 ** 31))
         self._count = 0
+        self.share = None
 
     def _draw(self, value, n):
         if isinstance(value, (list, tuple)):
@@ -102,14 +120,23 @@ class Elastic(Augmenter):
                if batch_y is None else batch_y.float())
         if lab.shape[-1] == 1 and lab.dim() == batch_x.dim():
             lab = lab[..., 0]
-        key, alphas, sigmas, apply_mask = self.draw_batch_params(B)
+        global_batch, start = self.share or (B, 0)
+        if start >= global_batch:
+            start = 0
+        if start + B > global_batch:
+            raise ValueError(f"a batch of {B} from row {start} does not fit "
+                             f"a global batch of {global_batch}")
+        key, *params = self.draw_batch_params(global_batch)
+        alphas, sigmas, apply_mask = (p[start:start + B] for p in params)
         if bg_values is None:
             bg = np.zeros((B, C), np.float32)
         else:
             bg = np.array(np.broadcast_to(
                 np.asarray(bg_values, np.float32).reshape(B, -1), (B, C)))
         x_out, y_out = type(self).deform_fn(key, batch_x, lab, alphas,
-                                            sigmas, apply_mask, bg)
+                                            sigmas, apply_mask, bg,
+                                            global_batch=global_batch,
+                                            start=start)
         if batch_w is not None:
             batch_w = np.asarray(batch_w, np.float32).copy()
             batch_w[apply_mask] = self.weight

@@ -63,7 +63,11 @@ class Validation(Callback):
         trainer = self.trainer
         sums, counts = None, None
         for X, y, w in prefetched(self.sequence, self.steps, trainer.device):
-            X, y, w, n_valid = trainer.pad_share(X, y, w)
+            # Pad rows copy this rank's own rows, not the global batch's
+            # first rows as in training: they are masked out of the
+            # counts, weigh 0 in the loss, and in eval mode a row cannot
+            # change another row's output
+            X, y, w, n_valid = trainer.pad_share(X, y, w, own_rows=True)
             step_logs, step_counts = trainer.eval_step(X, y, w, n_valid)
             if not trainer.multitask:
                 step_counts = (step_counts,)

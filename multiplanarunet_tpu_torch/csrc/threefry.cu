@@ -10,9 +10,15 @@
 // package has no Pallas kernel for these.
 //
 // One thread per output value i (64-bit): the counter pair (hi, lo) of
-// i = hi * 2^32 + lo goes through the 20 rounds and 6 key injections of
-// threefry2x32 under the key (k0, k1), and the value is the XOR of the two
-// output words (jax/_src/prng.py:_threefry_random_bits_partitionable).
+// j = offset + i = hi * 2^32 + lo goes through the 20 rounds and 6 key
+// injections of threefry2x32 under the key (k0, k1), and the value is the
+// XOR of the two output words
+// (jax/_src/prng.py:_threefry_random_bits_partitionable). Value j of a
+// draw depends only on the key and j, so `offset` gives a slice of a
+// larger draw without drawing the rest: a rank of a data-parallel group
+// draws its rows [start, stop) of a global (B, ...) noise field with
+// offset start * (values per row) and n (stop - start) * (values per
+// row). Offset 0 is the whole draw from its first value.
 // mode 0 writes that 32-bit draw; mode 1 writes the float32 uniform of
 // jax/_src/random.py:_uniform, max(minval, u * span + minval) with
 // u = bitcast((bits >> 9) | 0x3F800000) - 1, times `scale` (a
@@ -65,14 +71,16 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
 
 template <bool UNIFORM>
 __global__ void __launch_bounds__(kBlock)
-threefry_kernel(void* __restrict__ out, int64_t n, uint32_t k0, uint32_t k1,
-                float span, float minval, float scale) {
+threefry_kernel(void* __restrict__ out, int64_t n, int64_t offset,
+                uint32_t k0, uint32_t k1, float span, float minval,
+                float scale) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
   const int64_t stride = (int64_t)gridDim.x * kBlock;
   for (int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x; i < n;
        i += stride) {
-    const uint32_t bits = threefry_bits(k0, k1, k2, (uint32_t)(i >> 32),
-                                        (uint32_t)i);
+    const int64_t j = offset + i;
+    const uint32_t bits = threefry_bits(k0, k1, k2, (uint32_t)(j >> 32),
+                                        (uint32_t)j);
     if (UNIFORM) {
       const float u =
           __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
@@ -86,24 +94,27 @@ threefry_kernel(void* __restrict__ out, int64_t n, uint32_t k0, uint32_t k1,
 
 }  // namespace
 
-// n values of key (k0, k1)'s stream into `out` (uint32 for mode 0, float32
-// for mode 1) on `stream`. Returns the launch's cudaError_t (0 on success).
-extern "C" int mp_threefry2x32(void* out, int64_t n, uint32_t k0,
-                               uint32_t k1, int mode, float span,
-                               float minval, float scale, void* stream) {
+// Values offset .. offset + n - 1 of key (k0, k1)'s stream into `out`
+// (uint32 for mode 0, float32 for mode 1) on `stream`. Returns the
+// launch's cudaError_t (0 on success).
+extern "C" int mp_threefry2x32(void* out, int64_t n, int64_t offset,
+                               uint32_t k0, uint32_t k1, int mode,
+                               float span, float minval, float scale,
+                               void* stream) {
   if (n <= 0) return 0;
-  if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
+  if (offset < 0 || (mode != 0 && mode != 1))
+    return (int)cudaErrorInvalidValue;
   // A grid-stride loop over at most 2^20 blocks: enough to fill the card
   // many times over, and any n fits
   const int64_t want = (n + kBlock - 1) / kBlock;
   const unsigned grid = (unsigned)(want < (1 << 20) ? want : (1 << 20));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 1) {
-    threefry_kernel<true><<<grid, kBlock, 0, s>>>(out, n, k0, k1, span,
-                                                  minval, scale);
+    threefry_kernel<true><<<grid, kBlock, 0, s>>>(out, n, offset, k0, k1,
+                                                  span, minval, scale);
   } else {
-    threefry_kernel<false><<<grid, kBlock, 0, s>>>(out, n, k0, k1, span,
-                                                   minval, scale);
+    threefry_kernel<false><<<grid, kBlock, 0, s>>>(out, n, offset, k0, k1,
+                                                   span, minval, scale);
   }
   return (int)cudaGetLastError();
 }

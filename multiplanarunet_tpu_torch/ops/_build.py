@@ -139,7 +139,7 @@ class _Kernels:
         fn.restype = ctypes.c_int
         self.shear_pass = fn
         fn = ctypes.CDLL(str(paths["threefry.cu"])).mp_threefry2x32
-        fn.argtypes = [ptr, i64, u32, u32, c_int, f32, f32, f32, ptr]
+        fn.argtypes = [ptr, i64, i64, u32, u32, c_int, f32, f32, f32, ptr]
         fn.restype = ctypes.c_int
         self.threefry = fn
 

@@ -27,7 +27,11 @@ of the eight-corner sum.
 `elastic_deform_{2d,3d}_batch` draw them from a PRNG key as the JAX
 functions do (`split(key)` or `split(key, 3)`, then `uniform(k, (B, d,
 d[, d]), -1, 1)` per axis, through `ops.prng` on the images' device), so
-the same key gives the JAX package's fields bit for bit.
+the same key gives the JAX package's fields bit for bit. A data-parallel
+rank passes the global batch size and its first row: it then draws rows
+[start, start + B_local) of the global (B_global, d, d[, d]) fields
+alone, the rows the JAX package's one-process draw over the global batch
+gives its samples.
 """
 
 from __future__ import annotations
@@ -150,14 +154,26 @@ def elastic_deform_2d_fields(images, labels, fx, fy, alphas, sigmas,
     return im_out, lab_out
 
 
+def noise_fields(key, n_axes, images, global_batch=None, start=0):
+    """The n_axes uniform [-1, 1) noise fields that the JAX functions draw
+    from `key` (`split(key, n_axes)`, one per axis) for a batch of
+    `global_batch` samples (default the images' B) of the images' spatial
+    shape: rows [start, start + B) of each, on the images' device."""
+    B, spatial = images.shape[0], tuple(images.shape[1:-1])
+    shape = (B if global_batch is None else int(global_batch),) + spatial
+    return [prng.uniform(k, shape, -1.0, 1.0, device=images.device,
+                         rows=(start, start + B))
+            for k in prng.split(key, n_axes)]
+
+
 def elastic_deform_2d_batch(key, images, labels, alphas, sigmas,
-                            apply_mask, bg_values, radius=64):
+                            apply_mask, bg_values, radius=64,
+                            global_batch=None, start=0):
     """`elastic_deform_2d_fields` with the two noise fields drawn as the
     JAX function draws them from `key` (a `prng.PRNGKey`), on the images'
-    device."""
-    B, d = images.shape[:2]
-    fx, fy = (prng.uniform(k, (B, d, d), -1.0, 1.0, device=images.device)
-              for k in prng.split(key))
+    device: rows [start, start + B) of its fields for a batch of
+    `global_batch` (default B, the whole draw)."""
+    fx, fy = noise_fields(key, 2, images, global_batch, start)
     return elastic_deform_2d_fields(images, labels, fx, fy, alphas, sigmas,
                                     apply_mask, bg_values, radius)
 
@@ -202,12 +218,12 @@ def elastic_deform_3d_fields(images, labels, f0, f1, f2, alphas, sigmas,
 
 
 def elastic_deform_3d_batch(key, images, labels, alphas, sigmas,
-                            apply_mask, bg_values, radius=52):
+                            apply_mask, bg_values, radius=52,
+                            global_batch=None, start=0):
     """`elastic_deform_3d_fields` with the three noise fields drawn as the
     JAX function draws them from `key` (a `prng.PRNGKey`), on the images'
-    device."""
-    B, d = images.shape[:2]
-    fields = [prng.uniform(k, (B, d, d, d), -1.0, 1.0, device=images.device)
-              for k in prng.split(key, 3)]
+    device: rows [start, start + B) of its fields for a batch of
+    `global_batch` (default B, the whole draw)."""
+    fields = noise_fields(key, 3, images, global_batch, start)
     return elastic_deform_3d_fields(images, labels, *fields, alphas, sigmas,
                                     apply_mask, bg_values, radius)

@@ -11,6 +11,10 @@ The stream reproduced is JAX 0.9's default PRNG, threefry2x32 with
 - `fold_in(key, d)` is threefry2x32(key, (0, d mod 2^32));
 - `random_bits(key, shape)` hashes the counter pair (hi, lo) of each flat
   index i = hi * 2^32 + lo and returns the XOR of the two output words;
+  value i depends only on the key and i, so `uniform(..., rows=(start,
+  stop))` draws rows [start, stop) of a (B, ...) draw alone, from the
+  flat offset start * (values per row): a data-parallel rank's share of
+  the global batch's noise fields;
 - `uniform` puts a draw's top 23 bits under the exponent of 1.0, subtracts
   1 and scales into [minval, maxval) in float32, then takes
   max(minval, .) (`jax/_src/random.py:_uniform`);
@@ -116,14 +120,14 @@ def _affine(minval, maxval, scale):
 
 
 def threefry2x32_reference(key, n, mode=BITS, span=1.0, minval=0.0,
-                           scale=1.0, device="cpu"):
-    """Plain PyTorch version of the kernel: n values of the stream of
-    `key` in flat order, on `device`. mode BITS: the 32-bit draws as int32
-    bit patterns; UNIFORM: float32 max(minval, u * span + minval) * scale
-    with u in [0, 1) from the draw's top 23 bits (`uniform`'s arguments
-    through `_affine`)."""
+                           scale=1.0, device="cpu", offset=0):
+    """Plain PyTorch version of the kernel: values offset .. offset + n - 1
+    of the stream of `key` in flat order, on `device`. mode BITS: the
+    32-bit draws as int32 bit patterns; UNIFORM: float32 max(minval, u *
+    span + minval) * scale with u in [0, 1) from the draw's top 23 bits
+    (`uniform`'s arguments through `_affine`)."""
     key = _as_key(key)
-    i = torch.arange(int(n), dtype=torch.int64, device=device)
+    i = torch.arange(int(n), dtype=torch.int64, device=device) + int(offset)
 
     def rotl(v, r):
         return ((v << r) | (v >> (32 - r))) & _MASK
@@ -149,20 +153,22 @@ def threefry2x32_reference(key, n, mode=BITS, span=1.0, minval=0.0,
 
 
 def threefry2x32(key, n, mode=BITS, span=1.0, minval=0.0, scale=1.0,
-                 device=None):
-    """n values of the stream of `key` in flat order (as
-    `threefry2x32_reference` describes), drawn on `device`: the kernel on
-    a CUDA device (counted in `threefry2x32.launches`), the plain version
-    on the CPU."""
+                 device=None, offset=0):
+    """Values offset .. offset + n - 1 of the stream of `key` in flat order
+    (as `threefry2x32_reference` describes), drawn on `device`: the kernel
+    on a CUDA device (counted in `threefry2x32.launches`), the plain
+    version on the CPU."""
     device = resolve_device(device)
     key = _as_key(key)
-    n = int(n)
+    n, offset = int(n), int(offset)
     if mode not in (BITS, UNIFORM):
         raise ValueError(f"threefry2x32 mode is {BITS} (bits) or "
                          f"{UNIFORM} (uniform); got {mode}")
+    if offset < 0:
+        raise ValueError(f"threefry2x32 offset must be >= 0; got {offset}")
     if device.type == "cpu":
         return threefry2x32_reference(key, n, mode, span, minval, scale,
-                                      device)
+                                      device, offset)
     if device.type != "cuda":
         raise ValueError(f"threefry2x32 runs on cpu or cuda; got {device}")
     dtype = torch.int32 if mode == BITS else torch.float32
@@ -172,7 +178,7 @@ def threefry2x32(key, n, mode=BITS, span=1.0, minval=0.0, scale=1.0,
     fn = kernels().threefry
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(out.data_ptr(), n, int(key[0]), int(key[1]), mode,
+        err = fn(out.data_ptr(), n, offset, int(key[0]), int(key[1]), mode,
                  _f32(span), _f32(minval), _f32(scale), stream)
     if err != 0:
         raise KernelLaunchError(f"threefry2x32 kernel launch failed: "
@@ -200,15 +206,25 @@ def random_bits(key, shape, device=None):
     return bits.view(torch.uint32).reshape(shape)
 
 
-def uniform(key, shape, minval=0.0, maxval=1.0, device=None, scale=1.0):
+def uniform(key, shape, minval=0.0, maxval=1.0, device=None, scale=1.0,
+            rows=None):
     """`jax.random.uniform(key, shape, float32, minval, maxval)` on
     `device`, times `scale` in float32 (a variance-scaling initializer's
-    `uniform(key, shape, dtype, -1) * sqrt(3 * variance)` in one pass)."""
+    `uniform(key, shape, dtype, -1) * sqrt(3 * variance)` in one pass).
+    With rows=(start, stop): that draw's rows [start, stop) along its first
+    axis, bit for bit, drawing only those rows' values."""
     shape = _shape(shape)
     span, lo, scale = _affine(minval, maxval, scale)
-    out = threefry2x32(key, math.prod(shape), UNIFORM, span, lo, scale,
-                       device=device)
-    return out.reshape(shape)
+    if rows is None:
+        return threefry2x32(key, math.prod(shape), UNIFORM, span, lo, scale,
+                            device=device).reshape(shape)
+    start, stop = (int(r) for r in rows)
+    if not shape or not 0 <= start <= stop <= shape[0]:
+        raise ValueError(f"rows {rows} outside the first axis of {shape}")
+    per_row = math.prod(shape[1:])
+    out = threefry2x32(key, (stop - start) * per_row, UNIFORM, span, lo,
+                       scale, device=device, offset=start * per_row)
+    return out.reshape((stop - start,) + shape[1:])
 
 
 def _shuffle(key, n, device, bits_fn):

@@ -21,14 +21,18 @@ and gives the train step a DistributedDataParallel model (no buffer
 broadcasts: every rank computes the same running statistics from the
 global batch). `batch_size` is the global batch: each rank samples its
 share (`local_batch_slice`) from its own sampler, whose numpy stream is
-seeded per process. A global batch that the ranks do not divide raises,
-unless `pad_global_batch` (set by `mp train --num_devices N`, the
-counterpart of the JAX package's one-process N-device mesh): then it is
-padded to a multiple of the ranks as that mesh pads it, with rows of
-weight 0 (copies of the share's first rows) that enter the BatchNorm
-statistics and that Validation masks out of its counts. Ranks other
-than the main one drop the callbacks that write files, and the OOM
-back-off keeps the global batch a multiple of the ranks.
+seeded per process, and the training sequence's augmenters learn the
+share (`Elastic.share`), so that they draw the global batch's parameters
+and noise fields and deform this rank's rows of them. A global batch
+that the ranks do not divide raises, unless `pad_global_batch` (set by
+`mp train --num_devices N`, the counterpart of the JAX package's
+one-process N-device mesh): then it is padded to a multiple of the ranks
+as that mesh pads it, with rows of weight 0 that enter the BatchNorm
+statistics: in training copies of the global batch's first rows, as the
+JAX `_shard` pads, gathered from the ranks that own them; in Validation,
+which masks them out of its counts, copies of the share's own rows.
+Ranks other than the main one drop the callbacks that write files, and
+the OOM back-off keeps the global batch a multiple of the ranks.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multiplanarunet_tpu_torch._device import resolve_device
 from multiplanarunet_tpu_torch.callbacks.funcs import init_callback_objects
@@ -109,7 +114,6 @@ class Trainer:
                                if self.multitask else (TrainStep, EvalStep))
         step_model = self.model
         if data_group_active():
-            import torch.distributed as dist
             from torch.nn.parallel import DistributedDataParallel
 
             replicate(self.model)
@@ -186,22 +190,26 @@ class Trainer:
                                      Path("images"), self.logger)
             except Exception as e:
                 self.logger.warn(f"Could not save sample images: {e}")
-        while True:
-            try:
-                return self._fit(
-                    train, val, batch_size=batch_size, n_epochs=n_epochs,
-                    callbacks=callbacks,
-                    train_im_per_epoch=train_im_per_epoch,
-                    val_im_per_epoch=val_im_per_epoch, init_epoch=init_epoch,
-                    verbose=verbose)
-            except torch.cuda.OutOfMemoryError:
-                # A multiple of the ranks stays one
-                batch_size -= pad_batch_to_multiple(2, self.world_size)
-                if batch_size < 1:
-                    raise
-                self.logger.warn(f"Device OOM; retrying with batch_size="
-                                 f"{batch_size}")
-                torch.cuda.empty_cache()
+        try:
+            while True:
+                try:
+                    return self._fit(
+                        train, val, batch_size=batch_size, n_epochs=n_epochs,
+                        callbacks=callbacks,
+                        train_im_per_epoch=train_im_per_epoch,
+                        val_im_per_epoch=val_im_per_epoch,
+                        init_epoch=init_epoch, verbose=verbose)
+                except torch.cuda.OutOfMemoryError:
+                    # A multiple of the ranks stays one
+                    batch_size -= pad_batch_to_multiple(2, self.world_size)
+                    if batch_size < 1:
+                        raise
+                    self.logger.warn(f"Device OOM; retrying with batch_size="
+                                     f"{batch_size}")
+                    torch.cuda.empty_cache()
+        finally:
+            # _fit gives the augmenters each try's share
+            self._share_augmenters(train, None)
 
     # ------------------------------------------------------ data-parallel
     @property
@@ -221,29 +229,73 @@ class Trainer:
         valid = min(local, max(0, batch_size - process_index() * local))
         return batch_size, padded, local, valid
 
-    def pad_share(self, X, y, w):
+    def pad_share(self, X, y, w, own_rows=False):
         """A batch this rank sampled, padded to its share of the padded
         global batch: (X, y, w, n_valid), n_valid None where every row is
-        valid. Pad rows are copies of the first rows with weight 0
-        (every row, on a rank whose share holds no valid row); for a
-        multi-task batch each task's lists, and n_valid per task."""
+        valid. Pad rows weigh 0. Global row g past the true batch is a copy
+        of global row (g - batch) mod batch, as the JAX package pads with
+        the batch's first rows, brought from the rank that owns it
+        (`_global_pad_rows`); with own_rows, pad rows are copies of this
+        rank's first rows (every row, on a rank whose share holds no valid
+        row). For a multi-task batch each task's lists, and n_valid per
+        task."""
         if self._share is None or self._share[1] == self._share[0]:
             return X, y, w, None
-        if isinstance(X, (list, tuple)):
-            parts = [self.pad_share(*t) for t in zip(X, y, w)]
-            return ([p[0] for p in parts], [p[1] for p in parts],
-                    [p[2] for p in parts], [p[3] for p in parts])
+        if not isinstance(X, (list, tuple)):
+            X, y, w, n_valid = self.pad_share([X], [y], [w], own_rows)
+            return X[0], y[0], w[0], n_valid[0]
         local, valid = self._share[2:]
-        w = torch.as_tensor(w, dtype=torch.float32)
-        n = int(X.shape[0])
-        if n < local:
-            idx = torch.arange(local - n) % n
-            X = torch.cat([X, X[idx.to(X.device)]])
-            y = torch.cat([y, y[idx.to(y.device)]])
-            w = torch.cat([w, w.new_zeros(local - n)])
-        w = w.clone()
-        w[valid:] = 0.0
-        return X, y, w, valid
+        ws = []
+        for t in w:
+            t = torch.as_tensor(t, dtype=torch.float32)[:valid]
+            ws.append(torch.cat([t, t.new_zeros(local - valid)]))
+        if own_rows:
+            def pad(t):
+                idx = torch.arange(local - t.shape[0]) % t.shape[0]
+                return torch.cat([t, t[idx.to(t.device)]])
+            X, y = [pad(t) for t in X], [pad(t) for t in y]
+        else:
+            fills = self._global_pad_rows([t for xy in zip(X, y) for t in xy])
+            X = [torch.cat([t[:valid], f]) for t, f in zip(X, fills[0::2])]
+            y = [torch.cat([t[:valid], f]) for t, f in zip(y, fills[1::2])]
+        return X, y, ws, [valid] * len(X)
+
+    def _global_pad_rows(self, tensors):
+        """This rank's pad rows [valid, local) of each of `tensors` (its rows
+        of a global batch): copies of the global rows (g - batch) mod
+        batch, where g is the pad row's place in the padded global batch.
+        Global row k lies on rank k // local at k % local, among the first
+        min(pad, local) rows of its rank; one all_gather over the data
+        group brings those rows of every rank, each row of all the
+        tensors as one row of bytes (zeros past the rows a rank holds)."""
+        batch, padded, local, valid = self._share
+        m = min(padded - batch, local)
+        first = process_index() * local
+        src = [(g - batch) % batch for g in range(first + valid,
+                                                  first + local)]
+        src = torch.tensor([k // local * m + k % local for k in src],
+                           dtype=torch.long)
+        dev = tensors[0].device
+        rows = []
+        for t in tensors:
+            part = t[:m].to(dev).contiguous()
+            part = part.reshape(part.shape[0], -1).view(torch.uint8)
+            rows.append(torch.cat([part, part.new_zeros(
+                m - part.shape[0], part.shape[1])]))
+        buf = torch.cat(rows, dim=1)
+        if buf.is_cuda and dist.get_backend() == "gloo":
+            buf = buf.cpu()       # gloo gathers host tensors only
+        parts = [torch.empty_like(buf) for _ in range(self.world_size)]
+        dist.all_gather(parts, buf)
+        got = torch.cat(parts)[src].to(dev)
+        out, at = [], 0
+        for t, part in zip(tensors, rows):
+            width = part.shape[1]
+            out.append(got[:, at:at + width].contiguous().view(t.dtype)
+                       .reshape((len(src),) + tuple(t.shape[1:]))
+                       .to(t.device))
+            at += width
+        return out
 
     def loss_pad_factor(self):
         """Padded global over true global batch: the factor that turns a
@@ -259,6 +311,9 @@ class Trainer:
         _, padded, local, valid = self._share
         # A rank with no valid row still samples (weight-0) rows
         train.batch_size = valid or local
+        if self.world_size > 1:
+            self._share_augmenters(train, (batch_size,
+                                           process_index() * local))
         steps_per_epoch = max(1, int(train_im_per_epoch / batch_size))
         cb_objs = []
         if val is not None:
@@ -328,6 +383,15 @@ class Trainer:
         self._stop_queues(train, val)
         self._share = None
         return history
+
+    @staticmethod
+    def _share_augmenters(train, share):
+        """Set `share` on every augmenter of the training sequence (every
+        task's, for a MultiTaskSequence: reading an attribute of one
+        reaches the first task's alone)."""
+        for seq in getattr(train, "sequences", None) or [train]:
+            for aug in getattr(seq, "list_of_augmenters", None) or ():
+                aug.share = share
 
     @staticmethod
     def _stop_queues(train, val):
