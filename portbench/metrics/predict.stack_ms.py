@@ -1,0 +1,8 @@
+"""predict.stack_ms: the 'stack' stage of MultiViewPredictor.stage_ms() (CUDA
+events), milliseconds per volume, mean over the window's volumes."""
+
+
+def read(rec):
+    vols = rec.get("volumes") or []
+    ms = [v["stage_ms"]["stack"] for v in vols if "stack" in v["stage_ms"]]
+    return sum(ms) / len(ms) if ms else None
