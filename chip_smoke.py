@@ -228,6 +228,7 @@ from multiplanarunet_tpu_torch.train.train_step import (
     MultiTaskTrainStep,
     TrainStep,
 )
+from multiplanarunet_tpu_torch.utils import trace
 from multiplanarunet_tpu_torch.train.trainer import Trainer
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
 from multiplanarunet_tpu_torch.utils.conv_arithmetics import (
@@ -931,11 +932,39 @@ def setup_main_path(dev, tmp):
     return predictor, images, views, fusion, plans
 
 
+def check_predict_spans(records, n_volumes):
+    """The recorder's spans of n_volumes predict_image calls: one root and
+    one planning span a volume, the planning within 1..36 candidates of
+    each of the 2 x N_VIEWS shear plans, and every device span timed;
+    logs the planning's host ms and candidates a volume."""
+    spans = {}
+    for r in records["spans"]:
+        spans.setdefault(r["name"], []).append(r)
+    plans = spans.get("predict.plan", [])
+    cands = [r["counters"].get("shear_plan.candidates", 0) for r in plans]
+    device = [r for name in ("predict.stage", "predict.stack",
+                             "predict.unet", "predict.remap",
+                             "predict.fuse") for r in spans.get(name, [])]
+    log(f"predict spans: planning "
+        f"{[round(r['host_ms'], 1) for r in plans]} ms host, candidates "
+        f"{cands} a volume; {len(device)} device spans")
+    if (len(spans.get("predict.image", [])) != n_volumes
+            or len(plans) != n_volumes
+            or not all(2 * N_VIEWS <= c <= 36 * 2 * N_VIEWS for c in cands)
+            or len(device) != n_volumes * (2 + 3 * N_VIEWS)
+            or any(r["device_ms"] is None for r in device)):
+        raise AssertionError(f"predict spans: {sorted(spans)}, planning "
+                             f"candidates {cands}")
+
+
 def phase_main_path(dev, predictor, images, views, fusion):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     shear_pass.launches = 0
     seconds, per_volume_launches, shares, maps = [], [], [], []
+    # The span recorder on over the volumes: stage_ms() and the planning
+    trace.take()
+    trace.enable()
     for i, img in enumerate(images):
         before = shear_pass.launches
         t0 = time.perf_counter()
@@ -955,6 +984,8 @@ def phase_main_path(dev, predictor, images, views, fusion):
             f"{per_volume_launches[-1]}, stage ms "
             f"{ {k: round(v, 2) for k, v in ms.items()} }, class counts "
             f"{counts.tolist()}")
+    trace.disable()
+    check_predict_spans(trace.take(), len(images))
     launches = shear_pass.launches
     peak = torch.cuda.max_memory_allocated(dev)
     expected = 12 * N_VIEWS

@@ -28,6 +28,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multiplanarunet_tpu_torch.utils import trace
+
 
 class Callback:
     """Base class; the Trainer assigns itself before training starts.
@@ -437,7 +439,11 @@ class Profiler(Callback):
     the card's kernels when the trainer runs on CUDA. Each traced epoch
     is exported as a Chrome trace, <log_dir>/trace_epoch_<e>.json (the
     JAX package writes a TensorBoard trace of the same epochs; only the
-    format differs)."""
+    format differs), where the port's spans (`utils.trace`) show as
+    `mp.<name>`. The span recorder is on over a traced epoch; at its end
+    one log line per span name gives the spans' count and their summed
+    host and device milliseconds, and one line per counter its total,
+    beside the trace's path."""
 
     writes_files = True
 
@@ -447,6 +453,7 @@ class Profiler(Callback):
         self.epochs = set(epochs)
         self._prof = None
         self._epoch = None
+        self._was_recording = False
 
     def on_epoch_begin(self, epoch, logs=None):
         if epoch in self.epochs and self._prof is None:
@@ -456,19 +463,32 @@ class Profiler(Callback):
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.__enter__()
             self._epoch = epoch
+            self._was_recording = trace.enabled()
+            trace.enable()
 
     def _stop(self):
+        """Stop the profiler and the recorder; (trace path, the records)."""
         prof, self._prof = self._prof, None
         prof.__exit__(None, None, None)
+        if not self._was_recording:
+            trace.disable()
+        records = trace.take()
         self.log_dir.mkdir(parents=True, exist_ok=True)
         path = self.log_dir / f"trace_epoch_{self._epoch}.json"
         prof.export_chrome_trace(str(path))
-        return path
+        return path, records
 
     def on_epoch_end(self, epoch, logs=None):
         if self._prof is not None:
-            path = self._stop()
-            self.trainer.logger(f"[Profiler] trace written to {path}")
+            path, records = self._stop()
+            log = self.trainer.logger
+            log(f"[Profiler] trace written to {path}")
+            for name, (n, host, dev) in trace.summary(records).items():
+                dev = "-" if dev is None else f"{dev:.3f}"
+                log(f"[Profiler] span {name}: {n} x, host {host:.3f} ms, "
+                    f"device {dev} ms")
+            for name, total in records["counters"].items():
+                log(f"[Profiler] counter {name}: {total}")
 
     def on_train_end(self, logs=None):
         if self._prof is not None:

@@ -62,7 +62,8 @@ class Validation(Callback):
         data-parallel), fetched once."""
         trainer = self.trainer
         sums, counts = None, None
-        for X, y, w in prefetched(self.sequence, self.steps, trainer.device):
+        for X, y, w in prefetched(self.sequence, self.steps, trainer.device,
+                                  spans="val"):
             # Pad rows copy this rank's own rows, not the global batch's
             # first rows as in training: they are masked out of the
             # counts, weigh 0 in the loss, and in eval mode a row cannot

@@ -18,6 +18,8 @@ from itertools import permutations
 
 import numpy as np
 
+from multiplanarunet_tpu_torch.utils import trace
+
 
 class _Op:
     """One elementary pass: resample axis `m` at alpha*t + beta*v[q] + gamma.
@@ -129,7 +131,9 @@ class ShearPlan:
 def _finish_plan(plan, perm, out_perm, ops, c_rp, out_shape_p, round_extent):
     """Solve translations + interval bookkeeping for one factorization.
     `out_shape_p` is the PLANNED (column-permuted) output box; plan.out_shape
-    stays the true one (the executor transposes back at the end)."""
+    stays the true one (the executor transposes back at the end). Each
+    call is a candidate of the search: counter `shear_plan.candidates`."""
+    trace.count("shear_plan.candidates")
     plan.perm = perm
     plan.out_perm = out_perm
     plan.ops = ops

@@ -11,6 +11,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from multiplanarunet_tpu_torch.utils import trace
+
 
 class BaseSequence:
     def __init__(self):
@@ -52,7 +54,7 @@ def _tensors(part):
     return list(part) if isinstance(part, (list, tuple)) else [part]
 
 
-def prefetched(sequence, n_batches, device):
+def prefetched(sequence, n_batches, device, spans="train", epoch=None):
     """Yield sequence[0 .. n_batches-1], each sampled in a worker thread
     while the caller works on the one before (one-deep prefetch).
 
@@ -61,15 +63,23 @@ def prefetched(sequence, n_batches, device):
     work; the caller's stream waits for an event recorded after each
     batch, and the batch tensors (every task's, for a multi-task batch of
     lists) are marked as used on the caller's stream (`record_stream`)
-    before the allocator may reuse them."""
+    before the allocator may reuse them.
+
+    Spans (`utils.trace`, request id (epoch, batch index)):
+    `<spans>.batch_wait` in the caller, over the wait for a batch and
+    the stream's wait on it; `<spans>.sample` in the worker, over
+    sequence[i], with device time on the worker's stream."""
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    wait_name, sample_name = f"{spans}.batch_wait", f"{spans}.sample"
 
     def work(i):
         if stream is None:
-            return sequence[i], None
+            with trace.span(sample_name, request=(epoch, i)):
+                return sequence[i], None
         with torch.cuda.stream(stream):
-            batch = sequence[i]
+            with trace.span(sample_name, device=device, request=(epoch, i)):
+                batch = sequence[i]
             done = torch.cuda.Event()
             done.record(stream)
         return batch, done
@@ -77,12 +87,13 @@ def prefetched(sequence, n_batches, device):
     with ThreadPoolExecutor(max_workers=1) as worker:
         future = worker.submit(work, 0)
         for i in range(n_batches):
-            (X, y, w), done = future.result()
-            if i + 1 < n_batches:
-                future = worker.submit(work, i + 1)
-            if done is not None:
-                current = torch.cuda.current_stream(device)
-                current.wait_event(done)
-                for t in _tensors(X) + _tensors(y):
-                    t.record_stream(current)
+            with trace.span(wait_name, request=(epoch, i)):
+                (X, y, w), done = future.result()
+                if i + 1 < n_batches:
+                    future = worker.submit(work, i + 1)
+                if done is not None:
+                    current = torch.cuda.current_stream(device)
+                    current.wait_event(done)
+                    for t in _tensors(X) + _tensors(y):
+                        t.record_stream(current)
             yield X, y, w

@@ -49,6 +49,7 @@ from multiplanarunet_tpu_torch.sequences.multi_planar import (
     IsotrophicLiveViewSequence,
     _presence,
 )
+from multiplanarunet_tpu_torch.utils import trace
 
 
 class IsotrophicLiveViewSequence3D(IsotrophicLiveViewSequence):
@@ -130,8 +131,9 @@ class IsotrophicLiveViewSequence3D(IsotrophicLiveViewSequence):
                 weights.append(image.sample_weight)
                 corners[b], rots[b] = self._draw_candidates(image)
         params = pool.params_for(np.asarray(slots, np.int32))
-        labs0, pres0 = self._pool_labels(pool.labels, params, corners[:, 0],
-                                         rots[:, 0])
+        with trace.span("sampler.labels"):
+            labs0, pres0 = self._pool_labels(pool.labels, params,
+                                             corners[:, 0], rots[:, 0])
         return dict(pool=pool, params=params, weights=weights,
                     cands=(corners, rots), labs0=labs0, pres0=pres0)
 

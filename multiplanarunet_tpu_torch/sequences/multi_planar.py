@@ -65,6 +65,7 @@ from multiplanarunet_tpu_torch.ops.interp import (
 )
 from multiplanarunet_tpu_torch.parallel.volume_pool import DeviceVolumePool
 from multiplanarunet_tpu_torch.sequences.base_sequence import BaseSequence
+from multiplanarunet_tpu_torch.utils import trace
 
 MAX_TRIES = 10  # candidate count; the reference's retry budget
 
@@ -279,25 +280,29 @@ class IsotrophicLiveViewSequence(BaseSequence):
         pool, params, labs0 = st["pool"], st["params"], st["labs0"]
         cands = st["cands"]
         B, K = cands[0].shape[:2]
-        pres0 = st["pres0"].cpu().numpy()
-        fg = pres0[:, self.fg_classes]
-        maybe_rejected = ~fg.all(1) if self.force_all_fg else ~fg.any(1)
-        S = np.nonzero(maybe_rejected)[0]
-        s_pos = np.full(B, -1, np.int64)
-        labs_rest = pres_rest = None
-        if len(S) and K > 1:
-            rep = np.repeat(S, K - 1)
-            labs_rest, pres_rest = self._pool_labels(
-                pool.labels, {k: v[rep] for k, v in params.items()},
-                *(c[S, 1:].reshape((-1,) + c.shape[2:]) for c in cands))
-            pres_rest = pres_rest.cpu().numpy().reshape(len(S), K - 1, -1)
-            s_pos[S] = np.arange(len(S))
-        chosen_t = self.walk_candidates(pres0, pres_rest, s_pos)
+        with trace.span("sampler.labels"):
+            pres0 = st["pres0"].cpu().numpy()
+            fg = pres0[:, self.fg_classes]
+            maybe_rejected = ~fg.all(1) if self.force_all_fg else ~fg.any(1)
+            S = np.nonzero(maybe_rejected)[0]
+            s_pos = np.full(B, -1, np.int64)
+            labs_rest = pres_rest = None
+            if len(S) and K > 1:
+                rep = np.repeat(S, K - 1)
+                labs_rest, pres_rest = self._pool_labels(
+                    pool.labels, {k: v[rep] for k, v in params.items()},
+                    *(c[S, 1:].reshape((-1,) + c.shape[2:]) for c in cands))
+                pres_rest = pres_rest.cpu().numpy().reshape(len(S), K - 1,
+                                                            -1)
+                s_pos[S] = np.arange(len(S))
+        with trace.span("sampler.walk"):
+            chosen_t = self.walk_candidates(pres0, pres_rest, s_pos)
 
         rows = np.arange(B)
-        batch_x = self._pool_images(pool, params,
-                                    *(c[rows, chosen_t] for c in cands))
-        pool.mark_read()
+        with trace.span("sampler.images"):
+            batch_x = self._pool_images(pool, params,
+                                        *(c[rows, chosen_t] for c in cands))
+            pool.mark_read()
         # Chosen labels: depth-0 rows from labs0, deeper ones from the
         # phase-2 block (its row s_pos[b] * (K-1) + t - 1)
         if labs_rest is None:
@@ -307,9 +312,10 @@ class IsotrophicLiveViewSequence(BaseSequence):
                                B + s_pos * (K - 1) + chosen_t - 1)
             batch_y = torch.cat([labs0, labs_rest]).index_select(
                 0, torch.as_tensor(sel_idx, device=labs0.device))
-        batch_x, batch_y, batch_w = self.augment(
-            batch_x, batch_y, np.asarray(st["weights"], np.float32),
-            params["fills"])
+        with trace.span("sampler.augment", device=self.device):
+            batch_x, batch_y, batch_w = self.augment(
+                batch_x, batch_y, np.asarray(st["weights"], np.float32),
+                params["fills"])
         return self.prepare_batches(batch_x, batch_y, batch_w)
 
     def __getitem__(self, idx):
@@ -317,7 +323,9 @@ class IsotrophicLiveViewSequence(BaseSequence):
         if not self._path_chosen:
             self._choose_path()
         if self.use_pool:
-            return self._finish_pooled_batch(self._start_pooled_batch())
+            with trace.span("sampler.draw"):
+                st = self._start_pooled_batch()
+            return self._finish_pooled_batch(st)
         has_fg_count = 0
         has_fg_vec = np.zeros(len(self.fg_classes), bool)
         xs, ys, ws, bgs = [], [], [], []
@@ -432,8 +440,9 @@ class IsotrophicLiveViewSequence2D(IsotrophicLiveViewSequence):
         offsets = np.random.uniform(-half, half, B * K).astype(
             np.float32).reshape(B, K)
         params = pool.params_for(slots)
-        labs0, pres0 = self._pool_labels(pool.labels, params, bases[:, 0],
-                                         offsets[:, 0])
+        with trace.span("sampler.labels"):
+            labs0, pres0 = self._pool_labels(pool.labels, params,
+                                             bases[:, 0], offsets[:, 0])
         return dict(pool=pool, params=params, weights=weights,
                     cands=(bases, offsets), labs0=labs0, pres0=pres0)
 

@@ -12,7 +12,13 @@ the multi-task steps over a MultiTaskSequence's per-task batch lists. `fit`
 first saves sample images of a train and a val batch to images/ (unless
 no_im); where that fails, a missing matplotlib included, it logs one
 warning and trains on, as the JAX package does. `predict_batch` is the
-eval-mode forward the image and dice callbacks call.
+eval-mode forward the image and dice callbacks call. Spans
+(`utils.trace`): `train.epoch` (request (epoch, None); it counts the
+allocator's cudaMalloc calls as `alloc.cuda_mallocs` when recorded),
+`train.step` around each train step call (device time on the caller's
+stream, request (epoch, step)), `train.epoch_end` over the log fetch and
+the callbacks' `on_epoch_end`, and the prefetch's `train.batch_wait` and
+`train.sample`.
 
 Data-parallel, when a process group is active (`parallel.distributed`;
 `mp train` starts one under a launch marker or for --num_devices N):
@@ -74,6 +80,7 @@ from multiplanarunet_tpu_torch.train.utils import (
     init_metrics,
     init_optimizer,
 )
+from multiplanarunet_tpu_torch.utils import trace
 
 
 class Trainer:
@@ -347,24 +354,31 @@ class Trainer:
                         + (f" (global batch padded to {padded}; {valid} "
                            f"valid here)" if padded != batch_size else ""))
         for epoch in range(init_epoch, n_epochs):
-            logs = {}
-            for cb in cb_objs:
-                cb.on_epoch_begin(epoch, logs)
-            t0 = time.perf_counter()
-            accum = {}
-            for X, y, w in prefetched(train, steps_per_epoch, self.device):
-                X, y, w, _ = self.pad_share(X, y, w)
-                for k, v in self.train_step(X, y, w).items():
-                    accum.setdefault(k, []).append(v)
-            # One host fetch per epoch for the step logs
-            keys = list(accum)
-            means = torch.stack([torch.stack(accum[k]).float().mean()
-                                 for k in keys]).cpu().numpy()
-            logs.update({k: float(m) for k, m in zip(keys, means)})
-            logs["lr"] = self.learning_rate
-            train_seconds = time.perf_counter() - t0
-            for cb in cb_objs:
-                cb.on_epoch_end(epoch, logs)
+            with trace.span("train.epoch", request=(epoch, None),
+                            mallocs=self.device):
+                logs = {}
+                for cb in cb_objs:
+                    cb.on_epoch_begin(epoch, logs)
+                t0 = time.perf_counter()
+                accum = {}
+                for step, (X, y, w) in enumerate(prefetched(
+                        train, steps_per_epoch, self.device, epoch=epoch)):
+                    X, y, w, _ = self.pad_share(X, y, w)
+                    with trace.span("train.step", device=self.device,
+                                    request=(epoch, step)):
+                        step_logs = self.train_step(X, y, w)
+                    for k, v in step_logs.items():
+                        accum.setdefault(k, []).append(v)
+                with trace.span("train.epoch_end"):
+                    # One host fetch per epoch for the step logs
+                    keys = list(accum)
+                    means = torch.stack([torch.stack(accum[k]).float().mean()
+                                         for k in keys]).cpu().numpy()
+                    logs.update({k: float(m) for k, m in zip(keys, means)})
+                    logs["lr"] = self.learning_rate
+                    train_seconds = time.perf_counter() - t0
+                    for cb in cb_objs:
+                        cb.on_epoch_end(epoch, logs)
             if verbose:
                 summary = " - ".join(
                     f"{k}: {v:.4f}" for k, v in logs.items()

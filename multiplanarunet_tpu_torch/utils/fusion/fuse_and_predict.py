@@ -68,6 +68,7 @@ from multiplanarunet_tpu_torch.ops.shear_plan import (
     plan_stage_bytes,
     plan_view_remap,
 )
+from multiplanarunet_tpu_torch.utils import trace
 
 
 def _device_memory_bytes(device):
@@ -190,7 +191,10 @@ class MultiViewPredictor:
         # Per view of the last predict_image: 'shear', 'grouped:<g>',
         # 'gather-remap' (mixed mode) or 'gather'
         self.remap_modes = []
-        self._events = []
+        # The device spans of the last predict_image (stage_ms reads them)
+        # and the number of predict_image calls (the spans' request id)
+        self._stages = []
+        self._calls = 0
         # Model replicas of predict_image_sharded, per device
         self._replicas = {}
 
@@ -315,27 +319,21 @@ class MultiViewPredictor:
         return plans
 
     # ------------------------------------------------------------ running
-    def _mark(self, name):
-        """Record a CUDA event named `name` on the current stream (no-op
-        off the card); `stage_ms` reads the gaps between marks."""
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self._events.append((name, ev))
-
     def stage_ms(self):
-        """{stage: milliseconds} of the last predict_image on the card,
-        from CUDA events, summed over views: 'stack', 'unet', 'remap'
-        (with the accumulation), 'fuse', and 'start' (the gaps between a
-        view's end and the next stage's start), 'stage' (the volume's
-        host -> device copy and on-device expansion). Empty off the
-        card."""
-        if not self._events:
+        """{stage: milliseconds} of the last predict_image on the card, from
+        its device spans (`utils.trace`), summed over views: 'stack',
+        'unet', 'remap' (with the accumulation), 'fuse', and 'start' (the
+        gaps between one span's end and the next one's start), 'stage'
+        (the volume's host -> device copy and on-device expansion). The
+        spans stay for a later `trace.take()`. Empty off the card."""
+        spans = [s for s in self._stages if s.timed]
+        if not spans:
             return {}
-        torch.cuda.synchronize(self.device)
         out = {}
-        for (_, start), (name, end) in zip(self._events, self._events[1:]):
-            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        for s in spans:
+            name = s.name.split(".", 1)[1]
+            out[name] = out.get(name, 0.0) + s.device_ms()
+        out["start"] = sum(a.ms_until(b) for a, b in zip(spans, spans[1:]))
         return out
 
     def _unet_stack(self, stack, model=None):
@@ -403,12 +401,13 @@ class MultiViewPredictor:
         return torch.from_numpy(lab.astype(np.uint8)).to(self.device)
 
     def _run_view(self, v, n_views, model, sampler, volume, accum, w_v,
-                  basis, plan, Mt, offsets, n_valid, want_side, mark):
+                  basis, plan, Mt, offsets, n_valid, want_side, keep=None):
         """One view on `volume`'s device: stack (shear plan, or the
         corner-packed gather when the view has no stack plan), U-Net
         `model`, remap (shear, grouped shear, or the gather remap) and
-        accum += w_v * mapped. Returns the view's uint8 argmax (with
-        want_side) or None; `mark` records the stage boundaries."""
+        accum += w_v * mapped, each in a span kept in `keep` (a list, or
+        None). Returns the view's uint8 argmax (with want_side) or
+        None."""
         stack_plan, (mode, group, r_plan, r_bounds) = plan
         fill = sampler.scaled_bg_value
         g0, g_step, o0, o_step = self._grid_params(offsets)
@@ -418,36 +417,36 @@ class MultiViewPredictor:
                   f"stack, remap {self.remap_modes[-1]}"
                   + ("" if volume.device == self.device
                      else f" (device {volume.device})"))
-        mark("start")
-        if stack_plan is None:
-            stack = sample_plane_stack_packed(
-                volume, sampler.origin, sampler.spacing, sampler.rot_mat,
-                basis, offsets, self.span, self.dim, fill,
-                valid_shape=sampler.valid_shape)
-        else:
-            # Catmull-Rom forward passes keep the input sharp; bf16 passes
-            # halve the bandwidth (the U-Net computes in bf16)
-            stack = shear_resample(volume, stack_plan[0], fill,
-                                   method="cubic",
-                                   compute_dtype=torch.bfloat16,
-                                   exact_bounds=stack_plan[1])
-        mark("stack")
-        pred = self._unet_stack(stack, model)
-        del stack
-        mark("unet")
-        if mode in ("gather", "gather-remap"):
-            M, t = Mt
-            side = accum_view_pred_affine(
-                pred, g0, g_step, o0, o_step, M, t, accum, w_v, n_valid,
-                want_argmax=want_side)
-        else:
-            mapped = self.shear_remap(pred, r_plan, r_bounds, group)
-            side = (mapped.argmax(dim=-1).to(torch.uint8)
-                    if want_side else None)
-            # accum + w * mapped in float32, with no second f32 volume
-            accum.addcmul_(mapped, w_v)
-            del mapped
-        del pred
+        with trace.span("predict.stack", device=volume.device, keep=keep):
+            if stack_plan is None:
+                stack = sample_plane_stack_packed(
+                    volume, sampler.origin, sampler.spacing,
+                    sampler.rot_mat, basis, offsets, self.span, self.dim,
+                    fill, valid_shape=sampler.valid_shape)
+            else:
+                # Catmull-Rom forward passes keep the input sharp; bf16
+                # passes halve the bandwidth (the U-Net computes in bf16)
+                stack = shear_resample(volume, stack_plan[0], fill,
+                                       method="cubic",
+                                       compute_dtype=torch.bfloat16,
+                                       exact_bounds=stack_plan[1])
+        with trace.span("predict.unet", device=volume.device, keep=keep):
+            pred = self._unet_stack(stack, model)
+            del stack
+        with trace.span("predict.remap", device=volume.device, keep=keep):
+            if mode in ("gather", "gather-remap"):
+                M, t = Mt
+                side = accum_view_pred_affine(
+                    pred, g0, g_step, o0, o_step, M, t, accum, w_v, n_valid,
+                    want_argmax=want_side)
+            else:
+                mapped = self.shear_remap(pred, r_plan, r_bounds, group)
+                side = (mapped.argmax(dim=-1).to(torch.uint8)
+                        if want_side else None)
+                # accum + w * mapped in float32, with no second f32 volume
+                accum.addcmul_(mapped, w_v)
+                del mapped
+            del pred
         return side
 
     def _run_views(self, sampler, volume, bases, plans, ws, out_shape,
@@ -460,11 +459,10 @@ class MultiViewPredictor:
         for v, plan in enumerate(plans):
             side = self._run_view(v, len(plans), self.model, sampler, volume,
                                   accum, ws[v], bases[v], plan, Mts[v],
-                                  offsets, n_valid, want_side, self._mark)
+                                  offsets, n_valid, want_side, self._stages)
             if want_side:
                 per_view.append(self._per_view_result(side, crop,
                                                       labels_dev))
-            self._mark("remap")
         return accum, per_view
 
     @torch.inference_mode()
@@ -482,12 +480,24 @@ class MultiViewPredictor:
         `per_view` is a list of per-view uint8 class maps, or with
         eval_labels (host label volume) of (3, n_classes) int64 confusion
         counts against them (only those counts leave the device), or None
-        when not return_per_view."""
-        sampler = image.interpolator
+        when not return_per_view.
+
+        Spans (`utils.trace`, request id the call's number): the root
+        `predict.image`; `predict.plan` on the host; `predict.stage`,
+        each view's `predict.stack`, `predict.unet` and `predict.remap`,
+        and `predict.fuse` on the device, kept for `stage_ms`."""
+        self._calls += 1
+        with trace.span("predict.image", request=self._calls):
+            return self._predict_image(image, views, fusion_params, n_planes,
+                                       return_per_view, return_probs,
+                                       defer_fetch, eval_labels)
+
+    def _plan(self, image, views, fusion_params, n_planes):
+        """predict_image's host planning: (offsets, n_valid, W, b, bases,
+        Mts, plans), plans None where the gather path runs."""
         true_shape = tuple(int(s) for s in image.shape[:3])
         offsets, n_valid = self._prepare_offsets(image, n_planes)
-        n_views = len(views)
-        W, b = self._fusion_Wb(fusion_params, n_views)
+        W, b = self._fusion_Wb(fusion_params, len(views))
         bases = [geometry.plane_basis(view, noise_sd=0.0) for view in views]
         Mts = [self._remap_transform(image, basis, true_shape)
                for basis in bases]
@@ -500,16 +510,26 @@ class MultiViewPredictor:
                     "resampler='shear' requested but a view affine does not "
                     "factor within the memory guard; use 'auto' (falls back "
                     "to the exact gather path) or 'gather'")
+        return offsets, n_valid, W, b, bases, Mts, plans
+
+    def _predict_image(self, image, views, fusion_params, n_planes,
+                       return_per_view, return_probs, defer_fetch,
+                       eval_labels):
+        sampler = image.interpolator
+        true_shape = tuple(int(s) for s in image.shape[:3])
+        n_views = len(views)
+        with trace.span("predict.plan"):
+            offsets, n_valid, W, b, bases, Mts, plans = self._plan(
+                image, views, fusion_params, n_planes)
         labels_dev = (self._stage_eval_labels(eval_labels)
                       if return_per_view and eval_labels is not None
                       else None)
 
         dev = self.device
-        self._events = []
+        self._stages = []
         self.remap_modes = []
-        self._mark("start")
-        volume = self._stage_volume(sampler, packed=plans is None)
-        self._mark("stage")
+        with trace.span("predict.stage", device=dev, keep=self._stages):
+            volume = self._stage_volume(sampler, packed=plans is None)
         out_shape = tuple(int(s) for s in volume.shape[:3])
         ws = (torch.from_numpy(W) if W is not None
               else torch.ones((n_views, self.n_classes))).to(dev)
@@ -524,22 +544,21 @@ class MultiViewPredictor:
             per_view = [c.cpu().numpy() for c in per_view]
 
         b_t = torch.from_numpy(b).to(dev)
-        self._mark("start")
-        if return_probs:
-            fused = (torch.softmax(accum + b_t, dim=-1)
-                     if fusion_params is not None else accum / n_views)
-            out = fused[crop]
-        else:
-            # argmax is invariant to softmax and to the sum-fusion 1/n
-            # scaling, so bias + argmax is the fused class map
-            out = (accum + b_t)[crop].argmax(dim=-1).to(torch.uint8)
-        del accum
+        with trace.span("predict.fuse", device=dev, keep=self._stages):
+            if return_probs:
+                fused = (torch.softmax(accum + b_t, dim=-1)
+                         if fusion_params is not None else accum / n_views)
+                out = fused[crop]
+            else:
+                # argmax is invariant to softmax and to the sum-fusion 1/n
+                # scaling, so bias + argmax is the fused class map
+                out = (accum + b_t)[crop].argmax(dim=-1).to(torch.uint8)
+            del accum
+            if not defer_fetch:
+                out = out.cpu().numpy()
         per_view = per_view if return_per_view else None
         if defer_fetch:
-            self._mark("fuse")
             return (lambda: out.cpu().numpy()), per_view
-        out = out.cpu().numpy()
-        self._mark("fuse")
         return out, per_view
 
     # ------------------------------------------------ view-parallel path
@@ -570,21 +589,10 @@ class MultiViewPredictor:
         devices = [torch.device(d) for d in devices]
         sampler = image.interpolator
         true_shape = tuple(int(s) for s in image.shape[:3])
-        offsets, n_valid = self._prepare_offsets(image, n_planes)
         n_views = len(views)
-        W, b = self._fusion_Wb(fusion_params, n_views)
-        bases = [geometry.plane_basis(view, noise_sd=0.0) for view in views]
-        Mts = [self._remap_transform(image, basis, true_shape)
-               for basis in bases]
-        plans = None
-        if self.resampler in ("auto", "shear"):
-            plans = self._plan_shear_views(image, bases, Mts, offsets,
-                                           n_valid)
-            if plans is None and self.resampler == "shear":
-                raise ValueError(
-                    "resampler='shear' requested but a view affine does not "
-                    "factor within the memory guard; use 'auto' (falls back "
-                    "to the exact gather path) or 'gather'")
+        with trace.span("predict.plan"):
+            offsets, n_valid, W, b, bases, Mts, plans = self._plan(
+                image, views, fusion_params, n_planes)
         packed = plans is None
         if packed:
             plans = [(None, ("gather", None, None, None))] * n_views
@@ -609,7 +617,7 @@ class MultiViewPredictor:
                 self._run_view(v, n_views, self._replica(d), sampler,
                                volumes[d], accums[v % n_use], ws[d][v],
                                bases[v], plan, Mts[v], offsets, n_valid,
-                               False, lambda name: None)
+                               False)
         total = accums[0]
         for a in accums[1:]:
             total = total + a.to(devices[0], non_blocking=True)
