@@ -7,8 +7,13 @@ the threefry2x32 draws against theirs, bit for bit, at the training
 paths' sizes (`phase_threefry`: Elastic2D and Elastic3D batches, a rank's
 share of the Elastic2D fields drawn from a start offset, a 256^3
 permutation, the full-width 2D init; with one Elastic2D batch on the card
-against the CPU from one key), checks the predictor's geometry with a one-hot
-oracle (shear, gather and auto's fallback), then drives fused multi-view
+against the CPU from one key) and the U-Net's conv epilogue against its
+plain version at the main paths' shapes (`phase_unet_epilogue`: within
+one bf16 ulp, timed beside its bound; its launches gated per volume on the
+main path, and one chunk of the predictor's twin run with the kernel and
+with the plain version within the forms' float32 gate), checks the
+predictor's geometry with a one-hot oracle (shear, gather and auto's
+fallback), then drives fused multi-view
 inference at full width (U-Net complexity_factor 2, depth 4, dim 256, 7
 classes; 6 views + learned fusion over 256^3 volumes, bench.py's
 configuration) and times it, and requires the same class map with the
@@ -144,6 +149,7 @@ import contextlib
 import copy
 import functools
 import io
+import itertools
 import json
 import os
 import shutil
@@ -212,6 +218,10 @@ from multiplanarunet_tpu_torch.ops.shear_plan import (
     _Op,
     plan_affine_resample,
     plan_stage_bytes,
+)
+from multiplanarunet_tpu_torch.ops.unet_epilogue import (
+    unet_epilogue,
+    unet_epilogue_reference,
 )
 from multiplanarunet_tpu_torch.preprocessing.data_preparation_funcs import (
     prepare_for_3d_unet,
@@ -828,6 +838,125 @@ def phase_threefry(dev, card):
                 max_abs_err=max(r["err"] for r in rows))
 
 
+# ------------------------------------------------------------ unet_epilogue
+# The conv epilogue at the main paths' shapes: predict-256's largest and
+# smallest conv outputs (a chunk of 46 planes, filters padded to 96 at
+# 256^2 and 1448 at 16^2) and UNet3D's first level on a training batch of
+# 16 boxes of 64^3; then the scalar path: an odd row length, and a
+# tensor 2 bytes past a 16-byte boundary. Each with the BatchNorm and
+# without (ReLU), and the first with the linear activation too. Then
+# channels-last outputs, as cuDNN gives for inputs made from NHWC data:
+# the first and third shapes (the vector path over 8 channels), 90
+# channels (not a multiple of 8) and a misaligned tensor (the scalar
+# path).
+EPILOGUE_SHAPES = ((46, 96, 256, 256), (46, 1448, 16, 16),
+                   (16, 64, 64, 64, 64), (3, 5, 7, 9, 11))
+EPILOGUE_MAX_ULP = 1
+# The phases whose paths run the eval U-Net in bf16, so launch the conv
+# epilogue (the config surface's U-Net is mish, which keeps the ops)
+EPILOGUE_PATHS = ("main path", "U-Net forms", "reference swap",
+                  "grouped remap", "gather", "per-view", "mp predict",
+                  f"{DIM_LARGE}^3", "callbacks and tools", "3D",
+                  "multi-task", "workflow", "multi-device")
+# Bytes the timed launches cycle over, past the 50 MB L2, so that each
+# launch reads its tensor from HBM as the U-Net's next conv output is
+EPILOGUE_TIMED_BYTES = 2 ** 28
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps, elementwise, as int32 (the bit patterns in
+    sign-magnitude order: +0 and -0 are 0 apart)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i >= 0, i, -(i & 0x7FFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+def epilogue_inputs(shape, dev, gen, offset=0, channels_last=False):
+    """A bf16 conv output of `shape` (offset elements past an aligned
+    address; dense channels-last with channels_last), the float32 bias
+    and BatchNorm values of its channels."""
+    c = shape[1]
+    n = int(np.prod(shape))
+    x = torch.empty(n + offset, dtype=torch.bfloat16, device=dev)[offset:]
+    x.copy_(2 * torch.randn(n, generator=gen, device=dev))
+    x = (x.view(shape[0], *shape[2:], c).movedim(-1, 1) if channels_last
+         else x.view(shape))
+    bias = 0.5 * torch.randn(c, generator=gen, device=dev)
+    stats = (torch.randn(c, generator=gen, device=dev),
+             0.5 + torch.rand(c, generator=gen, device=dev),
+             0.5 + torch.rand(c, generator=gen, device=dev),
+             torch.randn(c, generator=gen, device=dev), 1e-3)
+    return x, bias, stats
+
+
+def phase_unet_epilogue(dev, card):
+    """The conv epilogue kernel against its plain version on the card at
+    EPILOGUE_SHAPES (the share of elements equal and the largest
+    difference in bf16 ulps, gate EPILOGUE_MAX_ULP), and its time beside
+    the plain version's and its bound (4 bytes an element at HBM's rate)
+    at the main paths' shapes. Returns the kernel's numbers for the
+    kernels line (the first shape's, with the BatchNorm)."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    worst, first = 0, None
+    # (shape, BatchNorm, ReLU, offset, channels-last)
+    cases = [(shape, bn, True, 0, False) for shape in EPILOGUE_SHAPES
+             for bn in (True, False)]
+    cases += [(EPILOGUE_SHAPES[0], True, False, 0, False),
+              (EPILOGUE_SHAPES[0], False, False, 0, False),
+              ((4, 24, 32, 32), True, True, 1, False)]
+    cases += [(shape, bn, True, 0, True)
+              for shape in (EPILOGUE_SHAPES[0], EPILOGUE_SHAPES[2],
+                            (4, 90, 32, 32)) for bn in (True, False)]
+    cases += [((4, 24, 32, 32), True, True, 1, True)]
+    for shape, bn, relu, offset, channels_last in cases:
+        x, bias, stats = epilogue_inputs(shape, dev, gen, offset,
+                                         channels_last)
+        stats = stats if bn else None
+        # The plain version in NCHW order (cuDNN's BatchNorm kernel for
+        # the float32 NCHW tensor, as the main path runs it)
+        want = unet_epilogue_reference(x.contiguous(), bias, relu, stats)
+        launches = unet_epilogue.launches
+        got = unet_epilogue(x, bias, relu, stats)
+        torch.cuda.synchronize()
+        if got.data_ptr() != x.data_ptr() or \
+                unet_epilogue.launches != launches + 1:
+            raise AssertionError("unet_epilogue did not run in place once")
+        ulps = bf16_ulps(got, want)
+        equal = (ulps == 0).double().mean().item()
+        top = int(ulps.max().item())
+        worst = max(worst, top)
+        n = x.numel()
+        what = (f"{tuple(shape)}{' channels-last' if channels_last else ''}"
+                f"{' +2 B' if offset else ''} {'relu' if relu else 'linear'}"
+                f"{' + BatchNorm' if bn else ''}")
+        timed = ""
+        if (shape in EPILOGUE_SHAPES[:3] and not offset and relu
+                and (not channels_last or shape == EPILOGUE_SHAPES[0])):
+            bufs = itertools.cycle([x] + [x.clone() for _ in range(
+                EPILOGUE_TIMED_BYTES // (2 * n))])
+            ms = cuda_ms(lambda: unet_epilogue(next(bufs), bias, relu,
+                                               stats), 20)
+            plain_ms = cuda_ms(lambda: unet_epilogue_reference(
+                next(bufs), bias, relu, stats), 5)
+            del bufs
+            bound = 4 * n / HBM_BYTES_PER_S * 1e3
+            timed = (f"; kernel {ms:.4f} ms, bound {bound:.4f} ms (4 B an "
+                     f"element at 3.35 TB/s: {100 * bound / ms:.1f}%), "
+                     f"plain {plain_ms:.4f} ms")
+            if first is None and bn and not channels_last:
+                first = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        log(f"[{card}] unet_epilogue {what}: {n} elements, kernel vs "
+            f"plain equal in {equal:.7f}, largest difference {top} bf16 "
+            f"ulp (<= {EPILOGUE_MAX_ULP}){timed}")
+        del x, want, got, ulps
+    if worst > EPILOGUE_MAX_ULP:
+        raise AssertionError(f"unet_epilogue differs from its plain version "
+                             f"by {worst} bf16 ulps")
+    torch.cuda.empty_cache()
+    return dict(first, max_ulp=worst)
+
+
 def oracle_labels(size=64):
     lab = np.zeros((size, size, size), np.uint8)
     lab[8:28, 10:30, 12:34] = 1
@@ -932,11 +1061,13 @@ def setup_main_path(dev, tmp):
     return predictor, images, views, fusion, plans
 
 
-def check_predict_spans(records, n_volumes):
+def check_predict_spans(records, n_volumes, epilogues):
     """The recorder's spans of n_volumes predict_image calls: one root and
     one planning span a volume, the planning within 1..36 candidates of
-    each of the 2 x N_VIEWS shear plans, and every device span timed;
-    logs the planning's host ms and candidates a volume."""
+    each of the 2 x N_VIEWS shear plans, every device span timed, and the
+    `unet.epilogue` counter of each volume's `predict.unet` spans summing
+    to `epilogues`; logs the planning's host ms and candidates a
+    volume."""
     spans = {}
     for r in records["spans"]:
         spans.setdefault(r["name"], []).append(r)
@@ -945,14 +1076,20 @@ def check_predict_spans(records, n_volumes):
     device = [r for name in ("predict.stage", "predict.stack",
                              "predict.unet", "predict.remap",
                              "predict.fuse") for r in spans.get(name, [])]
+    counted = {}
+    for r in spans.get("predict.unet", []):
+        counted[r["request"]] = (counted.get(r["request"], 0)
+                                 + r["counters"].get("unet.epilogue", 0))
     log(f"predict spans: planning "
         f"{[round(r['host_ms'], 1) for r in plans]} ms host, candidates "
-        f"{cands} a volume; {len(device)} device spans")
+        f"{cands} a volume; {len(device)} device spans; unet.epilogue "
+        f"{list(counted.values())} a volume")
     if (len(spans.get("predict.image", [])) != n_volumes
             or len(plans) != n_volumes
             or not all(2 * N_VIEWS <= c <= 36 * 2 * N_VIEWS for c in cands)
             or len(device) != n_volumes * (2 + 3 * N_VIEWS)
-            or any(r["device_ms"] is None for r in device)):
+            or any(r["device_ms"] is None for r in device)
+            or list(counted.values()) != [epilogues] * n_volumes):
         raise AssertionError(f"predict spans: {sorted(spans)}, planning "
                              f"candidates {cands}")
 
@@ -962,17 +1099,20 @@ def phase_main_path(dev, predictor, images, views, fusion):
     torch.cuda.reset_peak_memory_stats(dev)
     shear_pass.launches = 0
     seconds, per_volume_launches, shares, maps = [], [], [], []
+    epilogues = []
     # The span recorder on over the volumes: stage_ms() and the planning
     trace.take()
     trace.enable()
     for i, img in enumerate(images):
         before = shear_pass.launches
+        epilogue_before = unet_epilogue.launches
         t0 = time.perf_counter()
         fused, _ = predictor.predict_image(img, views, fusion_params=fusion,
                                            n_planes="same+20",
                                            return_per_view=False)
         seconds.append(time.perf_counter() - t0)  # ends in a host fetch
         per_volume_launches.append(shear_pass.launches - before)
+        epilogues.append(unet_epilogue.launches - epilogue_before)
         maps.append(fused)
         ms = predictor.stage_ms()
         shares.append(ms)
@@ -985,7 +1125,17 @@ def phase_main_path(dev, predictor, images, views, fusion):
             f"{ {k: round(v, 2) for k, v in ms.items()} }, class counts "
             f"{counts.tolist()}")
     trace.disable()
-    check_predict_spans(trace.take(), len(images))
+    # The conv epilogue: one launch a conv of the U-Net (5 * DEPTH + 2), a
+    # chunk and a view
+    planes = len(predictor._prepare_offsets(images[0], "same+20")[0])
+    expected = ((5 * DEPTH + 2) * N_VIEWS
+                * -(-planes // predictor._chunk_for(planes)))
+    check_predict_spans(trace.take(), len(images), expected)
+    log(f"unet_epilogue launches per volume {epilogues} (expected "
+        f"{expected})")
+    if any(n != expected for n in epilogues):
+        raise AssertionError(f"unet_epilogue launches per volume "
+                             f"{epilogues}, expected {expected}")
     launches = shear_pass.launches
     peak = torch.cuda.max_memory_allocated(dev)
     expected = 12 * N_VIEWS
@@ -1159,7 +1309,22 @@ def phase_unet_variants(dev, tmp, predictor, img, views, fusion, card,
         torch.cuda.synchronize()
         for name, start, end in events:
             times[name].append(start.elapsed_time(end))
-    del want, x
+        # The predictor's twin on this chunk with the conv epilogue's
+        # kernel, and with its plain version in the kernel's place
+        got = predictor.model(x)
+        with mock.patch.object(unet_module, "unet_epilogue",
+                               unet_epilogue_reference):
+            plain_out = predictor.model(x)
+    twin_err = (got - plain_out).abs().max().item()
+    twin_same = (got.argmax(1) == plain_out.argmax(1)).float().mean().item()
+    log(f"predictor's twin ({unet_form(predictor.model)}, bf16), one chunk "
+        f"of {chunk} planes: unet_epilogue kernel vs its plain version, "
+        f"probabilities max abs err {twin_err:.3g} (< {FORMS_F32_TOL:g}), "
+        f"argmax equal in {twin_same:.7f}")
+    if not twin_err < FORMS_F32_TOL:
+        raise AssertionError(f"the twin with the epilogue kernel differs "
+                             f"from the plain epilogue by {twin_err}")
+    del want, x, got, plain_out
     stats = {name: tuple(float(np.percentile(t, q)) for q in (50, 25, 75))
              for name, t in times.items()}
     base = stats["naive"][0]
@@ -2093,18 +2258,19 @@ def write_train_project(root, dev):
     return proj, dirs
 
 
-# Threefry launches that `mp train` and `mp train_fusion` subprocesses
-# logged, by path
-LOGGED_DRAWS = {}
+# Threefry and conv epilogue launches that `mp train` and `mp
+# train_fusion` subprocesses logged, by path
+LOGGED_DRAWS, LOGGED_EPILOGUES = {}, {}
 
 
-def logged_draws(text):
-    """The threefry launches a script's log reports on its last such line
-    (a run appends to the log of an earlier one)."""
+def logged_launches(text, kernel="threefry2x32"):
+    """The launches of `kernel` a script's log reports on its last such
+    line (a run appends to the log of an earlier one)."""
     found = [int(line.rsplit(":", 1)[1]) for line in text.splitlines()
-             if "threefry2x32 launches: " in line]
+             if f"{kernel} launches: " in line]
     if not found:
-        raise AssertionError("the script's log reports no threefry launches")
+        raise AssertionError(f"the script's log reports no {kernel} "
+                             f"launches")
     return found[-1]
 
 
@@ -2133,8 +2299,10 @@ def run_mp_train(proj, dev, n_epochs=TRAIN_EPOCHS, images=TRAIN_IMAGES,
     if sampler not in text:
         raise AssertionError(f"mp train's log lacks {sampler!r}: it did not "
                              f"sample on the pooled path")
-    LOGGED_DRAWS[f"mp train {proj.parent.name}/{proj.name}"] = logged_draws(
-        text)
+    name = f"mp train {proj.parent.name}/{proj.name}"
+    LOGGED_DRAWS[name] = logged_launches(text)
+    LOGGED_EPILOGUES[f"{name} (validation)"] = logged_launches(
+        text, "unet_epilogue")
     return wall, epochs
 
 
@@ -3881,8 +4049,10 @@ def phase_workflow(dev, proj, dirs, card):
         ["train_fusion", "--project_dir", str(proj), "--device", str(dev),
          *FUSION_ARGS], timeout=600)
     fusion_file, fusion, numbers = check_fusion_outputs(proj)
-    LOGGED_DRAWS["mp train_fusion"] = logged_draws(
-        (proj / "logs" / "train_fusion.txt").read_text())
+    text = (proj / "logs" / "train_fusion.txt").read_text()
+    LOGGED_DRAWS["mp train_fusion"] = logged_launches(text)
+    LOGGED_EPILOGUES["mp train_fusion"] = logged_launches(text,
+                                                          "unet_epilogue")
     n_epochs = [int(f.split()[1]) for f in numbers["fits"]]
     log(f"[{card}] mp train_fusion: {fusion_wall:.1f} s wall, 2 rounds of 2 "
         f"images; points per round {numbers['points']} ("
@@ -4877,15 +5047,17 @@ def main():
     t_start = time.perf_counter()
     dev = require_cuda()
     torch.manual_seed(0)
-    # Host seconds of each phase, in order, and the threefry launches of
-    # this process in each (counted from 0 at its start)
-    seconds, draws = {}, {}
+    # Host seconds of each phase, in order, and the threefry and conv
+    # epilogue launches of this process in each (counted from 0 at its
+    # start)
+    seconds, draws, epilogues = {}, {}, {}
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
-        prng.threefry2x32.launches = 0
+        prng.threefry2x32.launches = unet_epilogue.launches = 0
         result = fn(*args)
         draws[name] = prng.threefry2x32.launches
+        epilogues[name] = unet_epilogue.launches
         seconds[name] = time.perf_counter() - t0
         return result
 
@@ -4904,6 +5076,8 @@ def main():
         pool.shutdown()
         err = phase("kernel vs plain", phase_kernel_vs_plain, dev, plans)
         threefry = phase("threefry vs plain", phase_threefry, dev, card)
+        epilogue = phase("unet_epilogue vs plain", phase_unet_epilogue, dev,
+                         card)
         phase("oracle", phase_oracle, dev)
         paths[f"main {DIM}^3"], main_runs = phase(
             "main path", phase_main_path, dev, predictor, images, views,
@@ -4963,6 +5137,18 @@ def main():
     if idle or not any(k.startswith("mp train_fusion") for k in drawn):
         raise AssertionError(f"paths that draw launched no threefry "
                              f"kernel: {idle or 'mp train_fusion'}")
+    # Likewise the conv epilogue: every path that runs the eval U-Net in
+    # bf16 (the config surface's is mish, which keeps the ops)
+    del epilogues["unet_epilogue vs plain"]
+    fused = {**{f"{k} (in-process)": v for k, v in epilogues.items() if v},
+             **LOGGED_EPILOGUES}
+    log(f"unet_epilogue launches per path: {fused}")
+    idle = [k for k in EPILOGUE_PATHS if not epilogues[k]]
+    idle += [k for k, v in LOGGED_EPILOGUES.items() if not v]
+    if idle or "mp train_fusion" not in LOGGED_EPILOGUES:
+        raise AssertionError(f"paths that run the eval U-Net in bf16 "
+                             f"launched no unet_epilogue kernel: "
+                             f"{idle or 'mp train_fusion'}")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in seconds.items())
         + f"; sum {sum(seconds.values()):.1f} s (wall "
@@ -4992,6 +5178,20 @@ def main():
         "plain_ms": threefry["plain_ms"],
         "bound_ms": threefry["bound_ms"],
         "bound_by": "operations",
+        "library_ms": None,
+    }, {
+        "name": "unet_epilogue",
+        "route": "cuda",
+        "source": "multiplanarunet_tpu_torch/csrc/unet_epilogue.cu",
+        "replaces": "none: the bias, activation and eval BatchNorm that "
+                    "XLA fuses into multiplanarunet_tpu/models/unet.py's "
+                    "convolutions",
+        "launches": epilogues["main path"],
+        "max_ulp": epilogue["max_ulp"],
+        "ms": epilogue["ms"],
+        "plain_ms": epilogue["plain_ms"],
+        "bound_ms": epilogue["bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {

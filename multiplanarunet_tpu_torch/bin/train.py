@@ -211,6 +211,7 @@ def run(project_dir, logger, args, device):
     )
     from multiplanarunet_tpu_torch.hyperparameters.hparams import YAMLHParams
     from multiplanarunet_tpu_torch.ops import prng
+    from multiplanarunet_tpu_torch.ops.unet_epilogue import unet_epilogue
     from multiplanarunet_tpu_torch.parallel.distributed import is_main_process
     from multiplanarunet_tpu_torch.train.trainer import Trainer
 
@@ -270,6 +271,9 @@ def run(project_dir, logger, args, device):
     # The random draws' kernel launches of this process (weights and
     # augmentation; 0 on the CPU, where the plain version draws)
     logger(f"threefry2x32 launches: {prng.threefry2x32.launches}")
+    # The U-Net's conv epilogue launches of this process (validation's
+    # forwards; 0 on the CPU, where the plain version runs)
+    logger(f"unet_epilogue launches: {unet_epilogue.launches}")
     return trainer
 
 

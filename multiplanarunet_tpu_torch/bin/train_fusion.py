@@ -242,6 +242,7 @@ def run(project_dir, args, device, logger):
         load_unet_weights,
     )
     from multiplanarunet_tpu_torch.ops import prng
+    from multiplanarunet_tpu_torch.ops.unet_epilogue import unet_epilogue
     from multiplanarunet_tpu_torch.parallel.distributed import (
         process_barrier,
         process_count,
@@ -357,6 +358,9 @@ def run(project_dir, args, device, logger):
     # The random draws' kernel launches of this process (shuffles and
     # point subsets; 0 on the CPU, where the plain version draws)
     logger(f"threefry2x32 launches: {prng.threefry2x32.launches}")
+    # The U-Net's conv epilogue launches of this process (the views'
+    # predictions; 0 on the CPU, where the plain version runs)
+    logger(f"unet_epilogue launches: {unet_epilogue.launches}")
     return fusion_params
 
 

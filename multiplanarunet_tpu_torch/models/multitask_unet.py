@@ -31,6 +31,7 @@ from multiplanarunet_tpu_torch.models.unet import (
     BATCH_NORM,
     CONV,
     ConvBNBlock,
+    conv_epilogue,
     count_params,
     crop_to_match,
     flattened,
@@ -82,8 +83,9 @@ class _TaskDecoder(nn.Module):
         for i in range(self.depth):
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             # 2x2 SAME conv: padded (0, 1), the high edge only
-            x = getattr(self, f"decoder_L{i}_conv_up")(F.pad(x, (0, 1) * 2))
-            x = getattr(self, f"decoder_L{i}_bn_up")(self.act(x))
+            x = conv_epilogue(getattr(self, f"decoder_L{i}_conv_up"),
+                              F.pad(x, (0, 1) * 2), self.act,
+                              getattr(self, f"decoder_L{i}_bn_up"))
             skip, _ = crop_to_match(skips[-(i + 1)], x)
             x = getattr(self, f"decoder_L{i}")(torch.cat([skip, x], dim=1))
         # The out conv runs in float32 whatever the compute dtype

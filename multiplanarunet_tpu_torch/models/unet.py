@@ -40,6 +40,14 @@ drops eval-mode BatchNorm (a probe, not the same function), and
 `lane_pad` rounds every internal filter count up to a multiple, exact
 with the zero embedding of `lane_pad_variables`. The 2D `UNet` takes all
 five, `UNet3D` the two decoder forms, as in the JAX package.
+
+Every conv followed by the activation (and a BatchNorm) goes through
+`conv_epilogue`: in eval mode with grad mode off, with a ReLU or linear
+activation, a bf16 conv on the card runs without its bias and one
+in-place kernel pass (`ops/unet_epilogue.py`) adds the bias, applies the
+activation and the eval BatchNorm with the roundings of the ops it
+stands for; on the CPU its plain version runs those ops on the bias-free
+conv.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from torch import nn
 from multiplanarunet_tpu_torch._device import resolve_device
 from multiplanarunet_tpu_torch.models import checkpoint
 from multiplanarunet_tpu_torch.ops import prng
+from multiplanarunet_tpu_torch.ops.unet_epilogue import unet_epilogue
 from multiplanarunet_tpu_torch.parallel.distributed import data_group_active
 
 
@@ -162,11 +171,12 @@ def get_activation(name):
 
 
 class _CastConv:
-    """Conv with float32 parameters that computes in the input's dtype."""
+    """Conv with float32 parameters that computes in the input's dtype;
+    with bias False, without its bias (`conv_epilogue` adds it)."""
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
         return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
+                                  self.bias.to(x.dtype) if bias else None)
 
 
 class Conv2d(_CastConv, nn.Conv2d):
@@ -314,6 +324,31 @@ def _batch_norm(channels, ndim=2, fused=False):
     return FusedBNAffine(channels) if fused else BATCH_NORM[ndim](channels)
 
 
+def conv_epilogue(conv, x, act, bn=None):
+    """bn(act(conv(x))), or act(conv(x)) with bn None, for a conv of this
+    module (`conv(x, False)` gives it without its bias). In eval mode with
+    grad mode off, for a ReLU or linear `act` and an input the epilogue
+    takes (`ops/unet_epilogue.py`: bf16 on the card, any dtype on the
+    CPU), the conv runs without its bias and `unet_epilogue` adds the
+    bias, applies `act` and, for a flax BatchNorm, normalises, in one
+    in-place pass on the card; a `FusedBNAffine` follows that pass as its
+    own step. The flax BatchNorm's module is not called there, so its
+    forward hooks do not run. Otherwise the ops run one by one (autograd
+    needs their intermediates)."""
+    if (not conv.training and not torch.is_grad_enabled()
+            and act in (F.relu, _identity)
+            and (x.device.type == "cpu" or x.dtype == torch.bfloat16)
+            and (bn is None or not bn.training)):
+        y = conv(x, False)
+        if isinstance(bn, FusedBNAffine):
+            return bn(unet_epilogue(y, conv.bias, act is F.relu))
+        stats = None if bn is None else (
+            bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+        return unet_epilogue(y, conv.bias, act is F.relu, stats)
+    x = act(conv(x))
+    return x if bn is None else bn(x)
+
+
 class ConvBNBlock(nn.Module):
     """Two k^n SAME convs with the activation, then BatchNorm (n = ndim
     spatial axes). In eval mode, `fused_bn` runs the BatchNorm as a
@@ -331,11 +366,10 @@ class ConvBNBlock(nn.Module):
         self.skip_bn = skip_bn
 
     def forward(self, x):
-        x = self.act(self.conv1(x))
-        x = self.act(self.conv2(x))
-        if self.skip_bn and not self.training:
-            return x
-        return self.bn(x)
+        x = conv_epilogue(self.conv1, x, self.act)
+        skip = self.skip_bn and not self.training
+        return conv_epilogue(self.conv2, x, self.act,
+                             None if skip else self.bn)
 
 
 def upsample2x(x):
@@ -371,7 +405,7 @@ class DilatedUpConv(_UpConv):
     dilated one is ever stored, and each output voxel takes 2.25 (2D) or
     3.375 (3D) taps on average in place of 2^n."""
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
         n = self.ndim
         # Along each spatial axis K = (k0, k0 + k1, k1); the transposed
         # conv takes it flipped, (k1, k0 + k1, k0), and (in, out) first
@@ -381,8 +415,8 @@ class DilatedUpConv(_UpConv):
                            K.narrow(ax, 0, 1)], dim=ax)
         conv_t = F.conv_transpose2d if n == 2 else F.conv_transpose3d
         return conv_t(x, K.transpose(0, 1).to(x.dtype),
-                      self.bias.to(x.dtype), stride=2, padding=1,
-                      output_padding=1)
+                      self.bias.to(x.dtype) if bias else None, stride=2,
+                      padding=1, output_padding=1)
 
 
 class SubpixelUpConv(_UpConv):
@@ -393,7 +427,7 @@ class SubpixelUpConv(_UpConv):
     kernel axis is summed, extent 1), an odd one's read two neighbours
     (extent 2, the high edge zero-padded as SAME pads)."""
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
         n = self.ndim
         conv = F.conv2d if n == 2 else F.conv3d
         parts = []
@@ -413,7 +447,9 @@ class SubpixelUpConv(_UpConv):
         for ax in range(n):  # (B, F, p0, .., s0, ..) -> (B, F, s0, p0, ..)
             perm += [2 + n + ax, 2 + ax]
         y = y.permute(perm).reshape(B, F_, *(2 * s for s in sp))
-        return y + self.bias.to(x.dtype).view((1, -1) + (1,) * n)
+        if bias:
+            y = y + self.bias.to(x.dtype).view((1, -1) + (1,) * n)
+        return y
 
 
 def flattened(out):
@@ -555,9 +591,8 @@ class UNet(nn.Module):
             up = getattr(self, f"decoder_L{i}_conv_up")
             if not isinstance(up, _UpConv):  # the naive form
                 x = F.pad(upsample2x(x), (0, 1) * n)
-            x = self.act(up(x))
-            if not skip_bn:
-                x = getattr(self, f"decoder_L{i}_bn_up")(x)
+            x = conv_epilogue(up, x, self.act, None if skip_bn else
+                              getattr(self, f"decoder_L{i}_bn_up"))
             skip, crops = crop_to_match(skips[-(i + 1)], x)
             label_crop += crops
             x = getattr(self, f"decoder_L{i}")(torch.cat([skip, x], dim=1))

@@ -27,7 +27,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("shear_pass.cu", "threefry.cu")
+SOURCES = ("shear_pass.cu", "threefry.cu", "unet_epilogue.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # --split-compile=0 runs nvcc's optimisation of the module's functions on
 # every host core; the SASS is the same as a serial compile's, function
@@ -142,6 +142,12 @@ class _Kernels:
         fn.argtypes = [ptr, i64, i64, u32, u32, c_int, f32, f32, f32, ptr]
         fn.restype = ctypes.c_int
         self.threefry = fn
+        fn = ctypes.CDLL(str(paths["unet_epilogue.cu"])).mp_unet_epilogue
+        fn.argtypes = [ptr, i64, i64, c_int, ptr, c_int,
+                       ptr, ptr, ptr, ptr, f32,  # BatchNorm (null mean: none)
+                       ptr]                      # stream
+        fn.restype = ctypes.c_int
+        self.unet_epilogue = fn
 
 
 @functools.cache
