@@ -5,16 +5,17 @@ Port of `multiplanarunet_tpu/bin/train.py`: the same arguments (plus
 preparation (Auditor fill of the YAML; for the 2D UNet views.npz; the
 queues: eager, or with --max_loaded_images N a LimitationQueue holding
 at most N training images, each swapped out after --num_access accesses;
-train/val sequences: oblique slices, or for the UNet3D the iso_live_3d
-boxes or the voxel patches, pooled by default; for the MultiTaskUNet2D
-one slice sampler per task YAML, with views_<task>.npz), the model from
-the build group (UNet, UNet3D or MultiTaskUNet2D; glorot init,
+train/val sequences: oblique slices, or for the UNet3D and the
+SwinUNETR the iso_live_3d boxes or the voxel patches, pooled by
+default; for the MultiTaskUNet2D one slice sampler per task YAML, with
+views_<task>.npz), the model from the build group (UNet, UNet3D,
+MultiTaskUNet2D or SwinUNETR; glorot init, a SwinUNETR's `swin_init`,
 --continue_training, --initialize_from, the class-frequency output bias,
 which a multi-task model skips, as the JAX package does), the Trainer
 over the default callbacks, and model/model_weights.npz at the end
 (JAX-format .npz files, which either package reads). Training runs on the
-card unless --device cpu. A model class other than UNet, UNet3D and
-MultiTaskUNet2D raises a named error.
+card unless --device cpu. A model class other than UNet, UNet3D,
+MultiTaskUNet2D and SwinUNETR raises a named error.
 
 Data-parallel training, one process per card:
 

@@ -136,6 +136,20 @@ class _LossWrapper:
                f"{self.kwargs})"
 
 
+def sparse_dice_ce_loss(y_true, y_pred, smooth_nr=0.0, smooth_dr=1e-6):
+    """MONAI's DiceCELoss over probabilities (`squared_pred`): the sparse
+    cross-entropy plus, per class (background included), 1 - (2 sum(p g)
+    + smooth_nr) / (sum(p^2) + sum(g^2) + smooth_dr) over the spatial
+    axes, the mean over the classes."""
+    one_hot, axes = _one_hot_and_axes(y_true, y_pred)
+    ce = -torch.sum(one_hot * torch.log(_clip(y_pred)), dim=-1)
+    intersection = torch.sum(one_hot * y_pred, dim=axes)
+    denom = torch.sum(y_pred * y_pred, dim=axes) + torch.sum(one_hot,
+                                                             dim=axes)
+    dice = 1.0 - (2.0 * intersection + smooth_nr) / (denom + smooth_dr)
+    return torch.mean(ce, dim=axes) + torch.mean(dice, dim=-1)
+
+
 class SparseCategoricalCrossentropy(_LossWrapper):
     base_fn = staticmethod(sparse_categorical_crossentropy)
 
@@ -160,6 +174,12 @@ class SparseGeneralizedDiceLoss(_LossWrapper):
     base_fn = staticmethod(sparse_generalized_dice_loss)
 
 
+class SparseDiceCELoss(_LossWrapper):
+    """The port's own (the JAX package has none): Swin UNETR's BTCV
+    loss."""
+    base_fn = staticmethod(sparse_dice_ce_loss)
+
+
 SparseExpLogDice = SparseExponentialLogarithmicLoss
 
 LOSSES = {
@@ -171,6 +191,7 @@ LOSSES = {
         SparseExponentialLogarithmicLoss,
         SparseFocalLoss,
         SparseGeneralizedDiceLoss,
+        SparseDiceCELoss,
     )
 }
 LOSSES["SparseExpLogDice"] = SparseExpLogDice

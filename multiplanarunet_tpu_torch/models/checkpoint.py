@@ -12,6 +12,10 @@ module path 'a.b.c' is the flax path a/b/c),
 tree, and `restore_by_name` overlays a file onto a model wherever names
 and shapes match (the JAX package's by-name restore). Each package reads
 the files the other writes.
+
+A model with no JAX twin (`checkpoint_by_name` true: the SwinUNETR) is
+written in the same container by its torch names: "params/<a>/<b>/<leaf>"
+for the parameter 'a.b.leaf', every array in torch's layout.
 """
 
 from __future__ import annotations
@@ -119,6 +123,23 @@ def _flax_key(torch_key):
     return coll, tuple(mods) + (flax_leaf,)
 
 
+def _by_name(model):
+    """Whether `model`'s files hold its torch names and layouts."""
+    return bool(getattr(model, "checkpoint_by_name", False))
+
+
+def _file_key(model, torch_key):
+    """(collection, path) of a state entry of `model` in a weight file, or
+    None for an entry that files do not hold."""
+    if _by_name(model):
+        return "params", tuple(torch_key.split("."))
+    return _flax_key(torch_key)
+
+
+def _file_to_torch(model):
+    return (lambda arr: arr) if _by_name(model) else _kernel_to_torch
+
+
 def flax_variables(model):
     """[(collection, flax path, flax shape)] of every entry of `model`'s
     state that has a flax counterpart, in state-dict order: conv kernels
@@ -147,8 +168,9 @@ def unet_state_dict_from_jax(params, batch_stats, model):
     trees = {"params": params, "batch_stats": batch_stats or {}}
     used = set()
     state = {}
+    to_torch = _file_to_torch(model)
     for key, ref in model.state_dict().items():
-        flax = _flax_key(key)
+        flax = _file_key(model, key)
         if flax is None:
             state[key] = torch.zeros_like(ref)
             continue
@@ -160,9 +182,9 @@ def unet_state_dict_from_jax(params, batch_stats, model):
                                f"for {key})")
             node = node[p]
         if isinstance(node, torch.Tensor):
-            arr = _kernel_to_torch(node.float())
+            arr = to_torch(node.float())
         else:
-            arr = _kernel_to_torch(np.asarray(node, np.float32))
+            arr = to_torch(np.asarray(node, np.float32))
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{coll}/{'/'.join(path)} has shape "
                              f"{tuple(arr.shape)} (as {key}); the model "
@@ -186,9 +208,9 @@ def _leaf_paths(tree, prefix=()):
             yield prefix + (k,)
 
 
-def _to_flax_array(tensor):
+def _to_flax_array(tensor, by_name=False):
     arr = tensor.detach().to("cpu", torch.float32).numpy()
-    return np.ascontiguousarray(_kernel_to_flax(arr))
+    return np.ascontiguousarray(arr if by_name else _kernel_to_flax(arr))
 
 
 def unet_variables_from_model(model):
@@ -197,15 +219,16 @@ def unet_variables_from_model(model):
     OIHW -> HWIO, OIDHW -> DHWIO; BatchNorm weight/bias/running_mean/
     running_var -> scale/bias/mean/var)."""
     trees = {"params": {}, "batch_stats": {}}
+    by_name = _by_name(model)
     for key, value in model.state_dict().items():
-        flax = _flax_key(key)
+        flax = _file_key(model, key)
         if flax is None:
             continue
         coll, path = flax
         node = trees[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = _to_flax_array(value)
+        node[path[-1]] = _to_flax_array(value, by_name)
     return trees["params"], trees["batch_stats"]
 
 
@@ -221,8 +244,9 @@ def restore_by_name(model, params, batch_stats=None, logger=None):
     (the JAX package's by-name restore). Returns the number of parameter
     arrays restored."""
     current = {}
+    to_torch = _file_to_torch(model)
     for key, ref in model.state_dict().items():
-        flax = _flax_key(key)
+        flax = _file_key(model, key)
         if flax is not None:
             current[(flax[0],) + flax[1]] = (key, ref)
     state = model.state_dict()
@@ -233,7 +257,7 @@ def restore_by_name(model, params, batch_stats=None, logger=None):
             node = tree
             for p in path:
                 node = node[p]
-            arr = _kernel_to_torch(np.asarray(node, np.float32))
+            arr = to_torch(np.asarray(node, np.float32))
             target = current.get((coll,) + path)
             if target is None or tuple(target[1].shape) != arr.shape:
                 if logger is not None:

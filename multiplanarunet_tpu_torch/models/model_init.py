@@ -2,8 +2,9 @@
 continue-training restore.
 
 Port of `multiplanarunet_tpu/models/model_init.py` for the 2D `UNet`,
-the `UNet3D`, the `MultiTaskUNet2D` and the `FusionModel`: the model from
-the build group,
+the `UNet3D`, the `MultiTaskUNet2D` and the `FusionModel`, and the
+port's own `SwinUNETR` (no JAX counterpart: its init is `swin_init`, its
+files hold torch names): the model from the build group,
 its weights from the JAX package's checkpoint files, and
 `model_initializer` for `mp train` (a fresh init equal to the JAX
 package's from PRNGKey(0), `--continue_training` from the last
@@ -24,6 +25,7 @@ from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models import checkpoint
 from multiplanarunet_tpu_torch.models.fusion_model import FusionModel
 from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
+from multiplanarunet_tpu_torch.models.swin_unetr import SwinUNETR, swin_init
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init, init_unet
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.ops import prng
@@ -35,7 +37,8 @@ from multiplanarunet_tpu_torch.utils.utils import (
 )
 
 MODELS = {"UNet": UNet, "UNet3D": UNet3D,
-          "MultiTaskUNet2D": MultiTaskUNet2D, "FusionModel": FusionModel}
+          "MultiTaskUNet2D": MultiTaskUNet2D, "FusionModel": FusionModel,
+          "SwinUNETR": SwinUNETR}
 
 
 def _build_kwargs(cls, build):
@@ -54,10 +57,11 @@ class UnsupportedModelError(ValueError):
 
 
 def build_model(build_hparams, mixed_precision=False, logger=None):
-    """A UNet, UNet3D, MultiTaskUNet2D or FusionModel (eval mode, on the
-    CPU) from the 'build' group; bf16 compute when mixed_precision (for
-    the classes that have a compute dtype). `flatten_output` makes the
-    U-Nets return (B, prod(spatial), n_classes). Every U-Net pads 'same':
+    """A UNet, UNet3D, MultiTaskUNet2D, FusionModel or SwinUNETR (eval
+    mode, on the CPU) from the 'build' group; bf16 compute when
+    mixed_precision (for the classes that have a compute dtype).
+    `flatten_output` makes the U-Nets return (B, prod(spatial),
+    n_classes). Every U-Net pads 'same':
     a `padding` of another value is logged and ignored, as the JAX models
     store that field and never read it."""
     logger = logger or ScreenLogger()
@@ -81,8 +85,8 @@ def build_model(build_hparams, mixed_precision=False, logger=None):
 
 
 def load_unet_weights(model, path):
-    """Load a JAX-format UNet, UNet3D or MultiTaskUNet2D checkpoint (.npz)
-    into `model`."""
+    """Load a UNet, UNet3D or MultiTaskUNet2D checkpoint (.npz, JAX
+    format) or a SwinUNETR's (torch names) into `model`."""
     params, batch_stats, _ = checkpoint.load_weights(path)
     model.load_state_dict(
         checkpoint.unet_state_dict_from_jax(params, batch_stats, model))
@@ -108,8 +112,9 @@ def init_model_variables(model, key=None, device=None):
 def model_initializer(hparams, continue_training=False, project_dir=None,
                       logger=None, initialize_from=None, device=None):
     """Build a model from hparams (`build_model`) and initialise it with
-    the JAX package's initial weights from PRNGKey(0) (`glorot_init`,
-    drawn on `device`: the card unless the caller names the CPU), then,
+    the JAX package's initial weights from PRNGKey(0) (`glorot_init`; a
+    SwinUNETR's `swin_init`; drawn on `device`: the card unless the
+    caller names the CPU), then,
     with continue_training, the last '@epoch_NN' checkpoint of
     <project_dir>/model restored by name, the rows of
     logs/training.csv past its epoch dropped and its learning rate
@@ -120,7 +125,9 @@ def model_initializer(hparams, continue_training=False, project_dir=None,
     mixed = bool(hparams.get("fit", {}).get("mixed_precision", False))
     model = build_model(hparams["build"], mixed_precision=mixed,
                         logger=logger)
-    if not isinstance(model, FusionModel):
+    if isinstance(model, SwinUNETR):
+        swin_init(model, seed=0, device=device)
+    elif not isinstance(model, FusionModel):
         glorot_init(model, seed=0, device=device)
 
     init_epoch, restored_lr = 0, None

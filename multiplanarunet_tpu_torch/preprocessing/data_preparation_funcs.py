@@ -2,7 +2,8 @@
 sequences.
 
 Port of `multiplanarunet_tpu/preprocessing/data_preparation_funcs.py` for
-the 2D UNet, the UNet3D and the MultiTaskUNet2D: the train/val
+the 2D UNet, the UNet3D and the MultiTaskUNet2D (and the port's
+SwinUNETR, which trains on the UNet3D's boxes): the train/val
 ImagePairLoaders, the
 Auditor's fill of the hparams the YAML leaves Null, the aug-data merge with its sample weight,
 --just_one / --no_val, the queues (`get_data_queues`: a LimitationQueue
@@ -257,4 +258,5 @@ def prepare_for_multi_task_2d(hparams, just_one=False, no_val=False,
 
 PREPARATION_FUNCS = {"UNet": prepare_for_multi_view_unet,
                      "UNet3D": prepare_for_3d_unet,
+                     "SwinUNETR": prepare_for_3d_unet,
                      "MultiTaskUNet2D": prepare_for_multi_task_2d}

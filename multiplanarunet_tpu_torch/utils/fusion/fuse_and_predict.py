@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import os
 
 import numpy as np
@@ -732,6 +733,8 @@ def map_real_space_pred(pred, grid, inv_basis, affine, true_shape,
 # ------------------------------------------------------------------ 3D paths
 # Boxes or patches per U-Net call of the 3D paths (the training batch)
 BOX_CHUNK = 16
+# Request ids of pred_3D_iso's calls, for its spans
+_BOX_CALLS = itertools.count(1)
 
 
 def unet_predict_fn(model, device):
@@ -771,7 +774,13 @@ def pred_3D_iso(predict_fn, sequence, image, extra_boxes, min_coverage=None,
     voxels of a float32 (X, Y, Z, n_classes) accumulator on the
     sequence's device, boxes in order. Returns the un-normalised sums, or
     with want_argmax only their uint8 class map (the only transfer off
-    the device)."""
+    the device).
+
+    With the recorder on, each call is a `predict3d.image` span (a
+    request of its own) holding per chunk the device spans
+    `predict3d.gather` (the box sampling), `predict3d.unet` (predict_fn;
+    counter `predict3d.boxes`) and `predict3d.scatter` (the scatter-add).
+    """
     n_classes = sequence.n_classes
     dev = sequence.device
     sampler = image.interpolator
@@ -797,13 +806,18 @@ def pred_3D_iso(predict_fn, sequence, image, extra_boxes, min_coverage=None,
                    f"{BOX_CHUNK}", print_calling_method=False)
         for s in range(0, len(corners), BOX_CHUNK):
             sl = slice(s, s + BOX_CHUNK)
-            ims = sample_box_batch(vol, sampler.origin, sampler.spacing, rot,
-                                   corners[sl], real_box_dim, rots[sl], d,
-                                   sampler.scaled_bg_value,
-                                   valid_shape=valid)
-            scatter_box_pred(pred_vol, predict_fn(ims), corners[sl],
-                             real_box_dim, inv_rots[sl], rot, sampler.origin,
-                             sampler.spacing, d, true_shape)
+            with trace.span("predict3d.gather", device=dev):
+                ims = sample_box_batch(vol, sampler.origin, sampler.spacing,
+                                       rot, corners[sl], real_box_dim,
+                                       rots[sl], d, sampler.scaled_bg_value,
+                                       valid_shape=valid)
+            with trace.span("predict3d.unet", device=dev):
+                trace.count("predict3d.boxes", len(ims))
+                preds = predict_fn(ims)
+            with trace.span("predict3d.scatter", device=dev):
+                scatter_box_pred(pred_vol, preds, corners[sl], real_box_dim,
+                                 inv_rots[sl], rot, sampler.origin,
+                                 sampler.spacing, d, true_shape)
 
     def draw_random(n):
         corners, rots, invs = [], [], []
@@ -818,15 +832,16 @@ def pred_3D_iso(predict_fn, sequence, image, extra_boxes, min_coverage=None,
         return np.stack(corners), np.stack(rots), np.stack(invs)
 
     eyes = np.repeat(eye[None], total_base, axis=0)
-    run_boxes(base_corners, eyes, eyes, "base")
-    if total_extra:
-        run_boxes(*draw_random(total_extra), "extra")
-    if min_coverage:
-        coverage = _coverage_fraction(pred_vol)
-        while coverage < min_coverage:
-            run_boxes(*draw_random(max(1, total_base // 4)), "coverage")
+    with trace.span("predict3d.image", request=next(_BOX_CALLS)):
+        run_boxes(base_corners, eyes, eyes, "base")
+        if total_extra:
+            run_boxes(*draw_random(total_extra), "extra")
+        if min_coverage:
             coverage = _coverage_fraction(pred_vol)
-    return _class_map_or_volume(pred_vol, want_argmax)
+            while coverage < min_coverage:
+                run_boxes(*draw_random(max(1, total_base // 4)), "coverage")
+                coverage = _coverage_fraction(pred_vol)
+        return _class_map_or_volume(pred_vol, want_argmax)
 
 
 def predict_3D_patches(predict_fn, patches, image, n_extra=0, n_classes=None,

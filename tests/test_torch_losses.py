@@ -71,8 +71,13 @@ def test_loss_value_and_grad_match_jax(name, kwargs, weighted):
         atol=1e-6)
 
 
+# Losses of the port's own, with no JAX counterpart (held against plain
+# formulas in tests/test_torch_swin_unetr.py)
+PORT_ONLY = {"SparseDiceCELoss"}
+
+
 def test_loss_table_and_squeezed_targets():
-    assert sorted(tlosses.LOSSES) == sorted(jlosses.LOSSES)
+    assert sorted(set(tlosses.LOSSES) - PORT_ONLY) == sorted(jlosses.LOSSES)
     assert tlosses.SparseExpLogDice is tlosses.SparseExponentialLogarithmicLoss
     probs, y, _ = _inputs(1)
     a = tlosses.SparseDiceLoss()(torch.from_numpy(y),
