@@ -15,7 +15,9 @@ float32 and cast back to x's dtype. On a CUDA device it launches
 tensor dense in NCHW order or in channels-last order (N, *spatial, C in
 memory, as cuDNN may answer) and the per-channel tensors contiguous
 float32 of C values on x's device; anything else raises. Each launch adds one to
-`unet_epilogue.launches` and to the trace counter `unet.epilogue`. On the
+`unet_epilogue.launches` and to the trace counter `unet.epilogue`, and a
+launch on a channels-last output (rows of one element) one to
+`unet.epilogue_cl`. On the
 CPU it runs `unet_epilogue_reference`, the plain version: those ops one
 by one, in any floating dtype.
 """
@@ -101,6 +103,8 @@ def unet_epilogue(x, bias, relu, bn=None):
                                 f"cudaError {err}")
     unet_epilogue.launches += 1
     trace.count("unet.epilogue")
+    if row_len == 1:
+        trace.count("unet.epilogue_cl")
     return x
 
 

@@ -340,15 +340,18 @@ class MultiViewPredictor:
     def _unet_stack(self, stack, model=None):
         """(d, d, P_pad, C) stack -> (d, d, P_pad, n_classes) bf16
         probabilities, running `model` (this predictor's by default) over
-        plane chunks."""
+        plane chunks. Each chunk is a dense (chunk, d, d, C) copy handed
+        to the model as its (chunk, C, d, d) view: channels-last strides
+        for every C (C = 1 included), so cuDNN's NHWC kernels take every
+        conv's input and give its output with no transpose around it."""
         model = self.model if model is None else model
         d, _, P_pad, _ = stack.shape
-        planes = stack.permute(2, 3, 0, 1)  # (P_pad, C, d, d)
+        planes = stack.permute(2, 0, 1, 3)  # (P_pad, d, d, C)
         chunk = self._chunk_for(P_pad)
         pred = torch.empty((d, d, P_pad, self.n_classes),
                            dtype=torch.bfloat16, device=stack.device)
         for p in range(0, P_pad, chunk):
-            probs = model(planes[p:p + chunk].contiguous())
+            probs = model(planes[p:p + chunk].contiguous().permute(0, 3, 1, 2))
             pred[:, :, p:p + chunk] = probs.permute(2, 3, 0, 1)
         return pred
 

@@ -3,8 +3,10 @@ conv_epilogue`) on the CPU: the plain version against the ops it stands
 for, bit for bit; the eval forward of UNet (its forms, ReLU and ELU),
 UNet3D and MultiTaskUNet2D with grad mode off, which runs the epilogue,
 against the same model's forward with grad mode on, which runs the ops
-one by one; train mode and grad mode never call it; the launch counters
-read 0 on the CPU; and the benchmark's reader of the trace counter.
+one by one; the predictor's plane chunks kept channels-last through
+every conv of its twin; train mode and grad mode never call it; the
+launch counters read 0 on the CPU; and the benchmark's readers of the
+trace counters.
 
 Tolerances: float32 1e-6 relative (the bias is added after the conv's
 sum rather than inside it); bf16 one bf16 ulp of the probabilities' unit
@@ -29,6 +31,9 @@ from multiplanarunet_tpu_torch.models.unet import (
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.ops import unet_epilogue as epilogue
 from multiplanarunet_tpu_torch.utils import trace
+from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
+    MultiViewPredictor,
+)
 
 torch.set_num_threads(2)
 
@@ -208,6 +213,56 @@ def test_channels_last_outputs_run_the_ops(spy, name, dtype):
             assert (g - w.detach()).abs().max().item() <= BF16_ATOL
 
 
+def _channels_last(t):
+    """Dense in channels-last order, the channel stride 1 (so a C = 1
+    tensor dense in NCHW order does not pass)."""
+    return t.stride(1) == 1 and t.movedim(1, -1).is_contiguous()
+
+
+@pytest.mark.parametrize("n_channels", [1, 3])
+def test_predictor_feeds_its_chunks_channels_last(spy, n_channels):
+    """`MultiViewPredictor._unet_stack` hands its twin (dilated up-convs,
+    lane_pad 8) each plane chunk in channels-last order: every conv and
+    up-conv takes and gives that layout, every epilogue gets a
+    channels-last output, and the probabilities equal the twin's forward
+    on the same chunks in NCHW order."""
+    model = _randomize(UNet(3, n_channels, depth=2, complexity_factor=2.0,
+                            init_filters=8), 7).eval()
+    predictor = MultiViewPredictor(model, sample_dim=32,
+                                   real_space_span=31.0, n_classes=3,
+                                   device="cpu", chunk=4)
+    twin = predictor.model
+    assert twin.dilated_upconv and twin.lane_pad == 8
+    layouts, outs = [], []
+    hooks = [m.register_forward_hook(lambda m, i, o: layouts.append(
+        (_channels_last(i[0]), _channels_last(o))))
+        for m in twin.modules()
+        if isinstance(m, (torch.nn.Conv2d, unet_module._UpConv))]
+
+    def recorded(x):
+        outs.append(twin(x))
+        return outs[-1]
+
+    stack = torch.randn(32, 32, 8, n_channels,
+                        generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        pred = predictor._unet_stack(stack, recorded)
+    for h in hooks:
+        h.remove()
+    # Two chunks of 2 * 2 encoder + 2 bottom + 2 * 3 decoder convs and
+    # the out conv; 12 of them run through the epilogue
+    assert layouts == [(True, True)] * 26
+    assert len(spy) == 24 and not any(spy)
+    with torch.inference_mode():
+        want = [twin(stack.permute(2, 3, 0, 1)[p:p + 4].contiguous())
+                for p in (0, 4)]
+    for g, w in zip(outs, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=F32_RTOL, atol=0)
+    assert torch.equal(pred, torch.cat(outs).permute(2, 3, 0, 1).to(
+        torch.bfloat16))
+
+
 @pytest.mark.parametrize("mode", ["train-grad", "train-no-grad",
                                   "eval-grad"])
 @pytest.mark.parametrize("name", ["unet", "unet-dilated-pad8",
@@ -262,33 +317,48 @@ def test_takes_and_refuses():
         epilogue.unet_epilogue(x, torch.zeros(2, device="meta"), True)
 
 
-def _reader():
-    name = "predict.unet_epilogue_launches"
+# Each reader of the benchmark's trace counters and the counter it reads
+READERS = {"predict.unet_epilogue_launches": "unet.epilogue",
+           "predict.unet_epilogue_cl_launches": "unet.epilogue_cl"}
+
+
+def _reader(name):
     return harness.load_file_module(harness.HERE / "metrics" / f"{name}.py",
                                     f"portbench_metric_{name}")
 
 
-def _unet_span(request, n=None):
+def _unet_span(request, n=None, counter="unet.epilogue"):
     return {"id": 0, "name": "predict.unet", "parent": None, "thread": "t",
             "request": request, "start_ns": 0, "end_ns": 1, "host_ms": 0.0,
-            "device_ms": 1.0,
-            "counters": {} if n is None else {"unet.epilogue": n}}
+            "device_ms": 1.0, "counters": {} if n is None else {counter: n}}
 
 
-def test_reader_sums_a_volume_and_averages_the_volumes():
-    spans = ([_unet_span(1, 132) for _ in range(6)]
-             + [_unet_span(2, 132) for _ in range(5)] + [_unet_span(2, 66)])
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_sums_a_volume_and_averages_the_volumes(name):
+    c = READERS[name]
+    spans = ([_unet_span(1, 132, c) for _ in range(6)]
+             + [_unet_span(2, 132, c) for _ in range(5)]
+             + [_unet_span(2, 66, c)])
     rec = {"kind": "predict", "program_spans": {"spans": spans,
                                                 "counters": {}}}
-    assert _reader().read(rec) == pytest.approx((792 + 726) / 2)
+    assert _reader(name).read(rec) == pytest.approx((792 + 726) / 2)
 
 
-@pytest.mark.parametrize("rec", [
-    {"kind": "predict", "program_spans": None},
-    {"kind": "predict", "program_spans": {
-        "spans": [_unet_span(1) for _ in range(6)], "counters": {}}},
-    {"kind": "train", "program_spans": {
-        "spans": [_unet_span(1, 132)], "counters": {}}},
-], ids=["no-recorder", "no-counter", "train-run"])
-def test_reader_none_without_the_counter(rec):
-    assert _reader().read(rec) is None
+def _records(case, counter):
+    """A traced run's records in which the reader of `counter` finds
+    nothing to read."""
+    other = next(c for c in READERS.values() if c != counter)
+    spans = {"no-recorder": None,
+             "no-counter": [_unet_span(1) for _ in range(6)],
+             "other-counter": [_unet_span(1, 132, other) for _ in range(6)],
+             "train-run": [_unet_span(1, 132, counter)]}[case]
+    return {"kind": "train" if case == "train-run" else "predict",
+            "program_spans": None if spans is None else {
+                "spans": spans, "counters": {}}}
+
+
+@pytest.mark.parametrize("case", ["no-recorder", "no-counter",
+                                  "other-counter", "train-run"])
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_none_without_the_counter(name, case):
+    assert _reader(name).read(_records(case, READERS[name])) is None
