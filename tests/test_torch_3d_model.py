@@ -33,8 +33,8 @@ from multiplanarunet_tpu_torch.models.unet import glorot_init
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.train.train_step import EvalStep, TrainStep
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 # the tiny 3D model: n_classes 3, depth 2, init_filters 4 (dim 16)
 KW = dict(n_classes=3, n_channels=1, depth=2, init_filters=4)

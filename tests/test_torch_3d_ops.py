@@ -18,8 +18,8 @@ from multiplanarunet_tpu_torch.augmentation.augmenters import Elastic3D
 from multiplanarunet_tpu_torch.ops import elastic as telastic
 from multiplanarunet_tpu_torch.ops import geometry as tgeo
 from multiplanarunet_tpu_torch.ops import interp as tinterp
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 SHAPE = (20, 22, 18)
 D = 12  # box side in voxels

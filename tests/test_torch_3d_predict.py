@@ -5,9 +5,6 @@ binary`, and both packages' `mp train` on one tiny
 3D project followed by both packages' `mp predict_3D` with the same JAX
 weights (the PRED class maps agree on >= 0.999 of voxels). The port runs
 with `--device cpu`."""
-import os
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -18,8 +15,6 @@ import jax.numpy as jnp
 from flax import linen as jnn
 
 from multiplanarunet_tpu.bin import predict_3D as j_predict_3D
-from multiplanarunet_tpu.bin import train as j_train
-from multiplanarunet_tpu.bin.toy_data import create_dataset
 from multiplanarunet_tpu.image import ImagePairLoader as JLoader
 from multiplanarunet_tpu.image.queue import EagerQueue as JEager
 from multiplanarunet_tpu.logging import ScreenLogger as JScreen
@@ -33,12 +28,15 @@ from multiplanarunet_tpu_torch.io import nifti
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.sequences import get_sequence
 from multiplanarunet_tpu_torch.utils.fusion import fuse_and_predict as tfp
+from tests.torch_projects import (  # noqa: F401
+    run_entry,
+    run_jax_entry,
+    torch_threads,
+    train_args,
+    trained_pair,
+)
 
-torch.set_num_threads(2)
 
-REPO = Path(__file__).resolve().parents[1]
-PRESET_3D = (REPO / "multiplanarunet_tpu_torch" / "bin" / "defaults" / "3D" /
-             "train_hparams.yaml")
 N_CLASSES = 4
 SIZE = 24
 
@@ -216,52 +214,17 @@ def test_predict_3d_patches_binary_matches_jax(oracle):
 
 
 # ---------------------------------------------------------------- the CLIs
-ARGS = ["--overwrite", "--no_images", "--epochs", "2",
-        "--train_images_per_epoch", "8", "--val_images_per_epoch", "4"]
-
-
-def _write_project(root, name):
-    text = PRESET_3D.read_text()
-    for old, new in (
-            ("train_data: &TRAINDATA\n  base_dir: Null",
-             f"train_data: &TRAINDATA\n  base_dir: {root / 'data' / 'train'}"),
-            ("val_data: &VALDATA\n  base_dir: Null",
-             f"val_data: &VALDATA\n  base_dir: {root / 'data' / 'val'}"),
-            ("test_data: &TESTDATA\n  base_dir: Null",
-             f"test_data: &TESTDATA\n  base_dir: {root / 'data' / 'val'}"),
-            ("dim: Null", "dim: 16\n  init_filters: 4"),
-            ("depth: 3", "depth: 2"),
-            ("batch_size: 16", "batch_size: 4"),
-            ("mixed_precision: True", "mixed_precision: False")):
-        assert old in text, old
-        text = text.replace(old, new)
-    proj = root / name
-    proj.mkdir()
-    (proj / "train_hparams.yaml").write_text(text)
-    return proj
-
-
-def _run(entry, *args):
-    cwd = os.getcwd()
-    try:
-        return entry(list(args))
-    finally:
-        os.chdir(cwd)
+SHRINK = (("dim: Null", "dim: 16\n  init_filters: 4"),
+          ("depth: 3", "depth: 2"),
+          ("batch_size: 16", "batch_size: 4"),
+          ("mixed_precision: True", "mixed_precision: False"))
 
 
 @pytest.fixture(scope="module")
-def trained_3d(tmp_path_factory):
-    root = tmp_path_factory.mktemp("mp_train_3d")
-    rng = np.random.RandomState(5)
-    create_dataset(root / "data" / "train", 3, 32, 1, rng, "train")
-    create_dataset(root / "data" / "val", 2, 32, 1, rng, "val")
-    port = _write_project(root, "port")
-    jax_proj = _write_project(root, "jax")
-    _run(t_mp.entry_func, "train", "--project_dir", str(port), "--device",
-         "cpu", *ARGS)
-    _run(j_train.entry_func, "--project_dir", str(jax_proj),
-         "--num_devices", "1", *ARGS)
-    return root, port, jax_proj
+def trained_3d():
+    port, jax_proj = trained_pair("3D", SHRINK, train_args(8, 4),
+                                  (3, 2, 32, 5))
+    return port.parent, port, jax_proj
 
 
 def test_mp_train_3d_matches_jax(trained_3d):
@@ -308,10 +271,10 @@ def test_mp_predict_3d_matches_jax(trained_3d, extra):
     tag = "patches" if extra else "boxes"
     args = ["--project_dir", str(jax_proj), "--overwrite", *extra]
     np.random.seed(9)
-    _run(j_predict_3D.entry_func, *args, "--out_dir", f"jax_{tag}")
+    run_jax_entry(j_predict_3D.entry_func, *args, "--out_dir", f"jax_{tag}")
     np.random.seed(9)
-    timings = _run(t_mp.entry_func, "predict_3D", *args, "--out_dir",
-                   f"port_{tag}", "--device", "cpu")
+    timings = run_entry(t_mp.entry_func, "predict_3D", *args, "--out_dir",
+                        f"port_{tag}", "--device", "cpu")
     assert sorted(timings) == ["val_000", "val_001"]
     for image_id in timings:
         pred = {}

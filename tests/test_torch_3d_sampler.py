@@ -17,8 +17,8 @@ from multiplanarunet_tpu_torch.image.image_pair_loader import ImagePairLoader
 from multiplanarunet_tpu_torch.image.queue.queues import EagerQueue
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.sequences import get_sequence
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 ISO = dict(intrp_style="iso_live_3d", dim=16, batch_size=4, n_classes=4,
            real_box_dim=8.0, noise_sd=0.1, fg_batch_fraction=0.5,

@@ -5,9 +5,7 @@ trainers), then both packages' `mp train` + `mp predict` on a tiny
 project that configures every YAML-configurable callback and the
 QuantileTransformer scaler."""
 import json
-import os
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,8 +14,6 @@ import torch
 import jax
 
 from multiplanarunet_tpu.bin import predict as j_predict
-from multiplanarunet_tpu.bin import train as j_train
-from multiplanarunet_tpu.bin.toy_data import create_dataset
 from multiplanarunet_tpu.callbacks import callbacks as j_cb
 from multiplanarunet_tpu.callbacks import funcs as j_funcs
 from multiplanarunet_tpu.callbacks.validation import (
@@ -45,10 +41,16 @@ from multiplanarunet_tpu_torch.preprocessing import (
 )
 from multiplanarunet_tpu_torch.sequences import RandomDataFeeder
 from multiplanarunet_tpu_torch.train.trainer import Trainer
+from tests.torch_projects import (  # noqa: F401
+    flax_init,
+    run_entry,
+    run_jax_entry,
+    torch_threads,
+    train_args,
+    trained_pair,
+)
 
-torch.set_num_threads(2)
 
-REPO = Path(__file__).resolve().parents[1]
 N_CLASSES = 3
 
 
@@ -180,8 +182,7 @@ def test_fg_batch_balancer_matches_jax(recall):
 def _flax_unet(seed=0):
     model = JUNet(n_classes=N_CLASSES, n_channels=1, depth=2,
                   init_filters=8, complexity_factor=1.0)
-    v = jax.jit(lambda k: model.init(k, jax.numpy.zeros((1, 16, 16, 1)),
-                                     train=False))(jax.random.PRNGKey(seed))
+    v = flax_init(model, jax.random.PRNGKey(seed), (1, 16, 16, 1))
     rng = np.random.RandomState(seed)
     params = jax.tree.map(lambda p: np.asarray(p) + 0.05 * rng.randn(
         *p.shape).astype(np.float32), v["params"])
@@ -456,8 +457,6 @@ def test_random_data_feeder_matches_jax():
 
 
 # ------------------------------------------ mp train + mp predict, both
-DEFAULT_YAML = (REPO / "multiplanarunet_tpu" / "bin" / "defaults" /
-                "MultiPlanar" / "train_hparams.yaml")
 # memory_gib is a CSV column only when MemoryConsumption runs before the
 # CSVLogger writes its header (in both packages)
 CONFIGURED = (
@@ -469,20 +468,7 @@ CONFIGURED = (
     "{class_name: SavePredictionImages}, {class_name: SaveOutputAs2DImage},"
     " {class_name: Profiler, kwargs: {log_dir: logs/profile, epochs: [1]}},"
     " *CSV]")
-ARGS = ["--overwrite", "--epochs", "2", "--train_images_per_epoch", "8",
-        "--val_images_per_epoch", "4"]
-
-
-def _write_project(root, name):
-    text = DEFAULT_YAML.read_text()
-    for old, new in (
-            ("train_data: &TRAINDATA\n  base_dir: Null",
-             f"train_data: &TRAINDATA\n  base_dir: {root / 'data' / 'train'}"),
-            ("val_data: &VALDATA\n  base_dir: Null",
-             f"val_data: &VALDATA\n  base_dir: {root / 'data' / 'val'}"),
-            ("test_data: &TESTDATA\n  base_dir: Null",
-             f"test_data: &TESTDATA\n  base_dir: {root / 'data' / 'val'}"),
-            ("dim: Null", "dim: 16\n  init_filters: 4"),
+QUANTILE = (("dim: Null", "dim: 16\n  init_filters: 4"),
             ("depth: 4", "depth: 2"),
             ("complexity_factor: 2", "complexity_factor: 1"),
             ("views: 6", "views: 2"),
@@ -490,34 +476,13 @@ def _write_project(root, name):
             ("mixed_precision: True", "mixed_precision: False"),
             ('scaler: "RobustScaler"', 'scaler: "QuantileTransformer"'),
             ("callbacks: [*RLOP, *MCP_CLEAN, *ES, *TIMER, *CSV]",
-             CONFIGURED)):
-        assert old in text, old
-        text = text.replace(old, new)
-    proj = root / name
-    proj.mkdir()
-    (proj / "train_hparams.yaml").write_text(text)
-    return proj
+             CONFIGURED))
 
 
-def _run(entry, *args):
-    cwd = os.getcwd()
-    try:
-        return entry(list(args))
-    finally:
-        os.chdir(cwd)
-
-
-def test_quantile_project_with_every_callback_trains_and_predicts(
-        tmp_path):
-    root = tmp_path
-    rng = np.random.RandomState(3)
-    create_dataset(root / "data" / "train", 2, 20, 1, rng, "train")
-    create_dataset(root / "data" / "val", 1, 20, 1, rng, "val")
-    port, jax_proj = _write_project(root, "port"), _write_project(root, "jax")
-    _run(t_mp.entry_func, "train", "--project_dir", str(port), "--device",
-         "cpu", *ARGS)
-    _run(j_train.entry_func, "--project_dir", str(jax_proj),
-         "--num_devices", "1", *ARGS)
+def test_quantile_project_with_every_callback_trains_and_predicts():
+    port, jax_proj = trained_pair("MultiPlanar", QUANTILE,
+                                  train_args(8, 4, images=True),
+                                  (2, 1, 20, 3))
     heads = [(p / "logs" / "training.csv").read_text().splitlines()[0]
              for p in (port, jax_proj)]
     assert heads[0] == heads[1] and "memory_gib" in heads[0]
@@ -531,12 +496,11 @@ def test_quantile_project_with_every_callback_trains_and_predicts(
         assert (port / rel).exists(), rel
         if not rel.startswith("logs/profile"):
             assert (jax_proj / rel).exists(), rel
-    for proj, entry in ((port, lambda a: t_mp.entry_func(["predict", *a])),
-                        (jax_proj, j_predict.entry_func)):
-        extra = ["--device", "cpu"] if proj is port else \
-            ["--num_devices", "1"]
-        _run(entry, "--project_dir", str(proj), "--out_dir", "pred",
-             "--overwrite", *extra)
+    run_entry(t_mp.entry_func, "predict", "--project_dir", str(port),
+              "--out_dir", "pred", "--overwrite", "--device", "cpu")
+    run_jax_entry(j_predict.entry_func, "--project_dir", str(jax_proj),
+                  "--out_dir", "pred", "--overwrite", "--num_devices", "1")
+    for proj in (port, jax_proj):
         preds = sorted((proj / "pred" / "nii_files").glob("*/PRED.nii.gz"))
         assert len(preds) == 1
         pred = nifti.load(preds[0]).get_raw_data()

@@ -45,8 +45,14 @@ from multiplanarunet_tpu_torch.preprocessing.scaling import (
     UnsupportedScalerError,
     get_scaler,
 )
+from tests.torch_projects import (  # noqa: F401
+    edit_yaml,
+    flax_init,
+    preset_yaml,
+    run_jax_entry,
+    torch_threads,
+)
 
-torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 DEFAULTS = sorted((REPO / "multiplanarunet_tpu" / "bin" / "defaults")
@@ -222,9 +228,8 @@ def test_result_csvs_round_trip_between_packages(tmp_path):
 # ------------------------------------------------------------ model build
 def _jax_unet_checkpoint(path, seed=0, sharpen=1.0, **kw):
     model = JUNet(dim=16, **kw)
-    v = jax.jit(lambda k: model.init(k, jnp.zeros((1, 16, 16,
-                                                   kw.get("n_channels", 1))),
-                                     train=False))(jax.random.PRNGKey(seed))
+    v = flax_init(model, jax.random.PRNGKey(seed),
+                  (1, 16, 16, kw.get("n_channels", 1)))
     params = jax.tree.map(np.asarray, v["params"])
     params["out_conv"]["kernel"] = params["out_conv"]["kernel"] * sharpen
     stats = jax.tree.map(np.asarray, v["batch_stats"])
@@ -276,9 +281,10 @@ def test_build_model_named_errors():
                       UnsupportedActivationError)):
         with pytest.raises(err):
             build_model({**base, **bad})
+        # traced, not run: the names are looked up while the init traces
         with pytest.raises((ValueError, AttributeError)):
-            j_build_model({**base, **bad}).init(
-                jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)))
+            jax.eval_shape(lambda: j_build_model({**base, **bad}).init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1))))
     # the 3D model builds from the same group
     assert build_model({**base, "model_class_name": "UNet3D"}).ndim == 3
 
@@ -327,21 +333,17 @@ def project(tmp_path_factory):
                     AFFINE)
     proj = root / "proj"
     (proj / "model" / "fusion_weights").mkdir(parents=True)
-    text = (DEFAULTS[[p.parent.name for p in DEFAULTS].index("MultiPlanar")]
-            .read_text())
-    for old, new in (
-            ("test_data: &TESTDATA\n  base_dir: Null",
-             f"test_data: &TESTDATA\n  base_dir: {root / 'data' / 'test'}"),
-            ("n_classes: Null", f"n_classes: {N_CLASSES}"),
-            ("n_channels: Null", "n_channels: 1"),
-            ("dim: Null", "dim: 32\n  init_filters: 8"),
-            ("depth: 4", "depth: 2"),
-            ("complexity_factor: 2", "complexity_factor: 1"),
-            ("real_space_span: Null", "real_space_span: 31"),
-            ("mixed_precision: True", "mixed_precision: False")):
-        assert old in text
-        text = text.replace(old, new)
-    (proj / "train_hparams.yaml").write_text(text)
+    shutil.copyfile(preset_yaml("MultiPlanar"), proj / "train_hparams.yaml")
+    edit_yaml(proj / "train_hparams.yaml", (
+        ("test_data: &TESTDATA\n  base_dir: Null",
+         f"test_data: &TESTDATA\n  base_dir: {root / 'data' / 'test'}"),
+        ("n_classes: Null", f"n_classes: {N_CLASSES}"),
+        ("n_channels: Null", "n_channels: 1"),
+        ("dim: Null", "dim: 32\n  init_filters: 8"),
+        ("depth: 4", "depth: 2"),
+        ("complexity_factor: 2", "complexity_factor: 1"),
+        ("real_space_span: Null", "real_space_span: 31"),
+        ("mixed_precision: True", "mixed_precision: False")))
     views = jgeo.sample_random_views_with_angle_restriction(
         3, 60, rng=np.random.RandomState(3))
     np.savez(proj / "views.npz", views)
@@ -359,12 +361,9 @@ def project(tmp_path_factory):
 
 
 def run_jax(proj, out, *extra):
-    cwd = os.getcwd()
-    try:
-        j_predict.entry_func(["--project_dir", str(proj), "--out_dir", out,
-                              "--overwrite", "--num_devices", "1", *extra])
-    finally:
-        os.chdir(cwd)
+    run_jax_entry(j_predict.entry_func, "--project_dir", str(proj),
+                  "--out_dir", out, "--overwrite", "--num_devices", "1",
+                  *extra)
 
 
 def run_port(proj, out, *extra):

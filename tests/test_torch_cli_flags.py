@@ -15,6 +15,7 @@ import pytest
 
 from multiplanarunet_tpu.bin import mp as j_mp
 from multiplanarunet_tpu_torch.bin import mp as t_mp
+from tests.torch_projects import torch_threads  # noqa: F401
 
 # (script, option string) -> why the port does not take it
 ALLOWED = {}

@@ -41,8 +41,8 @@ from multiplanarunet_tpu_torch.train.optimizers import OPTIMIZERS
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     _inference_model,
 )
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 # The 18 names this port added, and the 11 it had
 NEW_ACTIVATIONS = (

@@ -21,6 +21,7 @@ from multiplanarunet_tpu_torch.ops.geometry import plane_basis
 from multiplanarunet_tpu_torch.ops.interp import plane_points
 from multiplanarunet_tpu_torch.parallel import distributed as tdist
 from multiplanarunet_tpu_torch.parallel.mesh import shard_batch
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 def _free_port():

@@ -45,16 +45,22 @@ from multiplanarunet_tpu.parallel import (
 from multiplanarunet_tpu.train import Trainer as JTrainer
 from multiplanarunet_tpu_torch.models.unet import _BatchStatsNorm
 from multiplanarunet_tpu_torch.parallel import pad_batch_to_multiple
+from tests.torch_projects import (  # noqa: F401
+    edit_yaml,
+    flax_init,
+    toy_data,
+    torch_threads,
+)
 
-torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 LR = 1e-2
 GLOBAL_BATCH, N_STEPS = 8, 3
 MT_DIMS = (16, 12)
 BN_SHAPE = (8, 3, 6, 5)
-# A worker pair's deadline: a hang fails its test, not the suite
-TIMEOUT = 240
+# A worker group's deadline, about 3x the longest wait measured under the
+# full suite (18.8 s): a hang fails its test, not the suite
+TIMEOUT = 60
 
 WORKER = r"""
 import json, os, sys
@@ -243,11 +249,10 @@ def launch(script, args, n_procs, cwd, timeout=TIMEOUT):
     return outs
 
 
-def _weights(path, jmodel, x):
-    """Random flax variables of jmodel (PRNGKey(0)), written as a
-    JAX-format checkpoint; returns them."""
-    variables = jax.jit(lambda k: jmodel.init(k, x, train=False))(
-        jax.random.PRNGKey(0))
+def _weights(path, jmodel, shape):
+    """Random flax variables of jmodel (PRNGKey(0)) on zero inputs of
+    `shape`, written as a JAX-format checkpoint; returns them."""
+    variables = flax_init(jmodel, jax.random.PRNGKey(0), shape)
     variables = jax.tree.map(np.asarray, dict(variables))
     jckpt.save_weights(path, variables["params"], variables["batch_stats"])
     return variables
@@ -299,13 +304,13 @@ def run(tmp_path_factory):
     np.savez(out / "data.npz", **data)
 
     j2d = JUNet(n_classes=3, dim=16, n_channels=1, depth=1, init_filters=4)
-    v2d = _weights(out / "w2d.npz", j2d, jnp.zeros((1, 16, 16, 1)))
+    v2d = _weights(out / "w2d.npz", j2d, (1, 16, 16, 1))
     j3d = JUNet3D(n_classes=3, dim=8, n_channels=1, depth=1, init_filters=4)
-    v3d = _weights(out / "w3d.npz", j3d, jnp.zeros((1, 8, 8, 8, 1)))
+    v3d = _weights(out / "w3d.npz", j3d, (1, 8, 8, 8, 1))
     jmt = JMultiTask(task_names=("a", "b"), n_classes=(3, 4),
                      n_channels=(1, 1), dim=MT_DIMS, depth=1, init_filters=4)
-    vmt = _weights(out / "wmt.npz", jmt, tuple(
-        jnp.zeros((1, d, d, 1)) for d in MT_DIMS))
+    vmt = _weights(out / "wmt.npz", jmt,
+                   tuple((1, d, d, 1) for d in MT_DIMS))
 
     script = out / "worker.py"
     script.write_text(WORKER)
@@ -513,7 +518,7 @@ def test_explicit_multiprocess_startup_failure_raises(tmp_path):
         "else:\n"
         "    print('NO_RAISE')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=_env(), timeout=120, cwd=tmp_path)
+                         text=True, env=_env(), timeout=60, cwd=tmp_path)
     assert "RAISED 1 torch.distributed start-up failed" in out.stdout, (
         out.stdout, out.stderr[-2000:])
 
@@ -524,33 +529,26 @@ def test_mp_train_num_devices_pads_a_global_batch_of_3(tmp_path):
     2-device mesh pads it (rank 0: 2 valid rows, rank 1: 1 valid and a
     weight-0 pad row); one CSV with a finite row per epoch, the weights
     written, rank 1's log beside rank 0's."""
-    from multiplanarunet_tpu.bin.toy_data import create_dataset
     from multiplanarunet_tpu_torch.bin import init_project
 
     assert j_pad_batch_to_multiple(3, 2) == pad_batch_to_multiple(3, 2) == 4
-    rng = np.random.RandomState(3)
-    create_dataset(tmp_path / "data" / "train", 3, 32, 1, rng, "train")
-    create_dataset(tmp_path / "data" / "val", 2, 32, 1, rng, "val")
+    toy_data(tmp_path / "data", 3, 2, 32, 3)
     init_project.entry_func(["--name", "proj", "--root", str(tmp_path),
                              "--data_dir", str(tmp_path / "data")])
     proj = tmp_path / "proj"
-    hp = proj / "train_hparams.yaml"
-    text = hp.read_text()
-    for old, new in (("dim: Null", "dim: 32\n  init_filters: 8"),
-                     ("depth: 4", "depth: 2"),
-                     ("complexity_factor: 2", "complexity_factor: 1"),
-                     ("views: 6", "views: 3"),
-                     ("batch_size: 16", "batch_size: 3"),
-                     ("mixed_precision: True", "mixed_precision: False")):
-        assert old in text, old
-        text = text.replace(old, new)
-    hp.write_text(text)
+    edit_yaml(proj / "train_hparams.yaml", (
+        ("dim: Null", "dim: 32\n  init_filters: 8"),
+        ("depth: 4", "depth: 2"),
+        ("complexity_factor: 2", "complexity_factor: 1"),
+        ("views: 6", "views: 3"),
+        ("batch_size: 16", "batch_size: 3"),
+        ("mixed_precision: True", "mixed_precision: False")))
     out = subprocess.run(
         [sys.executable, "-m", "multiplanarunet_tpu_torch.bin.mp", "train",
          "--project_dir", str(proj), "--device", "cpu", "--num_devices", "2",
          "--overwrite", "--no_images", "--epochs", "2",
          "--train_images_per_epoch", "6", "--val_images_per_epoch", "3"],
-        capture_output=True, text=True, env=_env(), timeout=TIMEOUT)
+        capture_output=True, text=True, env=_env(), timeout=90)
     assert out.returncode == 0, out.stderr[-4000:]
     logs = proj / "logs"
     assert "global batch padded to 4; 2 valid here" in (

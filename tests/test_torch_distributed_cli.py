@@ -25,6 +25,7 @@ from multiplanarunet_tpu_torch.bin import (
 from multiplanarunet_tpu_torch.logging.log_results import ResultTable
 from multiplanarunet_tpu_torch.models import checkpoint
 from tests.test_torch_distributed import launch
+from tests.torch_projects import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -38,8 +38,7 @@ from multiplanarunet_tpu_torch.utils import decorators as t_decorators
 from multiplanarunet_tpu_torch.utils import system as t_system
 from multiplanarunet_tpu_torch.utils import utils as t_utils
 from multiplanarunet_tpu_torch.utils.fusion import fuse_and_predict as t_fuse
-
-torch.set_num_threads(2)
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("depth,k,dim,cf,nc,ch", [

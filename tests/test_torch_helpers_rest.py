@@ -53,8 +53,7 @@ from multiplanarunet_tpu_torch.preprocessing import (
 )
 from multiplanarunet_tpu_torch.sequences.base_sequence import BaseSequence
 from multiplanarunet_tpu_torch.train.trainer import Trainer
-
-torch.set_num_threads(2)
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 # ------------------------------------------------------ VolumeSampler host

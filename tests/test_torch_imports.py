@@ -11,8 +11,8 @@ from multiplanarunet_tpu_torch import _device
 from multiplanarunet_tpu_torch.ops import _build
 from multiplanarunet_tpu_torch.ops.shear_pass import shear_pass
 from multiplanarunet_tpu_torch.ops.shear_plan import plan_affine_resample
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 SLICE_MODULES = [
@@ -126,7 +126,7 @@ def test_slice_imports_no_jax_flax_sklearn_or_jax_package():
         "assert _build.kernels.cache_info().currsize == 0\n"
         "print('clean')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
 
@@ -164,7 +164,7 @@ def test_port_runs_with_banned_packages_blocked(tmp_path):
         "    print('helped', script)\n"
         "print('ran')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     assert "--stage_dtype" in proc.stdout and "--device" in proc.stdout
     assert "--continue_training" in proc.stdout

@@ -27,8 +27,8 @@ from multiplanarunet_tpu_torch.models.multitask_unet import MultiTaskUNet2D
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init, init_unet
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.ops import prng
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 KW2D = dict(n_classes=3, n_channels=2, depth=2, complexity_factor=2.0,
             init_filters=8)
@@ -72,11 +72,21 @@ PAIRS = {name: (port, jax_) for name, port, jax_ in _pairs()}
 
 
 @functools.cache
+def _jax_init(name):
+    """The JAX init_model_variables of pair `name` as one jitted function
+    of the key: compiled once per module, whatever the key, at XLA's
+    backend optimisation level 0 (~1 s in place of ~10 s a model on the
+    CPU; the draws are the same bits)."""
+    jmodel = PAIRS[name][1]()
+    return jax.jit(lambda key: jinit.init_model_variables(jmodel, key),
+                   compiler_options={"xla_backend_optimization_level": 0})
+
+
+@functools.cache
 def _jax_variables(name, key):
     """The JAX init_model_variables of pair `name` from `key` (a tuple of
     the raw key's two words), computed once per module."""
-    return jinit.init_model_variables(PAIRS[name][1](),
-                                      jnp.asarray(key, jnp.uint32))
+    return _jax_init(name)(jnp.asarray(key, jnp.uint32))
 
 
 def _key(seed):

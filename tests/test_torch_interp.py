@@ -9,8 +9,8 @@ import jax.numpy as jnp
 from multiplanarunet_tpu.ops import geometry as jgeo
 from multiplanarunet_tpu.ops import interp as jint
 from multiplanarunet_tpu_torch.ops import interp as tint
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 ORIGIN = np.array([-7.5, -6.0, -4.5], np.float32)
 SPACING = np.array([1.0, 0.8, 1.2], np.float32)

@@ -12,6 +12,7 @@ import pytest
 
 from multiplanarunet_tpu.logging.loggers import Logger as JaxLogger
 from multiplanarunet_tpu_torch.logging.loggers import Logger
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 def log_from_function(logger, text):

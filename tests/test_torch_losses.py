@@ -13,8 +13,8 @@ from multiplanarunet_tpu.evaluate import losses as jlosses
 from multiplanarunet_tpu.evaluate import metrics as jmetrics
 from multiplanarunet_tpu_torch.evaluate import losses as tlosses
 from multiplanarunet_tpu_torch.evaluate import metrics as tmetrics
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(1)
 
 LOSS_CASES = [
     ("SparseCategoricalCrossentropy", {}),

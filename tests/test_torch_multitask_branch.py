@@ -19,6 +19,7 @@ from multiplanarunet_tpu_torch.bin import mp as t_mp
 from multiplanarunet_tpu_torch.bin.init_project import defaults_dir
 from multiplanarunet_tpu_torch.hyperparameters.yaml_reader import safe_load
 from multiplanarunet_tpu_torch.hyperparameters.yaml_writer import safe_dump
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 def _project(tmp_path, filled=False):

@@ -46,8 +46,8 @@ from multiplanarunet_tpu_torch.train.train_step import (
 )
 from multiplanarunet_tpu_torch.train.trainer import Trainer
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 # Two tasks: 16 px with 3 classes, 30 px (both decoder levels crop) with 4
 KW = dict(task_names=("a", "b"), n_classes=(3, 4), n_channels=(2, 2),

@@ -33,8 +33,8 @@ from multiplanarunet_tpu_torch.preprocessing import (
 from multiplanarunet_tpu_torch.sequences import base_sequence
 from multiplanarunet_tpu_torch.sequences.multi_task import MultiTaskSequence
 from multiplanarunet_tpu_torch.train.trainer import Trainer
+from tests.torch_projects import edit_yaml, torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "flax", "optax", "yaml", "multiplanarunet_tpu")
@@ -98,7 +98,7 @@ def chain(tmp_path_factory):
     blocked; returns the workspace."""
     ws = tmp_path_factory.mktemp("mt_chain")
     proc = subprocess.run([sys.executable, "-c", CHAIN, str(ws)], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=90)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("chain ok")
     return ws
@@ -177,12 +177,9 @@ def _projects(root, data):
         init(["--name", name, "--root", str(root), "--model", "MultiTask",
               "--data_dir", str(data / "data1")])
         proj = root / name
-        text = (proj / "train_hparams.yaml").read_text()
-        for old, new in SHRINK + ((ELASTIC, "  augmenters: []"),
-                                  ("views: 1", "views: 2")):
-            assert old in text, old
-            text = text.replace(old, new)
-        (proj / "train_hparams.yaml").write_text(text)
+        edit_yaml(proj / "train_hparams.yaml",
+                  SHRINK + ((ELASTIC, "  augmenters: []"),
+                            ("views: 1", "views: 2")))
         t2 = proj / "task_2.yaml"
         t2.write_text(t2.read_text().replace(str(data / "data1"),
                                              str(data / "data2")))

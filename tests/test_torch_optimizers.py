@@ -23,8 +23,8 @@ from multiplanarunet_tpu_torch.train.utils import (
     init_optimizer,
     translate_optimizer_kwargs,
 )
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(1)
 
 CASES = [
     ("Adam", {"lr": 1e-2, "beta_1": 0.8, "beta_2": 0.99, "epsilon": 1e-8,

@@ -38,8 +38,8 @@ from multiplanarunet_tpu_torch.ops import geometry as tgeo
 from multiplanarunet_tpu_torch.ops import interp as tinterp
 from multiplanarunet_tpu_torch.sequences import get_sequence
 from multiplanarunet_tpu_torch.utils.fusion import fuse_and_predict as tfp
+from tests.torch_projects import flax_init, torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 SIZE, N_CLASSES, SPAN = 32, 4, 30.0
 CPU = torch.device("cpu")
@@ -247,9 +247,9 @@ def test_map_view_pred_to_voxels():
 
 
 # ---------------------------------------------------------- predict_single
-def _write_project(root, style, views=None):
-    """A project folder whose train_hparams.yaml holds what predict_single
-    reads (and views.npz for iso_live)."""
+def _predict_hparams(root, style, views=None):
+    """Both packages' hparams of a project folder whose train_hparams.yaml
+    holds what predict_single reads (and views.npz for iso_live)."""
     root.mkdir()
     extra = ("  real_box_dim: 20\n" if style == "iso_live_3d" else "")
     (root / "train_hparams.yaml").write_text(
@@ -275,9 +275,7 @@ def _write_project(root, style, views=None):
 def _jax_weights(jmodel, shape):
     """Seeded flax weights with the out conv sharpened (no near-ties) and
     BatchNorm statistics off their init, as numpy trees."""
-    variables = jax.jit(lambda k: jmodel.init(k, jnp.zeros(shape),
-                                              train=False))(
-        jax.random.PRNGKey(1))
+    variables = flax_init(jmodel, jax.random.PRNGKey(1), shape)
     params = jax.tree.map(np.asarray, variables["params"])
     params["out_conv"]["kernel"] = params["out_conv"]["kernel"] * 6.0
     rng = np.random.RandomState(2)
@@ -302,7 +300,7 @@ def test_predict_single_iso_live(data_dir, tmp_path):
     float32 on the host, views read from views.npz, against the JAX
     predict_single on the same weights: within atol 3e-2 (bf16
     probabilities on both sides), argmax equal in >= 0.99 of voxels."""
-    jhp, thp = _write_project(tmp_path / "proj", "iso_live", VIEWS[1:])
+    jhp, thp = _predict_hparams(tmp_path / "proj", "iso_live", VIEWS[1:])
     kw = dict(n_classes=N_CLASSES, n_channels=1, depth=2, init_filters=8)
     jmodel = JUNet(dim=SIZE, **kw)
     params, stats = _jax_weights(jmodel, (1, SIZE, SIZE, 1))
@@ -329,7 +327,7 @@ def test_predict_single_iso_live_3d(data_dir, tmp_path):
     one-image sequence, the extra placements drawn from equal numpy
     states: the sums normalised to probabilities within atol 3e-2,
     argmax equal in >= 0.99 of voxels."""
-    jhp, thp = _write_project(tmp_path / "proj3d", "iso_live_3d")
+    jhp, thp = _predict_hparams(tmp_path / "proj3d", "iso_live_3d")
     kw = dict(n_classes=N_CLASSES, n_channels=1, depth=2, init_filters=4)
     jmodel = JUNet3D(dim=8, **kw)
     params, stats = _jax_weights(jmodel, (1, 8, 8, 8, 1))
@@ -355,7 +353,7 @@ def test_predict_single_named_errors(data_dir, tmp_path):
     TypeError naming the dropped `variables`; an intrp_style other than
     iso_live / iso_live_3d raises the JAX package's ValueError in both
     packages."""
-    jhp, thp = _write_project(tmp_path / "perr", "iso_live", VIEWS)
+    jhp, thp = _predict_hparams(tmp_path / "perr", "iso_live", VIEWS)
     jimg, timg = _single_images(data_dir)
     model = UNet(n_classes=N_CLASSES, depth=2, init_filters=4)
     with pytest.raises(TypeError, match="variables"):

@@ -35,8 +35,8 @@ from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
     class_map_counts,
 )
+from tests.torch_projects import flax_init, torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 SIZE = 32
 N_CLASSES = 3
@@ -67,8 +67,7 @@ def setup(tmp_path_factory):
     port images of one rotated volume."""
     kw = dict(n_classes=N_CLASSES, n_channels=1, depth=2, init_filters=8)
     jmodel = JUNet(dim=SIZE, **kw)
-    variables = jax.jit(lambda k: jmodel.init(
-        k, jnp.zeros((1, SIZE, SIZE, 1)), train=False))(jax.random.PRNGKey(0))
+    variables = flax_init(jmodel, jax.random.PRNGKey(0), (1, SIZE, SIZE, 1))
     rng = np.random.RandomState(0)
     # Sharpen the out conv so class decisions are not near-ties
     params = jax.tree.map(np.asarray, variables["params"])
@@ -91,15 +90,27 @@ def setup(tmp_path_factory):
     timg = _Image(vol, affine, VolumeSampler(vol, affine, 0.0))
     assert timg.interpolator.rot_mat is not None  # rotation path active
 
-    def make(resampler, **tkw):
-        jpred = JMultiViewPredictor(
-            jmodel, {"params": params, "batch_stats": stats},
-            sample_dim=SIZE, real_space_span=float(SIZE - 1),
-            n_classes=N_CLASSES, resampler=resampler)
+    shared = {}
+
+    def make(resampler, force=None, **tkw):
+        """A new port predictor, and the JAX predictor of `resampler`: one
+        for every call without `force` (its jitted functions are cached
+        per instance, as `mp predict` keeps one over its images), a new
+        one for a call that forces a path on both."""
+        jpred = shared.get(resampler) if force is None else None
+        if jpred is None:
+            jpred = JMultiViewPredictor(
+                jmodel, {"params": params, "batch_stats": stats},
+                sample_dim=SIZE, real_space_span=float(SIZE - 1),
+                n_classes=N_CLASSES, resampler=resampler)
+            if force is None:
+                shared[resampler] = jpred
         tpred = MultiViewPredictor(model, sample_dim=SIZE,
                                    real_space_span=float(SIZE - 1),
                                    n_classes=N_CLASSES, device=CPU,
                                    resampler=resampler, **tkw)
+        if force is not None:
+            force(jpred, tpred)
         return jpred, tpred
 
     return make, jimg, timg
@@ -139,9 +150,7 @@ def test_port_matches_jax_predictor(setup, resampler, learned, force, modes):
     bf16 ulps of 1: atol 3e-2. Class maps agree except at near-ties:
     >= 0.99."""
     make, jimg, timg = setup
-    jpred, tpred = make(resampler)
-    if force is not None:
-        force(jpred, tpred)
+    jpred, tpred = make(resampler, force)
     views = jgeo.get_random_views(3, rng=np.random.RandomState(5))
     fp = _fusion(3) if learned else None
     j_probs, j_pv = jpred.predict_image(jimg, views, fusion_params=fp,

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from multiplanarunet_tpu_torch.ops import prng
+from tests.torch_projects import torch_threads  # noqa: F401
 
 SEEDS = [0, 1, 42, 2 ** 31 - 1]
 SHAPES = [(1,), (7,), (2, 33, 33), (3, 2, 16, 16, 16)]

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 import multiplanarunet_tpu
+from tests.torch_projects import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 _FLAX_STATE = ("flax idiom: the state lives in the torch model and "

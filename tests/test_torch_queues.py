@@ -24,6 +24,7 @@ from multiplanarunet_tpu_torch.image.queue.queues import (
     validate_queue_type,
 )
 from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
+from tests.torch_projects import torch_threads  # noqa: F401
 
 DEADLINE_S = 120
 

@@ -35,8 +35,8 @@ from multiplanarunet_tpu_torch.parallel import pad_batch_to_multiple
 from multiplanarunet_tpu_torch.sequences.multi_task import MultiTaskSequence
 from multiplanarunet_tpu_torch.train.trainer import Trainer
 from tests.test_torch_distributed import REPO, launch
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 # The augmenters and tolerances of test_elastic2d_host_draws_match_jax
 # and test_elastic3d_augmenter_draws_and_weights_match_jax

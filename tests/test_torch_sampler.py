@@ -39,8 +39,8 @@ from multiplanarunet_tpu_torch.sequences.patches_3d import (
     PatchSequence3D,
     SlidingPatchSequence3D,
 )
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 VIEWS = jgeo.sample_random_views_with_angle_restriction(
     3, 60, rng=np.random.RandomState(2))

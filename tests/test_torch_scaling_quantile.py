@@ -10,6 +10,7 @@ from hypothesis import strategies as st
 
 from multiplanarunet_tpu.preprocessing import scaling as j_scaling
 from multiplanarunet_tpu_torch.preprocessing import scaling as t_scaling
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 def _volume(shape, seed, constant_channel=None, dtype=np.float32):

@@ -19,8 +19,7 @@ from multiplanarunet_tpu_torch.ops.shear_pass import (
     shear_pass,
     shear_pass_reference,
 )
-
-torch.set_num_threads(2)
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 def _random_affine(rng, scale_aniso=True):

@@ -29,8 +29,8 @@ from multiplanarunet_tpu_torch.ops.shear_pass import (
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
 )
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 _BIG = 1 << 40
 
 

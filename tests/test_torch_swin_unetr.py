@@ -10,9 +10,8 @@ against the reference with the fp8 control outside the same bound, the
 checkpoint round trip, and `mp train` then `mp predict_3D` on a tiny
 project."""
 
+import copy
 import itertools
-import os
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +35,13 @@ from multiplanarunet_tpu_torch.models.swin_unetr import (
 )
 from multiplanarunet_tpu_torch.train.optimizers import AdamW
 from portbench.reference import swin_unetr as ref
+from tests.torch_projects import (  # noqa: F401
+    run_entry,
+    toy_data,
+    torch_threads,
+    train_args,
+    write_project,
+)
 
 F_, N_CLASSES, DIM, BATCH = 12, 3, 32, 2
 BUILD = {"model_class_name": "SwinUNETR", "n_classes": N_CLASSES,
@@ -50,15 +56,14 @@ F32_TOL = 1e-5
 BF16_REL = 0.02
 
 
-def _model(dtype=torch.float32):
-    torch.manual_seed(0)
-    model = SwinUNETR(N_CLASSES, 1, feature_size=F_, dim=DIM, dtype=dtype)
-    return swin_init(model, seed=0, device="cpu")
-
-
 @pytest.fixture(scope="module")
 def model():
-    return _model()
+    """The seeded float32 model, initialised once (the plain threefry's
+    draws of 4,078,077 parameters take tens of seconds on the CPU); a test
+    that steps it takes a deepcopy."""
+    torch.manual_seed(0)
+    model = SwinUNETR(N_CLASSES, 1, feature_size=F_, dim=DIM)
+    return swin_init(model, seed=0, device="cpu")
 
 
 def _params(model):
@@ -100,7 +105,7 @@ def test_gradients_and_one_adamw_step(model):
     opt_args = (1e-3, 0.9, 0.999, 1e-8, 1e-2)
     losses, grad, after = ref.train_steps(_params(model), [(x, y, w)],
                                           opt_args)
-    net = _model()
+    net = copy.deepcopy(model)
     opt = AdamW(list(net.parameters()), learning_rate=1e-3, b1=0.9,
                 b2=0.999, eps=1e-8, weight_decay=1e-2)
     out = net.train()(x.movedim(-1, 1)).movedim(1, -1)
@@ -241,56 +246,28 @@ def test_checkpoint_round_trip(model, tmp_path):
                                                  fresh.parameters()))
 
 
-PRESET_3D = (Path(__file__).resolve().parents[1]
-             / "multiplanarunet_tpu_torch" / "bin" / "defaults" / "3D"
-             / "train_hparams.yaml")
-
-
 def test_mp_train_then_predict_3d(tmp_path):
     from multiplanarunet_tpu_torch.bin import mp
-    from multiplanarunet_tpu_torch.bin.toy_data import create_dataset
 
-    rng = np.random.RandomState(5)
-    create_dataset(tmp_path / "data" / "train", 2, 32, 1, rng, "train")
-    create_dataset(tmp_path / "data" / "val", 1, 32, 1, rng, "val")
-    text = PRESET_3D.read_text()
-    for old, new in (
-            ("train_data: &TRAINDATA\n  base_dir: Null",
-             f"train_data: &TRAINDATA\n  base_dir: "
-             f"{tmp_path / 'data' / 'train'}"),
-            ("val_data: &VALDATA\n  base_dir: Null",
-             f"val_data: &VALDATA\n  base_dir: {tmp_path / 'data' / 'val'}"),
-            ("test_data: &TESTDATA\n  base_dir: Null",
-             f"test_data: &TESTDATA\n  base_dir: "
-             f"{tmp_path / 'data' / 'val'}"),
-            ('model_class_name: "UNet3D"', 'model_class_name: "SwinUNETR"'),
-            ("real_box_dim: Null", f"real_box_dim: {DIM}"),
-            ("\n  dim: Null", f"\n  dim: {DIM}\n  feature_size: {F_}"),
-            ('loss: "SparseCategoricalCrossentropy"',
-             'loss: "SparseDiceCELoss"'),
-            ('optimizer: "Adam"', 'optimizer: "AdamW"'),
-            ("batch_size: 16", f"batch_size: {BATCH}"),
-            ("mixed_precision: True", "mixed_precision: False")):
-        assert old in text, old
-        text = text.replace(old, new)
-    proj = tmp_path / "proj"
-    proj.mkdir()
-    (proj / "train_hparams.yaml").write_text(text)
-    cwd = os.getcwd()
-    try:
-        mp.entry_func(["train", "--project_dir", str(proj), "--device",
-                       "cpu", "--overwrite", "--no_images", "--epochs", "2",
-                       "--train_images_per_epoch", "4",
-                       "--val_images_per_epoch", "2"])
-        log = (proj / "logs" / "train.txt").read_text()
-        assert "Sampler: pooled path (isotropic 3D boxes" in log
-        params, _, _ = checkpoint.load_weights(proj / "model"
-                                               / "model_weights.npz")
-        assert "swinViT" in params and "decoder1" in params
-        mp.entry_func(["predict_3D", "--project_dir", str(proj), "--device",
-                       "cpu", "--overwrite"])
-    finally:
-        os.chdir(cwd)
+    toy_data(tmp_path / "data", 2, 1, 32, 5)
+    proj = write_project(tmp_path, "proj", "3D", (
+        ('model_class_name: "UNet3D"', 'model_class_name: "SwinUNETR"'),
+        ("real_box_dim: Null", f"real_box_dim: {DIM}"),
+        ("\n  dim: Null", f"\n  dim: {DIM}\n  feature_size: {F_}"),
+        ('loss: "SparseCategoricalCrossentropy"',
+         'loss: "SparseDiceCELoss"'),
+        ('optimizer: "Adam"', 'optimizer: "AdamW"'),
+        ("batch_size: 16", f"batch_size: {BATCH}"),
+        ("mixed_precision: True", "mixed_precision: False")))
+    run_entry(mp.entry_func, "train", "--project_dir", str(proj), "--device",
+              "cpu", *train_args(4, 2))
+    log = (proj / "logs" / "train.txt").read_text()
+    assert "Sampler: pooled path (isotropic 3D boxes" in log
+    params, _, _ = checkpoint.load_weights(proj / "model"
+                                           / "model_weights.npz")
+    assert "swinViT" in params and "decoder1" in params
+    run_entry(mp.entry_func, "predict_3D", "--project_dir", str(proj),
+              "--device", "cpu", "--overwrite")
     out = proj / "predictions_3D"
     assert (out / "nii_files" / "val_000" / "PRED.nii.gz").exists()
     assert (out / "csv" / "results.csv").exists()

@@ -20,7 +20,6 @@ from multiplanarunet_tpu.bin import trim_channels as j_trim
 from multiplanarunet_tpu.models import UNet as JUNet
 from multiplanarunet_tpu.models import UNet3D as JUNet3D
 from multiplanarunet_tpu.models import checkpoint as jckpt
-from multiplanarunet_tpu.models import init_model_variables
 from multiplanarunet_tpu_torch.bin import convert_weights as t_convert
 from multiplanarunet_tpu_torch.bin import export_weights as t_export
 from multiplanarunet_tpu_torch.bin import mp as t_mp
@@ -29,9 +28,9 @@ from multiplanarunet_tpu_torch.io import nifti
 from multiplanarunet_tpu_torch.models import checkpoint as tckpt
 from multiplanarunet_tpu_torch.models.unet import UNet
 from multiplanarunet_tpu_torch.models.unet3d import UNet3D
+from tests.torch_projects import flax_init, torch_threads  # noqa: F401
 
 h5py = pytest.importorskip("h5py")
-torch.set_num_threads(2)
 
 
 # ------------------------------------------------------------ dispatcher
@@ -142,12 +141,13 @@ def _write_h5(path, variables, name_of, full_save=False):
 
 @functools.lru_cache(maxsize=None)
 def _variables(three_d):
-    """A flax UNet (UNet3D) of depth 2 and its init variables (the eager
-    flax init takes seconds, so each is made once)."""
+    """A flax UNet (UNet3D) of depth 2 and its init variables (as the JAX
+    package's init_model_variables draws them)."""
     cls = JUNet3D if three_d else JUNet
     model = cls(n_classes=3, dim=16 if three_d else 32, depth=2,
                 init_filters=8, complexity_factor=1)
-    return model, init_model_variables(model, rng=jax.random.PRNGKey(0))
+    shape = (1,) + (model.dim,) * (3 if three_d else 2) + (model.n_channels,)
+    return model, flax_init(model, jax.random.PRNGKey(0), shape)
 
 
 def _autonamed_3d(depth=2):

@@ -26,8 +26,8 @@ from multiplanarunet_tpu_torch.utils import trace
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
 )
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 N_VIEWS = 3
 EPOCHS, STEPS = 2, 3

@@ -5,17 +5,13 @@ columns, the same YAML fields written back (the Auditor's values), the
 same checkpoint files; then --continue_training resumes the epoch and the
 learning rate, the port's `mp predict` runs on the trained project, and
 the named errors."""
-import os
 import shutil
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 import yaml
 
-from multiplanarunet_tpu.bin import train as j_train
-from multiplanarunet_tpu.bin.toy_data import create_dataset
 from multiplanarunet_tpu.models import checkpoint as jckpt
 from multiplanarunet_tpu_torch import _device
 from multiplanarunet_tpu_torch.bin import mp as t_mp
@@ -25,63 +21,33 @@ from multiplanarunet_tpu_torch.models.model_init import UnsupportedModelError
 from multiplanarunet_tpu_torch.preprocessing.scaling import (
     UnsupportedScalerError,
 )
+from tests.torch_projects import (  # noqa: F401
+    preset_yaml,
+    run_entry,
+    torch_threads,
+    train_args,
+    trained_pair,
+    write_project,
+)
 
-torch.set_num_threads(2)
 
-REPO = Path(__file__).resolve().parents[1]
-DEFAULT_YAML = (REPO / "multiplanarunet_tpu" / "bin" / "defaults" /
-                "MultiPlanar" / "train_hparams.yaml")
-ARGS = ["--overwrite", "--no_images", "--epochs", "2",
-        "--train_images_per_epoch", "12", "--val_images_per_epoch", "8"]
+DEFAULT_YAML = preset_yaml("MultiPlanar")
+SHRINK = (("dim: Null", "dim: 32\n  init_filters: 8"),
+          ("depth: 4", "depth: 2"),
+          ("complexity_factor: 2", "complexity_factor: 1"),
+          ("views: 6", "views: 3"),
+          ("batch_size: 16", "batch_size: 4"),
+          ("mixed_precision: True", "mixed_precision: False"))
+TRAIN_ARGS = train_args(12, 8)
+DATA = (3, 2, 32, 3)  # toy_data's n_train, n_val, dim, seed
 # YAML lines both packages stamp with their version and git state
 STAMPS = ("__VERSION__", "__BRANCH__", "__COMMIT__")
 
 
-def _write_project(root, name, extra=()):
-    text = DEFAULT_YAML.read_text()
-    for old, new in (
-            ("train_data: &TRAINDATA\n  base_dir: Null",
-             f"train_data: &TRAINDATA\n  base_dir: {root / 'data' / 'train'}"),
-            ("val_data: &VALDATA\n  base_dir: Null",
-             f"val_data: &VALDATA\n  base_dir: {root / 'data' / 'val'}"),
-            ("test_data: &TESTDATA\n  base_dir: Null",
-             f"test_data: &TESTDATA\n  base_dir: {root / 'data' / 'val'}"),
-            ("dim: Null", "dim: 32\n  init_filters: 8"),
-            ("depth: 4", "depth: 2"),
-            ("complexity_factor: 2", "complexity_factor: 1"),
-            ("views: 6", "views: 3"),
-            ("batch_size: 16", "batch_size: 4"),
-            ("mixed_precision: True", "mixed_precision: False"),
-            *extra):
-        assert old in text, old
-        text = text.replace(old, new)
-    proj = root / name
-    proj.mkdir()
-    (proj / "train_hparams.yaml").write_text(text)
-    return proj
-
-
-def _run(entry, *args):
-    cwd = os.getcwd()
-    try:
-        return entry(list(args))
-    finally:
-        os.chdir(cwd)
-
-
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
-    root = tmp_path_factory.mktemp("mp_train")
-    rng = np.random.RandomState(3)
-    create_dataset(root / "data" / "train", 3, 32, 1, rng, "train")
-    create_dataset(root / "data" / "val", 2, 32, 1, rng, "val")
-    port = _write_project(root, "port")
-    jax_proj = _write_project(root, "jax")
-    _run(t_mp.entry_func, "train", "--project_dir", str(port), "--device",
-         "cpu", *ARGS)
-    _run(j_train.entry_func, "--project_dir", str(jax_proj),
-         "--num_devices", "1", *ARGS)
-    return root, port, jax_proj
+def trained():
+    port, jax_proj = trained_pair("MultiPlanar", SHRINK, TRAIN_ARGS, DATA)
+    return port.parent, port, jax_proj
 
 
 def _csv(proj):
@@ -154,9 +120,9 @@ def test_continue_training_resumes_epoch_and_lr(trained):
     rows[last - 1]["lr"] = "3e-05"
     csv_path.write_text("\n".join([",".join(head)] + [
         ",".join(r[h] for h in head) for r in rows]) + "\n")
-    _run(t_mp.entry_func, "train", "--project_dir", str(proj), "--device",
-         "cpu", "--continue_training", "--no_images", "--epochs", "3",
-         "--train_images_per_epoch", "8", "--val_images_per_epoch", "4")
+    run_entry(t_mp.entry_func, "train", "--project_dir", str(proj), "--device",
+              "cpu", "--continue_training", "--no_images", "--epochs", "3",
+              "--train_images_per_epoch", "8", "--val_images_per_epoch", "4")
     _, new_rows = _csv(proj)
     assert [int(r["epoch"]) for r in new_rows] == list(range(3))
     assert new_rows[last]["lr"] == "3e-05"
@@ -167,8 +133,9 @@ def test_continue_training_resumes_epoch_and_lr(trained):
 
 def test_predict_on_the_trained_project(trained):
     _, port, _ = trained
-    _run(t_mp.entry_func, "predict", "--project_dir", str(port),
-         "--out_dir", "pred", "--device", "cpu", "--no_eval", "--overwrite")
+    run_entry(t_mp.entry_func, "predict", "--project_dir", str(port),
+              "--out_dir", "pred", "--device", "cpu", "--no_eval",
+              "--overwrite")
     preds = sorted((port / "pred" / "nii_files").glob("*/PRED.nii.gz"))
     assert len(preds) == 2
     pred = nifti.load(preds[0]).get_raw_data()
@@ -184,11 +151,11 @@ def test_named_errors(trained, tmp_path, monkeypatch):
     ]
     for extra, err in cases:
         with pytest.raises(err):
-            _run(t_mp.entry_func, "train", "--project_dir", str(tmp_path),
-                 "--device", "cpu", *extra)
+            run_entry(t_mp.entry_func, "train", "--project_dir", str(tmp_path),
+                      "--device", "cpu", *extra)
     with pytest.raises(RuntimeError, match="not a valid project"):
-        _run(t_mp.entry_func, "train", "--project_dir", str(tmp_path),
-             "--device", "cpu")
+        run_entry(t_mp.entry_func, "train", "--project_dir", str(tmp_path),
+                  "--device", "cpu")
     for name, extra, err in (
             ("unknown_model", [('model_class_name: "UNet"',
                                 'model_class_name: "NoSuchUNet"')],
@@ -204,29 +171,24 @@ def test_named_errors(trained, tmp_path, monkeypatch):
                            "callbacks: [{class_name: NoSuchCallback}, "
                            "*RLOP,")],
              CallbackNotPortedError)):
-        proj = _write_project(root, name, extra)
+        proj = write_project(root, name, "MultiPlanar", SHRINK + tuple(extra))
         with pytest.raises(err):
-            _run(t_mp.entry_func, "train", "--project_dir", str(proj),
-                 "--device", "cpu", *ARGS)
+            run_entry(t_mp.entry_func, "train", "--project_dir", str(proj),
+                      "--device", "cpu", *TRAIN_ARGS)
     # the default device is CUDA: with no card visible it raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(_device.CudaUnavailableError):
-        _run(t_mp.entry_func, "train", "--project_dir", str(tmp_path))
+        run_entry(t_mp.entry_func, "train", "--project_dir", str(tmp_path))
 
 
-def test_max_loaded_images_trains_in_both_packages(trained):
+def test_max_loaded_images_trains_in_both_packages():
     """`mp train --max_loaded_images 2 --num_access 3` on the 3-image
     project: both packages train over a LimitationQueue (per-image
     sampling, the pool's 2 slots being below the batch of 4) and write
     their CSV rows; the port logs its reloads."""
-    root, _, _ = trained
     extra = ("--max_loaded_images", "2", "--num_access", "3")
-    port = _write_project(root, "port_bounded")
-    jax_proj = _write_project(root, "jax_bounded")
-    _run(t_mp.entry_func, "train", "--project_dir", str(port), "--device",
-         "cpu", *ARGS, *extra)
-    _run(j_train.entry_func, "--project_dir", str(jax_proj),
-         "--num_devices", "1", *ARGS, *extra)
+    port, jax_proj = trained_pair("MultiPlanar", SHRINK, TRAIN_ARGS + extra,
+                                  DATA)
     for proj in (port, jax_proj):
         _, rows = _csv(proj)
         assert [r["epoch"] for r in rows] == ["0", "1"]

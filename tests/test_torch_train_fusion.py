@@ -4,7 +4,6 @@ the per-view mapped probabilities and the device-resident points of
 regulariser), its gradients, Adam and the validation counts, `_fit_fusion`
 epoch for epoch, and `mp train_fusion` end to end on a tiny project run by
 both packages, whose fusion files each package's `mp predict` reads."""
-import os
 import shutil
 
 import numpy as np
@@ -55,8 +54,14 @@ from multiplanarunet_tpu_torch.utils.fusion.fusion_training import (
     predict_and_map,
     stack_collections,
 )
+from tests.torch_projects import (  # noqa: F401
+    flax_init,
+    edit_yaml,
+    run_entry,
+    run_jax_entry,
+    torch_threads,
+)
 
-torch.set_num_threads(2)
 
 DIM = 32
 N_CLASSES = 3
@@ -68,8 +73,7 @@ def _jax_unet_checkpoint(path, n_classes, seed=0, sharpen=8.0):
     JAX format, the out conv sharpened so classes are not near-ties."""
     model = JUNet(dim=DIM, n_classes=n_classes, n_channels=1, depth=2,
                   init_filters=8)
-    v = jax.jit(lambda k: model.init(k, jnp.zeros((1, DIM, DIM, 1)),
-                                     train=False))(jax.random.PRNGKey(seed))
+    v = flax_init(model, jax.random.PRNGKey(seed), (1, DIM, DIM, 1))
     params = jax.tree.map(np.asarray, v["params"])
     params["out_conv"]["kernel"] = params["out_conv"]["kernel"] * sharpen
     params["out_conv"]["bias"] = np.zeros(n_classes, np.float32)
@@ -365,17 +369,14 @@ def projects(tmp_path_factory):
     t_init_project.entry_func(["--name", "proj", "--root", str(root),
                                "--data_dir", str(root / "data")])
     proj = root / "proj"
-    text = (proj / "train_hparams.yaml").read_text()
-    for old, new in (("n_classes: Null", "n_classes: 4"),
-                     ("n_channels: Null", "n_channels: 1"),
-                     ("dim: Null", f"dim: {DIM}\n  init_filters: 8"),
-                     ("depth: 4", "depth: 2"),
-                     ("complexity_factor: 2", "complexity_factor: 1"),
-                     ("real_space_span: Null", "real_space_span: 24"),
-                     ("mixed_precision: True", "mixed_precision: False")):
-        assert old in text, old
-        text = text.replace(old, new)
-    (proj / "train_hparams.yaml").write_text(text)
+    edit_yaml(proj / "train_hparams.yaml", (
+        ("n_classes: Null", "n_classes: 4"),
+        ("n_channels: Null", "n_channels: 1"),
+        ("dim: Null", f"dim: {DIM}\n  init_filters: 8"),
+        ("depth: 4", "depth: 2"),
+        ("complexity_factor: 2", "complexity_factor: 1"),
+        ("real_space_span: Null", "real_space_span: 24"),
+        ("mixed_precision: True", "mixed_precision: False")))
     np.savez(proj / "views.npz", jgeo.sample_random_views_with_angle_restriction(
         2, 60, rng=np.random.RandomState(3)))
     _jax_unet_checkpoint(proj / "model" / "@epoch_02_val_dice_0.50000.npz", 4,
@@ -387,17 +388,9 @@ def projects(tmp_path_factory):
     return out
 
 
-ARGS = ["--overwrite", "--images_per_round", "2", "--min_val_images", "3",
-        "--epochs", "3", "--batch_size", "8192", "--n_planes", "same",
-        "--seed", "0"]
-
-
-def _run(entry, *args):
-    cwd = os.getcwd()
-    try:
-        return entry(list(args))
-    finally:
-        os.chdir(cwd)
+FUSION_ARGS = ["--overwrite", "--images_per_round", "2", "--min_val_images",
+               "3", "--epochs", "3", "--batch_size", "8192", "--n_planes",
+               "same", "--seed", "0"]
 
 
 def test_mp_train_fusion_both_packages(projects):
@@ -407,9 +400,10 @@ def test_mp_train_fusion_both_packages(projects):
     output without --overwrite raises; --num_devices 2 raises the named
     error."""
     jp, tp = projects["jax"], projects["port"]
-    _run(j_train_fusion.entry_func, "--project_dir", str(jp), *ARGS)
-    params = _run(t_mp.entry_func, "train_fusion", "--project_dir", str(tp),
-                  "--device", "cpu", *ARGS)
+    run_jax_entry(j_train_fusion.entry_func, "--project_dir", str(jp),
+                  *FUSION_ARGS)
+    params = run_entry(t_mp.entry_func, "train_fusion", "--project_dir",
+                       str(tp), "--device", "cpu", *FUSION_ARGS)
     name = "@epoch_02_val_dice_0.50000_fusion_weights.npz"
     files = {k: p / "model" / "fusion_weights" / name
              for k, p in projects.items()}
@@ -434,18 +428,20 @@ def test_mp_train_fusion_both_packages(projects):
     swapped = {"jax": files["port"], "port": files["jax"]}
     for k, src in swapped.items():
         shutil.copy(src, files[k])
-    _run(j_predict.entry_func, "--project_dir", str(jp), "--out_dir", "pred",
-         "--overwrite", "--num_devices", "1", "--n_planes", "same")
-    _run(t_mp.entry_func, "predict", "--project_dir", str(tp), "--out_dir",
-         "pred", "--overwrite", "--device", "cpu", "--n_planes", "same")
+    run_jax_entry(j_predict.entry_func, "--project_dir", str(jp),
+                  "--out_dir", "pred", "--overwrite", "--num_devices", "1",
+                  "--n_planes", "same")
+    run_entry(t_mp.entry_func, "predict", "--project_dir", str(tp),
+              "--out_dir", "pred", "--overwrite", "--device", "cpu",
+              "--n_planes", "same")
     for p in (jp, tp):
         assert f"Loaded fusion weights from {files[p.name]}" in (
             p / "pred" / "predict_log.txt").read_text()
         assert (p / "pred" / "csv" / "results.csv").exists()
 
     with pytest.raises(RuntimeError, match="exists"):
-        _run(t_mp.entry_func, "train_fusion", "--project_dir", str(tp),
-             "--device", "cpu")
+        run_entry(t_mp.entry_func, "train_fusion", "--project_dir", str(tp),
+                  "--device", "cpu")
     with pytest.raises(TooFewDevicesError, match="2 devices asked"):
-        _run(t_mp.entry_func, "train_fusion", "--project_dir", str(tp),
-             "--num_devices", "2")
+        run_entry(t_mp.entry_func, "train_fusion", "--project_dir", str(tp),
+                  "--num_devices", "2")

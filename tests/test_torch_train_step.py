@@ -31,8 +31,8 @@ from multiplanarunet_tpu_torch.train.train_step import (
     reg_penalty,
 )
 from multiplanarunet_tpu_torch.train.utils import init_optimizer
+from tests.torch_projects import flax_init, torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 KW = dict(n_classes=4, n_channels=2, depth=2, init_filters=8)
 LR = 1e-3
@@ -40,8 +40,7 @@ LR = 1e-3
 
 def _variables(jmodel, hw, seed=0):
     """flax variables with random running statistics."""
-    v = jax.jit(lambda k: jmodel.init(k, jnp.zeros((1, hw, hw, 2)),
-                                      train=False))(jax.random.PRNGKey(seed))
+    v = flax_init(jmodel, jax.random.PRNGKey(seed), (1, hw, hw, 2))
     params = jax.tree.map(np.asarray, v["params"])
     rng = np.random.RandomState(seed)
     stats = jax.tree.map(

@@ -16,8 +16,7 @@ from multiplanarunet_tpu_torch.logging.loggers import ScreenLogger
 from multiplanarunet_tpu_torch.models.unet import UNet, glorot_init
 from multiplanarunet_tpu_torch.sequences.base_sequence import prefetched
 from multiplanarunet_tpu_torch.train.trainer import Trainer
-
-torch.set_num_threads(2)
+from tests.torch_projects import torch_threads  # noqa: F401
 
 
 class Replay:

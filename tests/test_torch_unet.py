@@ -17,13 +17,12 @@ from multiplanarunet_tpu_torch.models import checkpoint as tckpt
 from multiplanarunet_tpu_torch.models.fusion_model import FusionModel
 from multiplanarunet_tpu_torch.models.fusion_model import fuse_probabilities
 from multiplanarunet_tpu_torch.models.unet import UNet
-
-torch.set_num_threads(2)
+from tests.torch_projects import flax_init, torch_threads  # noqa: F401
 
 
 def init_unet(model, key, shape):
     """(params, batch_stats) of a flax UNet (jitted: eager init is slow)."""
-    v = jax.jit(lambda k: model.init(k, jnp.zeros(shape), train=False))(key)
+    v = flax_init(model, key, shape)
     return v["params"], v["batch_stats"]
 
 

@@ -34,8 +34,8 @@ from multiplanarunet_tpu_torch.utils import trace
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
 )
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 F32_RTOL, BF16_ATOL = 1e-6, 2.0 ** -7
 KW = dict(n_classes=3, n_channels=2, depth=2, complexity_factor=2.0,

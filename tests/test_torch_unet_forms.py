@@ -36,8 +36,8 @@ from multiplanarunet_tpu_torch.models.unet3d import UNet3D
 from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
     MultiViewPredictor,
 )
+from tests.torch_projects import torch_threads  # noqa: F401
 
-torch.set_num_threads(2)
 
 KW = dict(n_classes=3, n_channels=2, depth=2, complexity_factor=2.0,
           init_filters=8)

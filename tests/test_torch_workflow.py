@@ -24,6 +24,7 @@ from multiplanarunet_tpu_torch.bin import summary as t_summary
 from multiplanarunet_tpu_torch.bin import toy_data as t_toy_data
 from multiplanarunet_tpu_torch.io import nifti as tnifti
 from multiplanarunet_tpu_torch.logging import log_results as tlr
+from tests.torch_projects import torch_threads  # noqa: F401
 
 JAX_DEFAULTS = j_init_project.defaults_dir()
 PORT_DEFAULTS = t_init_project.defaults_dir()
