@@ -247,6 +247,13 @@ def plan_affine_resample(N, c, src_shape, out_shape, round_extent=16):
     Searches all (source-axis, output-axis) permutation pairs and keeps the
     factorization with the smallest total stage footprint (the passes are
     bandwidth-bound, so stage voxels ~ runtime), alias-free ones first.
+
+    The score is (alias tier, footprint) and the tier is known from `_peel`
+    alone, so the search peels every pair, then finishes tier by tier from
+    the lowest and stops at the first tier that holds a finished candidate:
+    the plan the exhaustive search picks, with ties still going to the
+    first pair in enumeration order. Counters: `shear_plan.candidates`
+    (finished) and `shear_plan.pruned` (factored, never finished).
     """
     N = np.asarray(N, np.float64)
     c = np.asarray(c, np.float64)
@@ -254,7 +261,10 @@ def plan_affine_resample(N, c, src_shape, out_shape, round_extent=16):
     plan.src_shape = tuple(int(s) for s in src_shape)
     plan.out_shape = tuple(int(s) for s in out_shape)
 
-    best = None
+    # (alias tier, out_perm, perm, ops, out_shape_p) of each pair that
+    # factors, in enumeration order. A pass with |alpha| > 1 subsamples
+    # its axis, so alias-free factorizations win outright.
+    cands = []
     for out_perm in permutations(range(3)):
         Nc = N[:, list(out_perm)]
         out_shape_p = tuple(plan.out_shape[k] for k in out_perm)
@@ -262,27 +272,36 @@ def plan_affine_resample(N, c, src_shape, out_shape, round_extent=16):
             ops, ok = _peel(Nc[list(perm), :])
             if not ok:
                 continue
-            cand = ShearPlan()
-            cand.src_shape = plan.src_shape
-            cand.out_shape = plan.out_shape
-            cand.valid = True
-            try:
-                _finish_plan(cand, perm, out_perm, ops, c[list(perm)],
-                             out_shape_p, round_extent)
-            except np.linalg.LinAlgError:
-                continue
-            # Score: (alias tier, footprint). A pass with |alpha| > 1
-            # subsamples its axis, so alias-free factorizations win
-            # outright; footprint breaks ties. Float math: ill-conditioned
-            # candidates produce extents that overflow int64.
             alias = max(1.0, max(abs(o.alpha) for o in ops))
-            cost = sum(
-                float(np.prod([float(e) for (_, e) in st]))
-                for st in cand.stages
-            )
-            score = (round(alias, 6), cost)
-            if best is None or score < best[0]:
-                best = (score, cand)
+            cands.append((round(alias, 6), out_perm, perm, ops, out_shape_p))
+    # Stable: enumeration order within a tier.
+    cands.sort(key=lambda k: k[0])
+
+    best = None
+    finished = 0
+    for alias, out_perm, perm, ops, out_shape_p in cands:
+        if best is not None and alias != best[0][0]:
+            break
+        finished += 1
+        cand = ShearPlan()
+        cand.src_shape = plan.src_shape
+        cand.out_shape = plan.out_shape
+        cand.valid = True
+        try:
+            _finish_plan(cand, perm, out_perm, ops, c[list(perm)],
+                         out_shape_p, round_extent)
+        except np.linalg.LinAlgError:
+            continue
+        # Float math: ill-conditioned candidates produce extents that
+        # overflow int64.
+        cost = sum(
+            float(np.prod([float(e) for (_, e) in st]))
+            for st in cand.stages
+        )
+        score = (alias, cost)
+        if best is None or score < best[0]:
+            best = (score, cand)
+    trace.count("shear_plan.pruned", len(cands) - finished)
     if best is None:
         plan.valid = False
         plan.perm, plan.out_perm, plan.ops, plan.stages = None, None, [], []

@@ -3,6 +3,8 @@
 Planner and geometry copies must be identical; the plain shear pass must
 match the JAX take and Pallas (interpret mode) executors; the torch
 `shear_resample` must match the JAX one on the same inputs."""
+from itertools import permutations
+
 import numpy as np
 import pytest
 import torch
@@ -15,10 +17,16 @@ from multiplanarunet_tpu.ops import shear as jshear
 from multiplanarunet_tpu_torch.ops import geometry as tgeo
 from multiplanarunet_tpu_torch.ops import shear as tshear
 from multiplanarunet_tpu_torch.ops import shear_plan as tplan
+from multiplanarunet_tpu_torch.image.volume_sampler import VolumeSampler
 from multiplanarunet_tpu_torch.ops.shear_pass import (
     shear_pass,
     shear_pass_reference,
 )
+from multiplanarunet_tpu_torch.utils import trace
+from multiplanarunet_tpu_torch.utils.fusion.fuse_and_predict import (
+    MultiViewPredictor,
+)
+from portbench import harness, traffic
 from tests.torch_projects import torch_threads  # noqa: F401
 
 
@@ -123,6 +131,209 @@ def test_factor_affine_identical():
                 == [(o.m, o.q, o.alpha, o.beta) for o in ot])
         np.testing.assert_array_equal(jshear._compose(oj)[0],
                                       tplan._compose(ot)[0])
+
+
+# ----------------------------------------------------- tiered search
+# The port's search finishes only the lowest alias tier that factors; the
+# JAX package's planner finishes every pair. Their plans must be equal.
+COHORT = harness.load_json(
+    harness.HERE / "workloads" / "predict2d-cohort-v6.json")["traffic"]
+ISO256 = harness.load_json(
+    harness.HERE / "workloads" / "predict2d-256-v6.json")["traffic"]
+PROTOCOLS = ISO256["protocols"] + COHORT["protocols"]
+
+
+class _CellImage:
+    """What the predictor's planning reads of an image: a volume of the
+    protocol's shape (broadcast zeros, no memory) and its affine."""
+
+    def __init__(self, shape, affine):
+        vol = np.broadcast_to(np.zeros((1, 1, 1, 1), np.float32),
+                              tuple(shape) + (1,))
+        self.shape, self.affine = vol.shape, affine
+        self.interpolator = VolumeSampler(vol, affine, bg_value=-3.0)
+
+
+@pytest.mark.parametrize("proto", PROTOCOLS, ids=lambda p: p["name"])
+def test_tiered_search_cell_geometry_identical(proto, monkeypatch):
+    """The stack and remap plans of the predict cells' six views, at dim
+    256 and same+20 planes, on two volumes of each protocol (turned by up
+    to 15 degrees, as the cohort cell turns them)."""
+    calls = []
+    inner = tplan.plan_affine_resample
+
+    def recorded(N, c, src_shape, out_shape, round_extent=16):
+        plan = inner(N, c, src_shape, out_shape, round_extent)
+        calls.append((N, c, src_shape, out_shape, plan))
+        return plan
+
+    monkeypatch.setattr(tplan, "plan_affine_resample", recorded)
+    predictor = MultiViewPredictor(torch.nn.Identity(), sample_dim=256,
+                                   real_space_span=255, n_classes=7,
+                                   device="cpu")
+    views = traffic.random_views(6, COHORT["min_view_angle_deg"],
+                                 np.random.RandomState(COHORT["views_seed"]))
+    one = dict(COHORT, protocols=[proto])
+    for index in range(2):
+        _, affine = traffic.draw_volume(one, 2 ** 31 + 7919, index)
+        predictor._plan(_CellImage(proto["shape"], affine), views, None,
+                        "same+20")
+    assert len(calls) == 2 * 2 * len(views)
+    for N, c, src_shape, out_shape, plan in calls:
+        assert plan.valid
+        _assert_same_plan(
+            jshear.plan_affine_resample(N, c, src_shape, out_shape), plan)
+
+
+def _ill_conditioned(rng):
+    """Rotations with singular values spread over three to five decades,
+    or a strong shear: few pairs factor well, tiers lie far apart."""
+    if rng.rand() < 0.5:
+        U, _ = np.linalg.qr(rng.randn(3, 3))
+        V, _ = np.linalg.qr(rng.randn(3, 3))
+        return U @ np.diag(10.0 ** -rng.uniform(0, [0, 3, 5])) @ V.T
+    S = np.eye(3)
+    S[rng.randint(3), rng.randint(3)] += rng.uniform(-50, 50)
+    return S @ _random_affine(rng)
+
+
+def _tiered_case(rng, kind):
+    if kind == "ill":
+        N = _ill_conditioned(rng)
+    elif kind == "axis":
+        # axis-aligned with a swap of axes: many pairs tie on their tier
+        # and footprint, so the first in enumeration order must win
+        N = np.eye(3)[rng.permutation(3)] * rng.choice([0.5, 1.0, 2.0], 3)
+    else:
+        spacing = rng.uniform(0.5, 3.0, 3)
+        N = _random_affine(rng) / spacing[:, None]
+    c = rng.randn(3) * 10
+    src = tuple(int(s) for s in rng.randint(8, 64, 3))
+    out = tuple(int(s) for s in rng.randint(8, 64, 3))
+    return N, c, src, out
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_tiered_search_random_affines_identical(seed):
+    """240 seeded affines over eight cases: anisotropic spacings, some
+    ill-conditioned, some axis-aligned."""
+    rng = np.random.RandomState(1000 + seed)
+    for i in range(30):
+        kind = ("ill", "axis", "aniso", "aniso", "aniso")[i % 5]
+        N, c, src, out = _tiered_case(rng, kind)
+        _assert_same_plan(jshear.plan_affine_resample(N, c, src, out),
+                          tplan.plan_affine_resample(N, c, src, out))
+
+
+@pytest.mark.parametrize("N", [
+    [[1.0, 0, 0], [1.0, 0, 0], [0, 0, 1.0]],
+    [[1.0, 2.0, 3.0], [2.0, 4.0, 6.0], [0, 1.0, 0]],
+    np.zeros((3, 3)),
+], ids=["repeated-row", "rank-two", "zero"])
+def test_tiered_search_singular_stays_invalid(N):
+    trace.take()
+    trace.enable()
+    try:
+        with trace.span("predict.plan"):
+            plan = tplan.plan_affine_resample(np.asarray(N), np.zeros(3),
+                                              (8,) * 3, (8,) * 3)
+    finally:
+        trace.disable()
+    records = trace.take()
+    assert not plan.valid and plan.ops == [] and plan.stages == []
+    assert not jshear.plan_affine_resample(np.asarray(N), np.zeros(3),
+                                           (8,) * 3, (8,) * 3).valid
+    assert records["counters"].get("shear_plan.pruned", 0) == 0
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf],
+                         ids=["nan", "inf", "-inf"])
+def test_tiered_search_non_finite_as_jax(value):
+    """A non-finite coefficient: the port does what the JAX planner does,
+    the same plan or the same exception."""
+    rng = np.random.RandomState(11)
+    for _ in range(4):
+        N = _random_affine(rng)
+        N[tuple(rng.randint(3, size=2))] = value
+        args = (N, rng.randn(3), (16, 20, 24), (24, 16, 20))
+        try:
+            want = jshear.plan_affine_resample(*args)
+        except Exception as e:  # noqa: BLE001 - compared below
+            with pytest.raises(type(e)):
+                tplan.plan_affine_resample(*args)
+            continue
+        _assert_same_plan(want, tplan.plan_affine_resample(*args))
+
+
+def _tier_of(ops):
+    return round(max(1.0, max(abs(o.alpha) for o in ops)), 6)
+
+
+def _brute_force(N, c, src, out, skip_tier):
+    """The exhaustive search over every factoring pair whose tier is not
+    `skip_tier`."""
+    best = None
+    for out_perm in permutations(range(3)):
+        Nc = N[:, list(out_perm)]
+        out_p = tuple(out[k] for k in out_perm)
+        for perm in permutations(range(3)):
+            ops, ok = tplan._peel(Nc[list(perm), :])
+            if not ok or _tier_of(ops) == skip_tier:
+                continue
+            cand = tplan.ShearPlan()
+            cand.src_shape, cand.out_shape, cand.valid = src, out, True
+            tplan._finish_plan(cand, perm, out_perm, ops, c[list(perm)],
+                               out_p, 16)
+            cost = sum(float(np.prod([float(e) for (_, e) in st]))
+                       for st in cand.stages)
+            if best is None or (_tier_of(ops), cost) < best[0]:
+                best = ((_tier_of(ops), cost), cand)
+    return best[1]
+
+
+def test_tiered_search_moves_past_an_unfinishable_tier(monkeypatch):
+    """Every candidate of the lowest tier raises LinAlgError: the search
+    finishes the next tiers, and picks what the exhaustive search picks
+    without the lowest tier."""
+    rng = np.random.RandomState(5)
+    inner = tplan._finish_plan
+    checked = 0
+    for _ in range(10):
+        N = _random_affine(rng) / rng.uniform(0.5, 3.0, 3)[:, None]
+        c = rng.randn(3) * 10
+        src = tuple(int(s) for s in rng.randint(8, 64, 3))
+        out = tuple(int(s) for s in rng.randint(8, 64, 3))
+        peeled = [tplan._peel(N[:, list(out_perm)][list(perm), :])
+                  for out_perm in permutations(range(3))
+                  for perm in permutations(range(3))]
+        tiers = sorted({_tier_of(ops) for ops, ok in peeled if ok})
+        if len(tiers) < 2:
+            continue
+        want = _brute_force(N, c, src, out, skip_tier=tiers[0])
+
+        def failing(plan, perm, out_perm, ops, *args):
+            if _tier_of(ops) == tiers[0]:
+                raise np.linalg.LinAlgError("singular gamma system")
+            return inner(plan, perm, out_perm, ops, *args)
+
+        monkeypatch.setattr(tplan, "_finish_plan", failing)
+        got = tplan.plan_affine_resample(N, c, src, out)
+        monkeypatch.setattr(tplan, "_finish_plan", inner)
+        assert got.valid and _tier_of(got.ops) > tiers[0]
+        _assert_same_plan(want, got)
+        checked += 1
+    assert checked >= 5
+
+
+def test_tiered_search_no_finishable_tier_is_invalid(monkeypatch):
+    def failing(*args):
+        raise np.linalg.LinAlgError("singular gamma system")
+
+    monkeypatch.setattr(tplan, "_finish_plan", failing)
+    rng = np.random.RandomState(6)
+    plan = tplan.plan_affine_resample(_random_affine(rng), np.zeros(3),
+                                      (16,) * 3, (16,) * 3)
+    assert not plan.valid and plan.ops == [] and plan.perm is None
 
 
 # ----------------------------------------------------------------- geometry

@@ -235,6 +235,34 @@ def test_plan_candidates_equal_finish_plan_calls(monkeypatch):
     assert per_image <= 36 * 2 * N_VIEWS
 
 
+def test_plan_candidates_and_pruned_cover_every_factoring_pair(
+        monkeypatch):
+    """One predict_image: the finished candidates and the pruned ones
+    together are every (out_perm, perm) pair that factors over the
+    volume's plans (a stack and a remap plan a view), all counted inside
+    the planning span."""
+    factored = []
+    inner = shear_plan._peel
+
+    def peel(Np):
+        ops, ok = inner(Np)
+        factored.append(ok)
+        return ops, ok
+
+    monkeypatch.setattr(shear_plan, "_peel", peel)
+    trace.enable()
+    _predict(n_images=1)
+    records = trace.take()
+    assert len(factored) == 36 * 2 * N_VIEWS
+    plan, = _by_name(records)["predict.plan"]
+    totals = records["counters"]
+    for name in ("shear_plan.candidates", "shear_plan.pruned"):
+        assert plan["counters"][name] == totals[name]
+    assert totals["shear_plan.pruned"] > 0
+    assert (totals["shear_plan.candidates"] + totals["shear_plan.pruned"]
+            == sum(factored))
+
+
 def test_profiler_shows_the_spans(train_seq):
     # Profile every thread, so that the prefetch worker's spans show too
     cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
